@@ -1,0 +1,219 @@
+"""The shared-stripe DIA layer of the PyTorch port against the JAX package:
+geometry and stripe bytes, the three kernels' plain twins against the Pallas
+kernels (interpret mode), the operator, ``auto_operator`` and CPU dispatch.
+The kernels themselves are held against the twins in test_torch_cuda.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lsqr_tpu as lj
+import lsqr_tpu_torch as lt
+from lsqr_tpu.ops import pallas_spmv as jspmv
+from lsqr_tpu.ops.structured import dia_shared_operator as j_shared
+from lsqr_tpu_torch.ops import spmv
+
+from _torch_parity import banded, banded_triplets, rel_err, shared_to_torch, to_np
+
+# tests/test_dia_shared.py CASES: square, wide, tall, ragged single diagonal
+CASES = [
+    (300, 300, (-2, -1, 0, 1, 2)),
+    (200, 330, (-3, 0, 7, 60)),
+    (330, 200, (-60, -3, 0, 5)),
+    (257, 129, (0,)),
+]
+# tests/test_pair.py shapes of the pair kernel
+PAIR_CASES = [
+    (4096, 4096, (-2, -1, 0, 1, 2)),
+    (5000, 5000, (-3, 0, 5)),
+    (3000, 2000, (-5, -1, 0, 2)),
+    (2000, 3000, (0, 1, 7)),
+]
+IDS = [f"{m}x{n}_nd{len(ks)}" for m, n, ks in CASES]
+TOL = 5e-6  # f32, relative to the max: the two sides differ in rounding only
+
+
+def _ops(rng, m, n, ks, dtype=np.float32):
+    data, dense = banded(rng, m, n, ks, dtype)
+    Aj = j_shared(m, n, ks, data)
+    return data, dense, Aj, shared_to_torch(Aj)
+
+
+@pytest.mark.parametrize("m,n,ks", CASES + [(9_000_000, 5, (0, 3)),
+                                            (5, 4_500_000, (-2,)),
+                                            (10_000, 12_000, (-1000, 7))])
+def test_geometry_matches_jax(m, n, ks):
+    args = (ks, m, n, spmv._shared_tm(m), spmv._shared_tm(n))
+    assert spmv.dia_shared_geometry(*args) == jspmv.dia_shared_geometry(
+        ks, m, n, jspmv._shared_tm(m), jspmv._shared_tm(n))
+    assert spmv._shared_tm(m) == jspmv._shared_tm(m)
+
+
+@pytest.mark.parametrize("m,n,ks", CASES, ids=IDS)
+def test_stripes_byte_equal_to_jax(rng, m, n, ks):
+    data = rng.standard_normal((len(ks), m)).astype(np.float32)
+    Aj = j_shared(m, n, ks, data)
+    At = lt.dia_shared_operator(m, n, ks, data)
+    assert At.H == Aj.H and At.offsets == Aj.offsets
+    assert to_np(At.dp).dtype == np.float32
+    assert to_np(At.dp).tobytes() == np.asarray(Aj.dp).tobytes()
+
+
+@pytest.mark.parametrize("m,n,ks", CASES, ids=IDS)
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_product_twin_matches_pallas(rng, m, n, ks, adjoint):
+    _, dense, Aj, At = _ops(rng, m, n, ks)
+    vec = rng.standard_normal(m if adjoint else n).astype(np.float32)
+    ref = jspmv.dia_product_shared(Aj.dp, jnp.asarray(vec), offsets=ks, m=m, n=n,
+                                   adjoint=adjoint, interpret=True, tm=128)
+    got = spmv.dia_product_shared_plain(At.dp, torch.from_numpy(vec), offsets=ks,
+                                        m=m, n=n, adjoint=adjoint)
+    assert got.dtype == torch.float32 and got.shape == ((n,) if adjoint else (m,))
+    assert rel_err(got, ref) < TOL
+    assert rel_err(got, (dense.T if adjoint else dense) @ vec) < TOL
+
+
+@pytest.mark.parametrize("m,n,ks", CASES, ids=IDS)
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_axpy_twin_matches_pallas(rng, m, n, ks, adjoint):
+    _, _, Aj, At = _ops(rng, m, n, ks)
+    vec = rng.standard_normal(m if adjoint else n).astype(np.float32)
+    y = rng.standard_normal(n if adjoint else m).astype(np.float32)
+    c1, c2 = 0.7, 1.3
+    ref = jspmv.dia_product_shared_axpy(
+        Aj.dp, jnp.asarray(vec), jnp.asarray(y), c1, c2, offsets=ks, m=m, n=n,
+        adjoint=adjoint, interpret=True, tm=128)
+    got = spmv.dia_product_shared_axpy_plain(
+        At.dp, torch.from_numpy(vec), torch.from_numpy(y), c1, c2, offsets=ks,
+        m=m, n=n, adjoint=adjoint)
+    assert rel_err(got, ref) < TOL
+
+
+@pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3])
+def test_pair_twin_matches_pallas(rng, m, n, ks):
+    _, dense, Aj, At = _ops(rng, m, n, ks)
+    v = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    c1, c2 = 0.8, 1.1
+    uj, zj = jspmv.dia_pair_shared(Aj.dp, jnp.asarray(v), jnp.asarray(y), c1, c2,
+                                   offsets=ks, m=m, n=n, interpret=True)
+    # the tensors c1, c2 take the solver's route: 0-d tensors
+    ut, zt = spmv.dia_pair_shared_plain(
+        At.dp, torch.from_numpy(v), torch.from_numpy(y), torch.tensor(c1),
+        torch.tensor(c2), offsets=ks, m=m, n=n)
+    assert rel_err(ut, uj) < TOL and rel_err(zt, zj) < TOL
+    u_ref = dense @ (v * np.float32(c1)) - np.float32(c2) * y
+    assert rel_err(ut, u_ref) < TOL and rel_err(zt, dense.T @ u_ref) < TOL
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_operator_products_match_jax(rng, dtype):
+    m, n, ks = 330, 200, (-60, -3, 0, 5)
+    _, dense, Aj, At = _ops(rng, m, n, ks, dtype)
+    x = rng.standard_normal(n).astype(dtype)
+    y = rng.standard_normal(m).astype(dtype)
+    tol = 1e-6 if dtype == np.float32 else 1e-14
+    assert At.dtype == getattr(torch, np.dtype(dtype).name)
+    assert rel_err(At.matvec(torch.from_numpy(x)), Aj.matvec(jnp.asarray(x))) < tol
+    assert rel_err(At.rmatvec(torch.from_numpy(y)), Aj.rmatvec(jnp.asarray(y))) < tol
+    np.testing.assert_array_equal(to_np(At.todense()), np.asarray(Aj.todense()))
+    np.testing.assert_array_equal(to_np(At.todense()), dense)
+
+
+def test_fused_halfstep_and_pair_on_operator(rng):
+    m, n, ks = 400, 300, (-4, 0, 3)
+    _, dense, Aj, At = _ops(rng, m, n, ks)
+    v = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    c1, c2 = torch.tensor(0.5), torch.tensor(2.0)
+    out, ssq = At.fused_halfstep(forward=True, y=torch.from_numpy(y),
+                                 win=torch.from_numpy(v), c1=c1, c2=c2)
+    outj, ssqj = Aj.fused_halfstep(forward=True, y=jnp.asarray(y), win=jnp.asarray(v),
+                                   c1=0.5, c2=2.0)
+    assert rel_err(out, outj) < TOL
+    np.testing.assert_allclose(float(ssq), float(ssqj), rtol=1e-5)
+    u, z = At.fused_pair(y=torch.from_numpy(y), win=torch.from_numpy(v), c1=c1, c2=c2)
+    assert rel_err(u, out) < TOL and rel_err(z, dense.T @ to_np(out)) < TOL
+
+
+def test_f64_fused_paths_stay_exact(rng):
+    m, n, ks = 500, 500, (-1, 0, 2)
+    _, dense, _, At = _ops(rng, m, n, ks, np.float64)
+    v, y = rng.standard_normal(n), rng.standard_normal(m)
+    c1, c2 = torch.tensor(0.3, dtype=torch.float64), torch.tensor(1.7, dtype=torch.float64)
+    u_ref = dense @ (v * 0.3) - 1.7 * y
+    u, z = At.fused_pair(y=torch.from_numpy(y), win=torch.from_numpy(v), c1=c1, c2=c2)
+    assert u.dtype == torch.float64
+    assert rel_err(u, u_ref) < 1e-14 and rel_err(z, dense.T @ u_ref) < 1e-14
+    out, _ = At.fused_halfstep(forward=True, y=torch.from_numpy(y),
+                               win=torch.from_numpy(v), c1=c1, c2=c2)
+    assert rel_err(out, u_ref) < 1e-14
+
+
+def test_acheck_passes_on_port_operator(rng):
+    m, n, ks = 500, 300, (-4, 0, 3)
+    _, _, Aj, At = _ops(rng, m, n, ks)
+    chk = lt.acheck(At)
+    assert int(chk.inform) == 0 and chk.tol == lj.acheck(Aj).tol
+    assert float(chk.error) <= 10 * float(lj.acheck(Aj).error) + 1e-6
+
+
+def test_bf16_storage_on_cpu_matches_jax(rng):
+    m, n, ks = 500, 300, (-4, 0, 3)
+    data = rng.standard_normal((3, m)).astype(np.float32)
+    Aj = j_shared(m, n, ks, data, storage_dtype="bfloat16")
+    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16)
+    assert At.is_bf16_storage and At.dtype == torch.float32
+    assert to_np(At.dp.view(torch.int16)).tobytes() == np.asarray(Aj.dp).tobytes()
+    x = rng.standard_normal(n).astype(np.float32)
+    assert rel_err(At.matvec(torch.from_numpy(x)), Aj.matvec(jnp.asarray(x))) < 1e-6
+
+
+def test_cpu_wrappers_run_twins_and_count_nothing(rng):
+    m, n, ks = 300, 330, (-3, 0, 7)
+    _, _, _, At = _ops(rng, m, n, ks)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    spmv.reset_launch_counts()
+    kw = dict(offsets=ks, m=m, n=n)
+    torch.testing.assert_close(spmv.dia_product_shared(At.dp, v, adjoint=False, **kw),
+                               spmv.dia_product_shared_plain(At.dp, v, adjoint=False, **kw),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        spmv.dia_product_shared_axpy(At.dp, y, v, 0.5, 2.0, adjoint=True, **kw),
+        spmv.dia_product_shared_axpy_plain(At.dp, y, v, 0.5, 2.0, adjoint=True, **kw),
+        rtol=0, atol=0)
+    for a, b in zip(spmv.dia_pair_shared(At.dp, v, y, 0.5, 2.0, **kw),
+                    spmv.dia_pair_shared_plain(At.dp, v, y, 0.5, 2.0, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    lt.lsqr(At, y, pair=True, itnlim=3)
+    assert spmv.launch_counts() == {"dia_pair_shared": 0, "dia_product_shared": 0,
+                                    "dia_product_shared_axpy": 0}
+    assert not At.prefers_pair and not At.prefers_fused
+
+
+def test_auto_operator_routes_banded_like_jax(rng):
+    m, n, ks = 700, 650, (-5, -1, 0, 2, 9)
+    data, _ = banded(rng, m, n, ks, np.float32)
+    vals, rows, cols = banded_triplets(data, ks, n)
+    Aj = lj.auto_operator(m, n, vals, rows, cols)
+    At = lt.auto_operator(m, n, vals, rows, cols)
+    assert type(Aj).__name__ == type(At).__name__ == "DIASharedOperator"
+    assert to_np(At.dp).tobytes() == np.asarray(Aj.dp).tobytes()
+    # f64: the packed DIA layout is not ported; the shared one holds the
+    # same matrix (JAX's compact=True route)
+    A64j = lj.auto_operator(m, n, vals.astype(np.float64), rows, cols, compact=True)
+    A64t = lt.auto_operator(m, n, vals.astype(np.float64), rows, cols)
+    assert A64t.dtype == torch.float64
+    assert to_np(A64t.dp).tobytes() == np.asarray(A64j.dp).tobytes()
+
+
+def test_auto_operator_empty_and_unported_patterns(rng):
+    empty = lt.auto_operator(4, 3, np.zeros(0), np.zeros(0, int), np.zeros(0, int))
+    assert isinstance(empty, lt.COOOperator) and empty.nnz == 0
+    rows, cols = rng.integers(0, 200, 300), rng.integers(0, 200, 300)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        lt.auto_operator(200, 200, rng.standard_normal(300), rows, cols)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        lt.auto_operator(3, 3, np.array([1j]), np.array([0]), np.array([0]))
