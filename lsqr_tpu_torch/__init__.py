@@ -2,12 +2,13 @@
 
 The JAX package ``lsqr_tpu`` stays beside this one as the reference: the
 same inputs give the same ``istop``/``itn`` and, to tolerance, the same
-``x`` and estimates. This slice ports the banded main path: the LSQR core,
-the COO, dense, callback and shared-stripe DIA operators, ``auto_operator``
-for banded patterns, ``acheck``/``xcheck``, the Paige–Saunders problems and
-``LSQRSolver``. The products of the shared-stripe DIA operator on CUDA run
-through three kernels written by hand for Hopper (``csrc/dia_shared.cu``),
-built with ``nvcc`` at first use.
+``x`` and estimates. Ported so far: the LSQR core, the COO, dense, callback
+and both DIA operators (shared-stripe and packed, with bf16 stripe
+storage), ``auto_operator`` for banded patterns, ``from_scipy``,
+``acheck``/``xcheck``, the Paige–Saunders and synthetic problems and
+``LSQRSolver``. The DIA products on CUDA run through seven kernels written
+by hand for Hopper (``csrc/dia_shared.cu``, ``csrc/dia_packed.cu``), built
+with ``nvcc`` at first use.
 
 Importing this package imports ``torch`` and never ``jax``.
 """
@@ -16,11 +17,14 @@ from .api import LSQRSolver
 from .config import LSQROptions, default_dtype, eps_for
 from .diagnostics import ACheckResult, XCheckResult, acheck, xcheck
 from .models.paige_saunders import PaigeSaundersOperator, lstp, suite_configs
+from .models.synthetic import (banded_dia, banded_problem, block_banded_coo,
+                               random_coo_problem)
 from .ops.convert import operator_from_arrays, result_to_numpy
 from .ops.coo import COOOperator, coo_operator
-from .ops.interop import auto_operator
+from .ops.interop import auto_operator, from_scipy
 from .ops.linop import CallbackOperator, DenseOperator, LinearOperator, as_operator
-from .ops.structured import DIASharedOperator, dia_shared_operator
+from .ops.structured import (DIAOperator, DIASharedOperator, dia_operator,
+                             dia_operator_device, dia_shared_operator)
 from .solver import ISTOP_MESSAGES, TRACE_COLUMNS, LSQRResult, lsqr
 
 __version__ = "0.1.0"
@@ -42,12 +46,20 @@ __all__ = [
     "COOOperator",
     "coo_operator",
     "as_operator",
+    "DIAOperator",
+    "dia_operator",
+    "dia_operator_device",
     "DIASharedOperator",
     "dia_shared_operator",
     "auto_operator",
+    "from_scipy",
     "PaigeSaundersOperator",
     "lstp",
     "suite_configs",
+    "banded_dia",
+    "banded_problem",
+    "random_coo_problem",
+    "block_banded_coo",
     "operator_from_arrays",
     "result_to_numpy",
     "default_dtype",

@@ -14,22 +14,27 @@
 // element. c1 and c2 are device scalars read through pointers: the solver
 // computes them on the device and must not wait for them on the host.
 //
+// Stripe storage: f32, f64 (the product only) or bf16. bf16 stripes are a
+// storage format, as in the JAX package: vectors, c1, c2, the accumulation
+// and the results stay f32.
+//
 // Kernels and the TPU kernels they replace (lsqr_tpu/ops/pallas_spmv.py):
 //
 // 1. dia_product_shared_kernel   <- dia_product_shared / _dia_shared_kernel
-//    y = A x or x = A' y, f32 or f64 (f64 products on the card come here).
+//    y = A x or x = A' y (f64 products on the card come here).
 // 2. dia_shared_axpy_kernel      <- dia_product_shared_axpy /
 //                                   _dia_shared_axpy_kernel
-//    (A or A')(vec * c1) - c2 * y, f32: the pair=False half-step.
+//    (A or A')(vec * c1) - c2 * y: the pair=False half-step.
 // 3. dia_pair_shared_kernel      <- dia_pair_shared /
 //                                   _dia_pair_shared_kernel_carry
-//    u = A(vec * c1) - c2 * y and z = A' u in one pass, f32.
+//    u = A(vec * c1) - c2 * y and z = A' u in one pass.
 //
 // What bounds them on the H100: bytes. Each does ~2 flops per stripe
-// element it reads (4 bytes), far below the card's ~20 flop/byte ridge, so
-// the floor is device-memory traffic: the stripes (nd * dim * 4 bytes) plus
-// 2 (product), 3 (axpy) or 4 (pair) vectors. At m = n = 2^23 with 11
-// diagonals that is 369 MB of stripes against 67-134 MB of vectors.
+// element it reads (4 bytes, 2 in bf16), far below the card's ~20 flop/byte
+// ridge, so the floor is device-memory traffic: the stripes (nd * dim * 4
+// bytes, half that in bf16) plus 2 (product), 3 (axpy) or 4 (pair) f32
+// vectors. At m = n = 2^23 with 11 diagonals that is 369 MB of f32 stripes
+// against 67-134 MB of vectors.
 //
 // What the design does about it:
 // * one thread per output element in a grid-stride loop; for each diagonal
@@ -46,6 +51,7 @@
 //   The recomputed halo is a 2H/T share of the stripe reads (~1% at H = 5,
 //   T = 1024). No atomics: the result is deterministic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,29 +66,38 @@ inline unsigned grid_for(long long count) {
   return static_cast<unsigned>(g < cap ? g : cap);
 }
 
-template <typename T>
+// A stripe element in the accumulation type (f32 for bf16 storage).
+__device__ __forceinline__ float widen(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double widen(const double* p) { return __ldg(p); }
+__device__ __forceinline__ float widen(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// S: stripe storage type; V: vector, accumulation and result type.
+template <typename S, typename V>
 __global__ void dia_product_shared_kernel(
-    const T* __restrict__ dp, const T* __restrict__ vec, T* __restrict__ out,
+    const S* __restrict__ dp, const V* __restrict__ vec, V* __restrict__ out,
     const int* __restrict__ offsets, int nd, long long Lp, int H,
     long long dim_out, long long dim_in, int adjoint) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < dim_out; i += stride) {
-    T acc = T(0);
+    V acc = V(0);
     for (int d = 0; d < nd; ++d) {
       const int k = __ldg(offsets + d);
       const long long src = adjoint ? i - k : i + k;
       if (src >= 0 && src < dim_in) {
         const long long s = d * Lp + H + (adjoint ? i - k : i);
-        acc += __ldg(dp + s) * __ldg(vec + src);
+        acc += widen(dp + s) * __ldg(vec + src);
       }
     }
     out[i] = acc;
   }
 }
 
+template <typename S>
 __global__ void dia_shared_axpy_kernel(
-    const float* __restrict__ dp, const float* __restrict__ vec,
+    const S* __restrict__ dp, const float* __restrict__ vec,
     const float* __restrict__ y, const float* __restrict__ c1p,
     const float* __restrict__ c2p, float* __restrict__ out,
     const int* __restrict__ offsets, int nd, long long Lp, int H,
@@ -98,7 +113,7 @@ __global__ void dia_shared_axpy_kernel(
       const long long src = adjoint ? i - k : i + k;
       if (src >= 0 && src < dim_in) {
         const long long s = d * Lp + H + (adjoint ? i - k : i);
-        acc += __ldg(dp + s) * (__ldg(vec + src) * c1);
+        acc += widen(dp + s) * (__ldg(vec + src) * c1);
       }
     }
     out[i] = acc;
@@ -108,8 +123,9 @@ __global__ void dia_shared_axpy_kernel(
 // One block owns indices [r0, r0 + kPairTile) of BOTH u (rows) and z
 // (columns); the grid covers max(m, n). Dynamic shared memory holds u for
 // rows [r0 - H, r0 + kPairTile + H), zero outside [0, m).
+template <typename S>
 __global__ void dia_pair_shared_kernel(
-    const float* __restrict__ dp, const float* __restrict__ vec,
+    const S* __restrict__ dp, const float* __restrict__ vec,
     const float* __restrict__ y, const float* __restrict__ c1p,
     const float* __restrict__ c2p, float* __restrict__ u,
     float* __restrict__ z, const int* __restrict__ offsets, int nd,
@@ -130,7 +146,7 @@ __global__ void dia_pair_shared_kernel(
         const int k = __ldg(offsets + d);
         const long long c = r + k;
         if (c >= 0 && c < n) {
-          acc += __ldg(dp + d * Lp + H + r) * (__ldg(vec + c) * c1);
+          acc += widen(dp + d * Lp + H + r) * (__ldg(vec + c) * c1);
         }
       }
       if (t >= H && t < H + kPairTile) u[r] = acc;
@@ -148,10 +164,56 @@ __global__ void dia_pair_shared_kernel(
     float acc = 0.0f;
     for (int d = 0; d < nd; ++d) {
       const int k = __ldg(offsets + d);
-      acc += __ldg(dp + d * Lp + H + j - k) * u_s[t + H - k];
+      acc += widen(dp + d * Lp + H + j - k) * u_s[t + H - k];
     }
     z[j] = acc;
   }
+}
+
+template <typename S, typename V>
+int launch_product(const void* dp, const void* vec, void* out,
+                   const void* offsets, int nd, long long Lp, int H,
+                   long long dim_out, long long dim_in, int adjoint,
+                   void* stream) {
+  dia_product_shared_kernel<S, V>
+      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const S*>(dp), static_cast<const V*>(vec),
+          static_cast<V*>(out), static_cast<const int*>(offsets), nd, Lp, H,
+          dim_out, dim_in, adjoint);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int launch_axpy(const void* dp, const void* vec, const void* y, const void* c1,
+                const void* c2, void* out, const void* offsets, int nd,
+                long long Lp, int H, long long dim_out, long long dim_in,
+                int adjoint, void* stream) {
+  dia_shared_axpy_kernel<S>
+      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const S*>(dp), static_cast<const float*>(vec),
+          static_cast<const float*>(y), static_cast<const float*>(c1),
+          static_cast<const float*>(c2), static_cast<float*>(out),
+          static_cast<const int*>(offsets), nd, Lp, H, dim_out, dim_in,
+          adjoint);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int launch_pair(const void* dp, const void* vec, const void* y, const void* c1,
+                const void* c2, void* u, void* z, const void* offsets, int nd,
+                long long Lp, int H, long long m, long long n, void* stream) {
+  if (H < 0 || H > kPairMaxHalo) return static_cast<int>(cudaErrorInvalidValue);
+  const long long dim = m > n ? m : n;
+  const unsigned blocks = static_cast<unsigned>((dim + kPairTile - 1) / kPairTile);
+  const size_t smem = sizeof(float) * static_cast<size_t>(kPairTile + 2 * H);
+  dia_pair_shared_kernel<S><<<blocks, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(dp), static_cast<const float*>(vec),
+      static_cast<const float*>(y), static_cast<const float*>(c1),
+      static_cast<const float*>(c2), static_cast<float*>(u),
+      static_cast<float*>(z), static_cast<const int*>(offsets), nd, Lp, H, m,
+      n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -162,61 +224,43 @@ const char* lsqr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int lsqr_dia_product_shared_f32(const void* dp, const void* vec, void* out,
-                                const void* offsets, int nd, long long Lp,
-                                int H, long long dim_out, long long dim_in,
-                                int adjoint, void* stream) {
-  dia_product_shared_kernel<float>
-      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(dp), static_cast<const float*>(vec),
-          static_cast<float*>(out), static_cast<const int*>(offsets), nd, Lp,
-          H, dim_out, dim_in, adjoint);
-  return static_cast<int>(cudaGetLastError());
-}
+#define LSQR_PRODUCT(SUFFIX, S, V)                                              \
+  int lsqr_dia_product_shared_##SUFFIX(                                         \
+      const void* dp, const void* vec, void* out, const void* offsets, int nd,  \
+      long long Lp, int H, long long dim_out, long long dim_in, int adjoint,    \
+      void* stream) {                                                           \
+    return launch_product<S, V>(dp, vec, out, offsets, nd, Lp, H, dim_out,      \
+                                dim_in, adjoint, stream);                       \
+  }
 
-int lsqr_dia_product_shared_f64(const void* dp, const void* vec, void* out,
-                                const void* offsets, int nd, long long Lp,
-                                int H, long long dim_out, long long dim_in,
-                                int adjoint, void* stream) {
-  dia_product_shared_kernel<double>
-      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const double*>(dp), static_cast<const double*>(vec),
-          static_cast<double*>(out), static_cast<const int*>(offsets), nd, Lp,
-          H, dim_out, dim_in, adjoint);
-  return static_cast<int>(cudaGetLastError());
-}
+#define LSQR_AXPY(SUFFIX, S)                                                    \
+  int lsqr_dia_shared_axpy_##SUFFIX(                                            \
+      const void* dp, const void* vec, const void* y, const void* c1,           \
+      const void* c2, void* out, const void* offsets, int nd, long long Lp,     \
+      int H, long long dim_out, long long dim_in, int adjoint, void* stream) {  \
+    return launch_axpy<S>(dp, vec, y, c1, c2, out, offsets, nd, Lp, H,          \
+                          dim_out, dim_in, adjoint, stream);                    \
+  }
 
-int lsqr_dia_shared_axpy_f32(const void* dp, const void* vec, const void* y,
-                             const void* c1, const void* c2, void* out,
-                             const void* offsets, int nd, long long Lp, int H,
-                             long long dim_out, long long dim_in, int adjoint,
-                             void* stream) {
-  dia_shared_axpy_kernel
-      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(dp), static_cast<const float*>(vec),
-          static_cast<const float*>(y), static_cast<const float*>(c1),
-          static_cast<const float*>(c2), static_cast<float*>(out),
-          static_cast<const int*>(offsets), nd, Lp, H, dim_out, dim_in,
-          adjoint);
-  return static_cast<int>(cudaGetLastError());
-}
+#define LSQR_PAIR(SUFFIX, S)                                                    \
+  int lsqr_dia_pair_shared_##SUFFIX(                                            \
+      const void* dp, const void* vec, const void* y, const void* c1,           \
+      const void* c2, void* u, void* z, const void* offsets, int nd,            \
+      long long Lp, int H, long long m, long long n, void* stream) {            \
+    return launch_pair<S>(dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n,   \
+                          stream);                                              \
+  }
 
-int lsqr_dia_pair_shared_f32(const void* dp, const void* vec, const void* y,
-                             const void* c1, const void* c2, void* u, void* z,
-                             const void* offsets, int nd, long long Lp, int H,
-                             long long m, long long n, void* stream) {
-  if (H < 0 || H > kPairMaxHalo) return static_cast<int>(cudaErrorInvalidValue);
-  const long long dim = m > n ? m : n;
-  const unsigned blocks = static_cast<unsigned>((dim + kPairTile - 1) / kPairTile);
-  const size_t smem = sizeof(float) * static_cast<size_t>(kPairTile + 2 * H);
-  dia_pair_shared_kernel<<<blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dp), static_cast<const float*>(vec),
-      static_cast<const float*>(y), static_cast<const float*>(c1),
-      static_cast<const float*>(c2), static_cast<float*>(u),
-      static_cast<float*>(z), static_cast<const int*>(offsets), nd, Lp, H, m,
-      n);
-  return static_cast<int>(cudaGetLastError());
-}
+LSQR_PRODUCT(f32, float, float)
+LSQR_PRODUCT(f64, double, double)
+LSQR_PRODUCT(bf16, __nv_bfloat16, float)
+LSQR_AXPY(f32, float)
+LSQR_AXPY(bf16, __nv_bfloat16)
+LSQR_PAIR(f32, float)
+LSQR_PAIR(bf16, __nv_bfloat16)
+
+#undef LSQR_PRODUCT
+#undef LSQR_AXPY
+#undef LSQR_PAIR
 
 }  // extern "C"

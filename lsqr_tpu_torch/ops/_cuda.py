@@ -31,13 +31,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
+    # csrc/dia_shared.cu
     # dp, vec, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, stream
-    "lsqr_dia_product_shared_f32": (_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P),
-    "lsqr_dia_product_shared_f64": (_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P),
+    **{f"lsqr_dia_product_shared_{s}": (_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P)
+       for s in ("f32", "f64", "bf16")},
     # dp, vec, y, c1, c2, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, stream
-    "lsqr_dia_shared_axpy_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P),
+    **{f"lsqr_dia_shared_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P)
+       for s in ("f32", "bf16")},
     # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, stream
-    "lsqr_dia_pair_shared_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _P),
+    **{f"lsqr_dia_pair_shared_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _P)
+       for s in ("f32", "bf16")},
+    # csrc/dia_packed.cu
+    # data, vec, out, offsets, nd, dim_out, dim_in, column, stream
+    **{f"lsqr_dia_matvec_{s}": (_P, _P, _P, _P, _I, _L, _L, _I, _P)
+       for s in ("f32", "f64", "bf16")},
+    # data, vec, y, c1, c2, out, offsets, nd, dim_out, dim_in, stream
+    **{f"lsqr_dia_matvec_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P)
+       for s in ("f32", "bf16")},
+    # data, vec, y, c1, c2, out, partial, ticket, ssq, offsets, nd, dim_out,
+    # dim_in, slots, stream
+    "lsqr_dia_fused_halfstep_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
+                                    _I, _P),
+    # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, stream
+    **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _P)
+       for s in ("f32", "bf16")},
 }
 
 
@@ -73,7 +90,7 @@ def library() -> ctypes.CDLL:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out = build_dir() / f"libdia_shared_{digest.hexdigest()[:16]}.so"
+    out = build_dir() / f"liblsqr_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

@@ -15,7 +15,7 @@ import torch
 
 from .coo import coo_operator
 from .linop import LinearOperator
-from .structured import DIASharedOperator
+from .structured import DIAOperator, DIASharedOperator
 
 __all__ = ["operator_from_arrays", "result_to_numpy"]
 
@@ -34,6 +34,9 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
     kind "dia_shared": arrays {"dp"}, meta {"m", "n", "offsets", "H"}, i.e.
         ``np.asarray(op.dp)`` and the static fields of a JAX
         ``DIASharedOperator``; dp is used as it is.
+    kind "dia": arrays {"data", "tdata"}, meta {"m", "n", "offsets"} of a
+        JAX ``DIAOperator``; both stripe arrays are used as they are.
+    bf16 stripes keep their bits.
     kind "coo": arrays {"vals", "rows", "cols"}, meta {"m", "n"}.
     """
     if kind == "dia_shared":
@@ -41,10 +44,16 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
             dp=_tensor(arrays["dp"], device), m=int(meta["m"]), n=int(meta["n"]),
             offsets=tuple(int(k) for k in meta["offsets"]), H=int(meta["H"]),
         )
+    if kind == "dia":
+        return DIAOperator(
+            data=_tensor(arrays["data"], device), tdata=_tensor(arrays["tdata"], device),
+            m=int(meta["m"]), n=int(meta["n"]),
+            offsets=tuple(int(k) for k in meta["offsets"]),
+        )
     if kind == "coo":
         return coo_operator(meta["m"], meta["n"], _tensor(arrays["vals"], device),
                             arrays["rows"], arrays["cols"])
-    raise ValueError(f"unknown operator kind {kind!r} (dia_shared, coo)")
+    raise ValueError(f"unknown operator kind {kind!r} (dia_shared, dia, coo)")
 
 
 def result_to_numpy(res) -> dict:

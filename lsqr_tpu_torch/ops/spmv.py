@@ -1,25 +1,36 @@
-"""Shared-stripe DIA products: the three kernels of the banded main path.
+"""DIA products: the seven kernels of the banded paths.
 
-PyTorch counterpart of the shared part of :mod:`lsqr_tpu.ops.pallas_spmv`.
-Each kernel is written by hand in CUDA C++ (``csrc/dia_shared.cu``) and has
-a plain PyTorch twin beside it in this module:
+PyTorch counterpart of the DIA part of :mod:`lsqr_tpu.ops.pallas_spmv`.
+Each kernel is written by hand in CUDA C++ and has a plain PyTorch twin
+beside it in this module:
 
-=========================  =================================  ==============
-wrapper                    computes                           replaces
-=========================  =================================  ==============
-dia_product_shared         A x or A' y (f32, f64)             pallas_spmv.py
-                                                              dia_product_shared
-dia_product_shared_axpy    (A or A')(vec*c1) - c2*y (f32)     ...shared_axpy
-dia_pair_shared            u = A(vec*c1) - c2*y, z = A' u     dia_pair_shared
-=========================  =================================  ==============
+=========================  =================================  ==================
+wrapper                    computes                           source
+=========================  =================================  ==================
+dia_product_shared         A x or A' y (f32, f64, bf16)       csrc/dia_shared.cu
+dia_product_shared_axpy    (A or A')(vec*c1) - c2*y           csrc/dia_shared.cu
+dia_pair_shared            u = A(vec*c1) - c2*y, z = A' u     csrc/dia_shared.cu
+dia_matvec                 A x, packed (f32, f64, bf16)       csrc/dia_packed.cu
+dia_matvec_axpy            A(win*c1) - c2*y, packed           csrc/dia_packed.cu
+dia_fused_halfstep         as dia_matvec_axpy, and sum(out^2) csrc/dia_packed.cu
+dia_pair                   the pair on packed stripes         csrc/dia_packed.cu
+=========================  =================================  ==================
 
-A wrapper given CPU tensors runs the twin. Given CUDA tensors it launches its
-kernel or raises: there is no fallback. Each wrapper counts its launches in
-its ``launches`` attribute (a plain integer; :func:`reset_launch_counts`).
+Each replaces the Pallas kernel of the same name. A wrapper given CPU
+tensors runs the twin. Given CUDA tensors it launches its kernel or raises:
+there is no fallback. Each wrapper counts its launches in its ``launches``
+attribute (a plain integer), and per stripe dtype in ``variants``
+(:func:`launch_counts`, :func:`reset_launch_counts`).
 
-``dp`` is the flat ``(nd * Lp,)`` stripe array of :func:`dia_shared_geometry`
-with ``dp[d * Lp + H + i] = A[i, i + offsets[d]]`` and zeros elsewhere; the
-geometry is the JAX package's, so the same bytes serve both packages.
+Stripes are f32, f64 where the kernel says so, or bf16: bf16 is a storage
+format, so vectors, c1, c2, the accumulation and the results are f32.
+
+Shared layout: ``dp`` is the flat ``(nd * Lp,)`` stripe array of
+:func:`dia_shared_geometry` with ``dp[d * Lp + H + i] = A[i, i + offsets[d]]``
+and zeros elsewhere. Packed layout: ``data`` is ``(nd, m)`` with
+``data[d, i] = A[i, i + offsets[d]]``, zero outside the matrix, and no
+padding. Both geometries are the JAX package's, so the same bytes serve
+both packages.
 """
 
 from __future__ import annotations
@@ -36,16 +47,26 @@ __all__ = [
     "dia_product_shared_plain",
     "dia_product_shared_axpy_plain",
     "dia_pair_shared_plain",
+    "dia_matvec",
+    "dia_matvec_axpy",
+    "dia_fused_halfstep",
+    "dia_pair",
+    "dia_matvec_plain",
+    "dia_matvec_axpy_plain",
+    "dia_fused_halfstep_plain",
+    "dia_pair_plain",
     "launch_counts",
     "reset_launch_counts",
-    "no_bf16_kernel",
     "PAIR_MAX_HALO",
 ]
 
-#: the largest halo the one-pass pair kernel takes (its shared-memory tile
-#: holds 1024 + 2H floats); above it the pair is two launches, the axpy
-#: kernel then the product kernel.
+#: the largest halo the one-pass pair kernels take (their shared-memory
+#: tile holds 1024 + 2H floats, or 1024 + lo + hi for the packed pair);
+#: above it the pair is two launches, the axpy kernel then the product.
 PAIR_MAX_HALO = 1024
+
+#: kernel-name suffix of each stripe dtype
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 
 def dia_shared_geometry(offsets, m, n, tm_m, tm_n):
@@ -74,13 +95,19 @@ def _geometry(offsets, m, n):
     return dia_shared_geometry(offsets, m, n, _shared_tm(m), _shared_tm(n))
 
 
-def _acc_dtype(dp):
-    return torch.float32 if dp.dtype == torch.bfloat16 else dp.dtype
+def _acc_dtype(stripes):
+    return torch.float32 if stripes.dtype == torch.bfloat16 else stripes.dtype
+
+
+def _halos(offsets):
+    """(lo, hi) = (max(0, -min k), max(0, max k)) of the packed pair."""
+    return max(0, -min(offsets)), max(0, max(offsets))
 
 
 # ---------------------------------------------------------------------------
-# Plain twins (written from structured.DIASharedOperator._product_xla and the
-# Pallas kernel bodies; same summation order: diagonals in offset order)
+# Plain twins (written from structured.DIASharedOperator._product_xla,
+# structured._dia_matvec_xla, structured.dia_pair_xla and the Pallas kernel
+# bodies; same summation order: diagonals in offset order)
 # ---------------------------------------------------------------------------
 
 
@@ -131,49 +158,97 @@ def dia_pair_shared_plain(dp, vec, y, c1, c2, *, offsets, m, n):
                                        adjoint=True)
 
 
+def _window(vec, s, length):
+    """out[j] = vec[j + s] where 0 <= j + s < len(vec), else 0; j < length."""
+    out = vec.new_zeros(length)
+    lo, hi = max(0, -s), min(length, vec.shape[0] - s)
+    if hi > lo:
+        out[lo:hi] = vec[lo + s:hi + s]
+    return out
+
+
+def dia_matvec_plain(data, x, *, offsets, m, n, adjoint=False):
+    """Plain twin of :func:`dia_matvec`."""
+    acc_dt = _acc_dtype(data)
+    x = x.to(acc_dt)
+    out = torch.zeros(n if adjoint else m, dtype=acc_dt, device=data.device)
+    for d, k in enumerate(offsets):
+        if adjoint:  # z[j] += data[d, j - k] * x[j - k]
+            out = out + _window(data[d].to(acc_dt) * x, -k, n)
+        else:        # y[i] += data[d, i] * x[i + k]
+            out = out + data[d].to(acc_dt) * _window(x, k, m)
+    return out
+
+
+def dia_matvec_axpy_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
+    """Plain twin of :func:`dia_matvec_axpy`."""
+    acc_dt = _acc_dtype(data)
+    xw = win_vec.to(acc_dt) * _scalar(c1, acc_dt, data.device)
+    acc = (-_scalar(c2, acc_dt, data.device)) * y.to(acc_dt)
+    for d, k in enumerate(offsets):
+        acc = acc + data[d].to(acc_dt) * _window(xw, k, m)
+    return acc
+
+
+def dia_fused_halfstep_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
+    """Plain twin of :func:`dia_fused_halfstep`."""
+    out = dia_matvec_axpy_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
+    return out, torch.sum(out * out)
+
+
+def dia_pair_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
+    """Plain twin of :func:`dia_pair`."""
+    u = dia_matvec_axpy_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
+    return u, dia_matvec_plain(data, u, offsets=offsets, m=m, n=n, adjoint=True)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _offsets_on(dp, offsets, offsets_t):
+def _offsets_on(stripes, offsets, offsets_t):
     if offsets_t is None:
-        offsets_t = torch.tensor(offsets, dtype=torch.int32, device=dp.device)
-    if offsets_t.dtype != torch.int32 or offsets_t.device != dp.device \
+        offsets_t = torch.tensor(offsets, dtype=torch.int32, device=stripes.device)
+    if offsets_t.dtype != torch.int32 or offsets_t.device != stripes.device \
             or offsets_t.shape != (len(offsets),):
-        raise ValueError("offsets_t must be an int32 tensor of len(offsets) on dp's device")
+        raise ValueError("offsets_t must be an int32 tensor of len(offsets) on "
+                         "the stripes' device")
     return offsets_t
 
 
-def _check(name, t, dtype, device, length):
+def _check(name, t, dtype, device, shape):
+    shape = shape if isinstance(shape, tuple) else (shape,)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the stripes on {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes {dtype}")
-    if t.shape != (length,):
-        raise ValueError(f"{name} must have shape ({length},), got {tuple(t.shape)}")
+    if t.shape != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def no_bf16_kernel():
-    """Refuse bf16 stripes on CUDA (the CPU twins take them)."""
-    raise NotImplementedError(
-        "bf16 stripe storage has no CUDA kernel yet (ROADMAP Queue 2, gaps "
-        "in the ported rows)"
-    )
+def _kernel(name, stripes, dtypes, offsets):
+    """The library function lsqr_<name>_<suffix> for these stripes, after
+    checking their dtype and the number of diagonals."""
+    from . import _cuda
 
-
-def _check_stripes(dp, offsets, m, n, dtypes):
-    if dp.dtype == torch.bfloat16:
-        no_bf16_kernel()
-    if dp.dtype not in dtypes:
-        raise TypeError(f"stripes of dtype {dp.dtype}: the kernel takes {dtypes}")
+    if stripes.dtype not in dtypes:
+        raise TypeError(f"stripes of dtype {stripes.dtype}: the kernel takes {dtypes}")
     if not 1 <= len(offsets) <= 1024:
         raise ValueError(f"the kernels take 1 to 1024 diagonals, got {len(offsets)}")
-    H, Lp = _geometry(offsets, m, n)
-    _check("dp", dp, dp.dtype, dp.device, len(offsets) * Lp)
-    return H, Lp
+    return getattr(_cuda.library(), f"lsqr_{name}_{_SUFFIX[stripes.dtype]}")
+
+
+def _launch(wrapper, fn, stripes, *args):
+    """Run a launcher, raise on its CUDA error, count the launch."""
+    from . import _cuda
+
+    _cuda.check(fn(*args, torch.cuda.current_stream(stripes.device).cuda_stream),
+                wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.variants[_SUFFIX[stripes.dtype]] += 1
 
 
 def _device_scalar(c, device):
@@ -183,35 +258,35 @@ def _device_scalar(c, device):
     return c.contiguous()
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _check_shared(dp, offsets, m, n):
+    _, Lp = _geometry(offsets, m, n)
+    _check("dp", dp, dp.dtype, dp.device, len(offsets) * Lp)
 
 
 def dia_product_shared(dp, vec, *, offsets: Sequence[int], m: int, n: int,
                        adjoint: bool, offsets_t: Optional[torch.Tensor] = None):
     """y = A x (adjoint=False, vec (n,) -> (m,)) or x = A' y (adjoint=True,
-    vec (m,) -> (n,)) from the shared stripes. On CUDA: f32 or f64 stripes
-    with a vector of the same dtype."""
+    vec (m,) -> (n,)) from the shared stripes. On CUDA: f32, f64 or bf16
+    stripes, with an f32 vector for bf16 and one of the stripes' dtype
+    otherwise."""
     offsets = tuple(int(k) for k in offsets)
     if not dp.is_cuda:
         return dia_product_shared_plain(dp, vec, offsets=offsets, m=m, n=n,
                                         adjoint=adjoint)
-    from . import _cuda
-
-    H, Lp = _check_stripes(dp, offsets, m, n, (torch.float32, torch.float64))
+    fn = _kernel("dia_product_shared", dp,
+                 (torch.float32, torch.float64, torch.bfloat16), offsets)
+    _check_shared(dp, offsets, m, n)
+    H, Lp = _geometry(offsets, m, n)
     dim_out, dim_in = (n, m) if adjoint else (m, n)
-    _check("vec", vec, dp.dtype, dp.device, dim_in)
+    acc = _acc_dtype(dp)
+    _check("vec", vec, acc, dp.device, dim_in)
     offsets_t = _offsets_on(dp, offsets, offsets_t)
-    out = torch.empty(dim_out, dtype=dp.dtype, device=dp.device)
+    out = torch.empty(dim_out, dtype=acc, device=dp.device)
     if dim_out == 0:
         return out
-    lib = _cuda.library()
-    fn = (lib.lsqr_dia_product_shared_f32 if dp.dtype == torch.float32
-          else lib.lsqr_dia_product_shared_f64)
-    _cuda.check(fn(dp.data_ptr(), vec.data_ptr(), out.data_ptr(),
-                   offsets_t.data_ptr(), len(offsets), Lp, H, dim_out, dim_in,
-                   int(adjoint), _stream()), "dia_product_shared")
-    dia_product_shared.launches += 1
+    _launch(dia_product_shared, fn, dp, dp.data_ptr(), vec.data_ptr(),
+            out.data_ptr(), offsets_t.data_ptr(), len(offsets), Lp, H, dim_out,
+            dim_in, int(adjoint))
     return out
 
 
@@ -220,29 +295,28 @@ def dia_product_shared_axpy(dp, vec, y, c1, c2, *, offsets: Sequence[int],
                             offsets_t: Optional[torch.Tensor] = None):
     """out = A(vec*c1) - c2*y (adjoint=False) or A'(vec*c1) - c2*y
     (adjoint=True). c1, c2 are numbers or 0-d tensors; on CUDA they stay on
-    the device (the kernel reads them through pointers). f32 on CUDA."""
+    the device (the kernel reads them through pointers). On CUDA: f32 or
+    bf16 stripes, f32 vectors."""
     offsets = tuple(int(k) for k in offsets)
     if not dp.is_cuda:
         return dia_product_shared_axpy_plain(dp, vec, y, c1, c2, offsets=offsets,
                                              m=m, n=n, adjoint=adjoint)
-    from . import _cuda
-
-    H, Lp = _check_stripes(dp, offsets, m, n, (torch.float32,))
+    fn = _kernel("dia_shared_axpy", dp, (torch.float32, torch.bfloat16), offsets)
+    _check_shared(dp, offsets, m, n)
+    H, Lp = _geometry(offsets, m, n)
     dim_out, dim_in = (n, m) if adjoint else (m, n)
-    _check("vec", vec, dp.dtype, dp.device, dim_in)
-    _check("y", y, dp.dtype, dp.device, dim_out)
+    _check("vec", vec, torch.float32, dp.device, dim_in)
+    _check("y", y, torch.float32, dp.device, dim_out)
     offsets_t = _offsets_on(dp, offsets, offsets_t)
     c1 = _device_scalar(c1, dp.device)
     c2 = _device_scalar(c2, dp.device)
-    out = torch.empty(dim_out, dtype=dp.dtype, device=dp.device)
+    out = torch.empty(dim_out, dtype=torch.float32, device=dp.device)
     if dim_out == 0:
         return out
-    lib = _cuda.library()
-    _cuda.check(lib.lsqr_dia_shared_axpy_f32(
-        dp.data_ptr(), vec.data_ptr(), y.data_ptr(), c1.data_ptr(),
-        c2.data_ptr(), out.data_ptr(), offsets_t.data_ptr(), len(offsets), Lp,
-        H, dim_out, dim_in, int(adjoint), _stream()), "dia_product_shared_axpy")
-    dia_product_shared_axpy.launches += 1
+    _launch(dia_product_shared_axpy, fn, dp, dp.data_ptr(), vec.data_ptr(),
+            y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
+            offsets_t.data_ptr(), len(offsets), Lp, H, dim_out, dim_in,
+            int(adjoint))
     return out
 
 
@@ -250,48 +324,188 @@ def dia_pair_shared(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int,
                     n: int, offsets_t: Optional[torch.Tensor] = None):
     """Both bidiagonalization products in one pass over the stripes:
     u = A(vec*c1) - c2*y with vec (n,), y (m,), and z = A' u. Returns
-    (u (m,), z (n,)). f32 on CUDA. For H > PAIR_MAX_HALO the pair is two
-    launches: :func:`dia_product_shared_axpy`, then
-    :func:`dia_product_shared` (each counts its own launch)."""
+    (u (m,), z (n,)). On CUDA: f32 or bf16 stripes, f32 vectors. For
+    H > PAIR_MAX_HALO the pair is two launches:
+    :func:`dia_product_shared_axpy`, then :func:`dia_product_shared` (each
+    counts its own launch)."""
     offsets = tuple(int(k) for k in offsets)
     if not dp.is_cuda:
         return dia_pair_shared_plain(dp, vec, y, c1, c2, offsets=offsets, m=m, n=n)
-    from . import _cuda
-
-    H, Lp = _check_stripes(dp, offsets, m, n, (torch.float32,))
+    fn = _kernel("dia_pair_shared", dp, (torch.float32, torch.bfloat16), offsets)
+    _check_shared(dp, offsets, m, n)
+    H, Lp = _geometry(offsets, m, n)
     offsets_t = _offsets_on(dp, offsets, offsets_t)
     if H > PAIR_MAX_HALO:
         u = dia_product_shared_axpy(dp, vec, y, c1, c2, offsets=offsets, m=m,
                                     n=n, adjoint=False, offsets_t=offsets_t)
         return u, dia_product_shared(dp, u, offsets=offsets, m=m, n=n,
                                      adjoint=True, offsets_t=offsets_t)
-    _check("vec", vec, dp.dtype, dp.device, n)
-    _check("y", y, dp.dtype, dp.device, m)
+    _check("vec", vec, torch.float32, dp.device, n)
+    _check("y", y, torch.float32, dp.device, m)
     c1 = _device_scalar(c1, dp.device)
     c2 = _device_scalar(c2, dp.device)
-    u = torch.empty(m, dtype=dp.dtype, device=dp.device)
-    z = torch.empty(n, dtype=dp.dtype, device=dp.device)
+    u = torch.empty(m, dtype=torch.float32, device=dp.device)
+    z = torch.empty(n, dtype=torch.float32, device=dp.device)
     if max(m, n) == 0:
         return u, z
-    lib = _cuda.library()
-    _cuda.check(lib.lsqr_dia_pair_shared_f32(
-        dp.data_ptr(), vec.data_ptr(), y.data_ptr(), c1.data_ptr(),
-        c2.data_ptr(), u.data_ptr(), z.data_ptr(), offsets_t.data_ptr(),
-        len(offsets), Lp, H, m, n, _stream()), "dia_pair_shared")
-    dia_pair_shared.launches += 1
+    _launch(dia_pair_shared, fn, dp, dp.data_ptr(), vec.data_ptr(), y.data_ptr(),
+            c1.data_ptr(), c2.data_ptr(), u.data_ptr(), z.data_ptr(),
+            offsets_t.data_ptr(), len(offsets), Lp, H, m, n)
     return u, z
 
 
-KERNELS = (dia_pair_shared, dia_product_shared, dia_product_shared_axpy)
-for _fn in KERNELS:
-    _fn.launches = 0
+def dia_matvec(data, x, *, offsets: Sequence[int], m: int, n: int,
+               adjoint: bool = False, offsets_t: Optional[torch.Tensor] = None):
+    """y = A x from the packed stripes ``data`` (nd, m), x (n,) -> (m,).
+    The adjoint product of the operator runs this on its transpose stripes
+    ``tdata`` with the negated offsets (as in the JAX package);
+    ``adjoint=True`` instead reads ``data`` from the column side,
+    x (m,) -> A' x (n,). On CUDA: f32, f64 or bf16 stripes, with an f32
+    vector for bf16 and one of the stripes' dtype otherwise."""
+    offsets = tuple(int(k) for k in offsets)
+    if not data.is_cuda:
+        return dia_matvec_plain(data, x, offsets=offsets, m=m, n=n, adjoint=adjoint)
+    fn = _kernel("dia_matvec", data,
+                 (torch.float32, torch.float64, torch.bfloat16), offsets)
+    _check("data", data, data.dtype, data.device, (len(offsets), m))
+    dim_out, dim_in = (n, m) if adjoint else (m, n)
+    acc = _acc_dtype(data)
+    _check("x", x, acc, data.device, dim_in)
+    offsets_t = _offsets_on(data, offsets, offsets_t)
+    out = torch.empty(dim_out, dtype=acc, device=data.device)
+    if dim_out == 0:
+        return out
+    _launch(dia_matvec, fn, data, data.data_ptr(), x.data_ptr(), out.data_ptr(),
+            offsets_t.data_ptr(), len(offsets), dim_out, dim_in, int(adjoint))
+    return out
 
 
-def launch_counts() -> dict:
-    """{wrapper name: kernel launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+def _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n, offsets_t):
+    _check("data", data, data.dtype, data.device, (len(offsets), m))
+    _check("y", y, torch.float32, data.device, m)
+    _check("win_vec", win_vec, torch.float32, data.device, n)
+    return (_offsets_on(data, offsets, offsets_t), _device_scalar(c1, data.device),
+            _device_scalar(c2, data.device))
+
+
+def dia_matvec_axpy(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
+                    n: int, offsets_t: Optional[torch.Tensor] = None):
+    """out = A (win_vec*c1) - c2*y in one pass over the packed stripes
+    ``data`` (nd, m), with y (m,), win_vec (n,). c1, c2 are numbers or 0-d
+    tensors (read on the device). On CUDA: f32 or bf16 stripes, f32
+    vectors and result."""
+    offsets = tuple(int(k) for k in offsets)
+    if not data.is_cuda:
+        return dia_matvec_axpy_plain(data, y, win_vec, c1, c2, offsets=offsets,
+                                     m=m, n=n)
+    fn = _kernel("dia_matvec_axpy", data, (torch.float32, torch.bfloat16), offsets)
+    offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
+                                          offsets_t)
+    out = torch.empty(m, dtype=torch.float32, device=data.device)
+    if m == 0:
+        return out
+    _launch(dia_matvec_axpy, fn, data, data.data_ptr(), win_vec.data_ptr(),
+            y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
+            offsets_t.data_ptr(), len(offsets), m, n)
+    return out
+
+
+#: per (device, stream): the fused half-step's int32 ticket, 0 between launches
+_TICKETS: dict = {}
+#: the fused half-step kernel's grid cap (kReduceBlocks in csrc/dia_packed.cu)
+_REDUCE_BLOCKS = 1024
+
+
+def dia_fused_halfstep(data, y, win_vec, c1, c2, *, offsets: Sequence[int],
+                       m: int, n: int, offsets_t: Optional[torch.Tensor] = None):
+    """One pass over the packed stripes computing
+        out = A (win_vec*c1) - c2*y,     ssq = sum(out**2)
+    with data (nd, m), y (m,), win_vec (n,). Returns (out, ssq), ssq a 0-d
+    tensor. On CUDA: f32 only; the sum of squares is reduced in the same
+    launch, in a fixed order (deterministic)."""
+    offsets = tuple(int(k) for k in offsets)
+    if not data.is_cuda:
+        return dia_fused_halfstep_plain(data, y, win_vec, c1, c2, offsets=offsets,
+                                        m=m, n=n)
+    fn = _kernel("dia_fused_halfstep", data, (torch.float32,), offsets)
+    offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
+                                          offsets_t)
+    out = torch.empty(m, dtype=torch.float32, device=data.device)
+    if m == 0:
+        return out, torch.zeros((), dtype=torch.float32, device=data.device)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    ticket = _TICKETS.get((data.device, stream))
+    if ticket is None:
+        ticket = _TICKETS[(data.device, stream)] = torch.zeros(
+            1, dtype=torch.int32, device=data.device)
+    slots = min(-(-m // 256), _REDUCE_BLOCKS)
+    partial = torch.empty(slots, dtype=torch.float32, device=data.device)
+    ssq = torch.empty((), dtype=torch.float32, device=data.device)
+    _launch(dia_fused_halfstep, fn, data, data.data_ptr(), win_vec.data_ptr(),
+            y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), ticket.data_ptr(), ssq.data_ptr(),
+            offsets_t.data_ptr(), len(offsets), m, n, slots)
+    return out, ssq
+
+
+def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int,
+             offsets_t: Optional[torch.Tensor] = None):
+    """Both bidiagonalization products in one pass over the packed stripes:
+        u = A (win_vec*c1) - c2*y,     z = A' u
+    with data (nd, m), y (m,), win_vec (n,); z comes from the same
+    row-aligned stripes read from the column side. Returns (u (m,), z (n,)).
+    On CUDA: f32 or bf16 stripes, f32 vectors. When lo = max(0, -min k) or
+    hi = max(0, max k) exceeds PAIR_MAX_HALO, the pair is two launches:
+    :func:`dia_matvec_axpy`, then :func:`dia_matvec` with ``adjoint=True``
+    (each counts its own launch)."""
+    offsets = tuple(int(k) for k in offsets)
+    if not data.is_cuda:
+        return dia_pair_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
+    fn = _kernel("dia_pair", data, (torch.float32, torch.bfloat16), offsets)
+    offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
+                                          offsets_t)
+    lo, hi = _halos(offsets)
+    if max(lo, hi) > PAIR_MAX_HALO:
+        u = dia_matvec_axpy(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n,
+                            offsets_t=offsets_t)
+        return u, dia_matvec(data, u, offsets=offsets, m=m, n=n, adjoint=True,
+                             offsets_t=offsets_t)
+    u = torch.empty(m, dtype=torch.float32, device=data.device)
+    z = torch.empty(n, dtype=torch.float32, device=data.device)
+    if max(m, n) == 0:
+        return u, z
+    _launch(dia_pair, fn, data, data.data_ptr(), win_vec.data_ptr(), y.data_ptr(),
+            c1.data_ptr(), c2.data_ptr(), u.data_ptr(), z.data_ptr(),
+            offsets_t.data_ptr(), len(offsets), m, n, lo, hi)
+    return u, z
+
+
+#: every kernel wrapper and the stripe dtypes its kernel takes
+KERNELS = {
+    dia_pair_shared: ("f32", "bf16"),
+    dia_product_shared: ("f32", "f64", "bf16"),
+    dia_product_shared_axpy: ("f32", "bf16"),
+    dia_pair: ("f32", "bf16"),
+    dia_matvec: ("f32", "f64", "bf16"),
+    dia_matvec_axpy: ("f32", "bf16"),
+    dia_fused_halfstep: ("f32",),
+}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn, suffixes in KERNELS.items():
         fn.launches = 0
+        fn.variants = dict.fromkeys(suffixes, 0)
+
+
+reset_launch_counts()
+
+
+def launch_counts(by_variant: bool = False) -> dict:
+    """{wrapper name: kernel launches since the last reset}. With
+    ``by_variant``, one entry per stripe dtype a kernel takes: the wrapper's
+    name for f32, ``name[bf16]`` and ``name[f64]`` for the others."""
+    if not by_variant:
+        return {fn.__name__: fn.launches for fn in KERNELS}
+    return {(fn.__name__ if s == "f32" else f"{fn.__name__}[{s}]"): count
+            for fn in KERNELS for s, count in fn.variants.items()}

@@ -35,9 +35,26 @@ def rng():
     return np.random.default_rng(0)
 
 
+#: bands whose halo exceeds spmv.PAIR_MAX_HALO: the pairs take two launches
+WIDE = [
+    (5000, 4000, (-1500, -2, 0, 3, 1100)),
+    (2048, 2048, (-1500, 0, 1500)),
+]
+
+
 def _operator(rng, m, n, ks, dtype=np.float32):
     data, _ = banded(rng, m, n, ks, dtype, dense=False)
     return lt.dia_shared_operator(m, n, ks, data)
+
+
+def _only(**launched):
+    """launch_counts() when exactly these wrappers launched, so often."""
+    return {**dict.fromkeys(spmv.launch_counts(), 0), **launched}
+
+
+def _vectors(rng, m, n):
+    return (torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(m).astype(np.float32)))
 
 
 @pytest.mark.cuda
@@ -65,8 +82,8 @@ def test_cuda_kernels_match_twins(rng, cuda_device, m, n, ks):
     ur, zr = spmv.dia_pair_shared_plain(Ah.dp, v, y, 0.8, 1.1, **kw)
     torch.cuda.synchronize()
     assert rel_err(u, ur) < TOL and rel_err(z, zr) < TOL
-    assert spmv.launch_counts() == {"dia_pair_shared": 1, "dia_product_shared": 2,
-                                    "dia_product_shared_axpy": 2}
+    assert spmv.launch_counts() == _only(dia_pair_shared=1, dia_product_shared=2,
+                                         dia_product_shared_axpy=2)
 
 
 @pytest.mark.cuda
@@ -87,20 +104,28 @@ def test_cuda_f64_product_and_wide_halo_pair(rng, cuda_device):
                                 y.to(cuda_device), 0.5, 2.0, offsets=ks, m=m, n=n)
     ur, zr = spmv.dia_pair_shared_plain(dp32, v, y, 0.5, 2.0, offsets=ks, m=m, n=n)
     assert rel_err(u, ur) < TOL and rel_err(z, zr) < TOL
-    assert spmv.launch_counts() == {"dia_pair_shared": 0, "dia_product_shared": 1,
-                                    "dia_product_shared_axpy": 1}
+    assert spmv.launch_counts() == _only(dia_product_shared=1, dia_product_shared_axpy=1)
 
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
     m, n, ks = 300, 300, (-1, 0, 1)
     data = rng.standard_normal((3, m)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16,
-                               device=cuda_device)
+    kw = dict(offsets=ks, m=m, n=n)
+    # bf16 stripes on the card take the pair (and the plain products), not
+    # the fused half-step, as in the JAX package
+    for build in (lt.dia_shared_operator, lt.dia_operator):
+        Ab = build(m, n, ks, data, storage_dtype=torch.bfloat16, device=cuda_device)
+        assert Ab.is_bf16_storage and Ab.prefers_pair and not Ab.prefers_fused
+    wrong = torch.zeros(n, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):  # bf16 stripes take f32 vectors
+        spmv.dia_pair(Ab.data, torch.zeros(m, device=cuda_device), wrong, 1.0, 1.0, **kw)
+    Ab = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16,
+                                device=cuda_device)
+    with pytest.raises(TypeError):
+        spmv.dia_product_shared(Ab.dp, wrong, adjoint=False, **kw)
     A = lt.dia_shared_operator(m, n, ks, data, device=cuda_device)
     assert A.prefers_pair and A.prefers_fused
-    kw = dict(offsets=ks, m=m, n=n)
     with pytest.raises(TypeError):
         spmv.dia_product_shared(A.dp, torch.zeros(n, dtype=torch.float64, device=cuda_device),
                                 adjoint=False, **kw)
@@ -129,4 +154,132 @@ def test_cuda_solve_runs_through_kernels(rng, cuda_device):
         assert spmv.launch_counts()[kernel] > 0
         assert res.x.is_cuda and int(res.istop) == int(ref.istop)
         assert abs(int(res.itn) - int(ref.itn)) <= 2
+        assert rel_err(res.x, ref.x) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,ks", CASES[:4] + CASES[-1:])
+def test_cuda_bf16_shared_kernels_match_twins(rng, cuda_device, m, n, ks):
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    Ah = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16)
+    dp = Ah.dp.to(cuda_device)
+    v, y = _vectors(rng, m, n)
+    kw = dict(offsets=ks, m=m, n=n)
+    spmv.reset_launch_counts()
+    for adjoint, vec, out in ((False, v, y), (True, y, v)):
+        dvec, dout = vec.to(cuda_device), out.to(cuda_device)
+        got = spmv.dia_product_shared(dp, dvec, adjoint=adjoint, **kw)
+        assert got.dtype == torch.float32
+        assert rel_err(got, spmv.dia_product_shared_plain(
+            Ah.dp, vec, adjoint=adjoint, **kw)) < TOL
+        got = spmv.dia_product_shared_axpy(dp, dvec, dout, 0.7, 1.3, adjoint=adjoint, **kw)
+        assert rel_err(got, spmv.dia_product_shared_axpy_plain(
+            Ah.dp, vec, out, 0.7, 1.3, adjoint=adjoint, **kw)) < TOL
+    u, z = spmv.dia_pair_shared(dp, v.to(cuda_device), y.to(cuda_device), 0.8, 1.1, **kw)
+    ur, zr = spmv.dia_pair_shared_plain(Ah.dp, v, y, 0.8, 1.1, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(u, ur) < TOL and rel_err(z, zr) < TOL
+    counts = spmv.launch_counts(by_variant=True)
+    assert counts["dia_pair_shared[bf16]"] == 1 and counts["dia_product_shared[bf16]"] == 2
+    assert counts["dia_product_shared_axpy[bf16]"] == 2 and counts["dia_pair_shared"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,ks", CASES + WIDE)
+def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage)
+    A = lt.DIAOperator(data=Ah.data.to(cuda_device), tdata=Ah.tdata.to(cuda_device),
+                       m=m, n=n, offsets=ks)
+    v, y = _vectors(rng, m, n)
+    dv, dy = v.to(cuda_device), y.to(cuda_device)
+    kw = dict(offsets=ks, m=m, n=n)
+    tkw = dict(offsets=Ah.toffsets, m=n, n=m)
+    c1 = torch.tensor(0.8, device=cuda_device)  # a device scalar, as in the solver
+    spmv.reset_launch_counts()
+    checks = [
+        (spmv.dia_matvec(A.data, dv, offsets_t=A.offsets_t, **kw),
+         spmv.dia_matvec_plain(Ah.data, v, **kw)),
+        (spmv.dia_matvec(A.tdata, dy, offsets_t=A.toffsets_t, **tkw),
+         spmv.dia_matvec_plain(Ah.tdata, y, **tkw)),
+        (spmv.dia_matvec(A.data, dy, adjoint=True, **kw),  # the column side
+         spmv.dia_matvec_plain(Ah.data, y, adjoint=True, **kw)),
+        (spmv.dia_matvec_axpy(A.data, dy, dv, c1, 1.3, **kw),
+         spmv.dia_matvec_axpy_plain(Ah.data, y, v, 0.8, 1.3, **kw)),
+        (spmv.dia_matvec_axpy(A.tdata, dv, dy, 0.6, c1, **tkw),
+         spmv.dia_matvec_axpy_plain(Ah.tdata, v, y, 0.6, 0.8, **tkw)),
+        *zip(spmv.dia_pair(A.data, dy, dv, c1, 1.1, **kw),
+             spmv.dia_pair_plain(Ah.data, y, v, 0.8, 1.1, **kw)),
+    ]
+    if storage == "float32":
+        out, ssq = spmv.dia_fused_halfstep(A.data, dy, dv, c1, 1.3, **kw)
+        out_r, ssq_r = spmv.dia_fused_halfstep_plain(Ah.data, y, v, 0.8, 1.3, **kw)
+        checks.append((out, out_r))
+        assert ssq.shape == () and ssq.is_cuda
+        np.testing.assert_allclose(float(ssq), float(ssq_r), rtol=1e-5)
+    torch.cuda.synchronize()
+    for got, ref in checks:
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert rel_err(got, ref) < TOL
+    wide = max(spmv._halos(ks)) > spmv.PAIR_MAX_HALO
+    expect = dict(dia_pair=0 if wide else 1, dia_matvec_axpy=3 if wide else 2,
+                  dia_matvec=4 if wide else 3,
+                  dia_fused_halfstep=int(storage == "float32"))
+    assert spmv.launch_counts() == _only(**expect)
+    suffix = "" if storage == "float32" else "[bf16]"
+    assert spmv.launch_counts(by_variant=True)["dia_matvec" + suffix] == expect["dia_matvec"]
+
+
+@pytest.mark.cuda
+def test_cuda_packed_f64_matvec(rng, cuda_device):
+    m, n, ks = 5000, 4000, (-1500, -2, 0, 3, 1100)
+    data, _ = banded(rng, m, n, ks, np.float64, dense=False)
+    Ah = lt.dia_operator(m, n, ks, data)
+    A = lt.dia_operator(m, n, ks, data, device=cuda_device)
+    x, y = torch.from_numpy(rng.standard_normal(n)), torch.from_numpy(rng.standard_normal(m))
+    assert rel_err(A.matvec(x.to(cuda_device)), Ah.matvec(x)) < 1e-13
+    assert rel_err(A.rmatvec(y.to(cuda_device)), Ah.rmatvec(y)) < 1e-13
+    got = spmv.dia_matvec(A.data, y.to(cuda_device), offsets=ks, m=m, n=n, adjoint=True)
+    assert got.dtype == torch.float64
+    assert rel_err(got, spmv.dia_matvec_plain(Ah.data, y, offsets=ks, m=m, n=n,
+                                              adjoint=True)) < 1e-13
+    assert not A.prefers_pair and not A.prefers_fused
+
+
+@pytest.mark.cuda
+def test_cuda_packed_solve_runs_through_kernels(rng, cuda_device):
+    m = n = 200_000
+    ks = tuple(range(-5, 6))
+    data, _ = banded(rng, m, n, ks, np.float32, boost=12.0, dense=False)
+    b = rng.standard_normal(m).astype(np.float32)
+    Ac = lt.dia_operator(m, n, ks, data, device=cuda_device)
+    Ah = lt.dia_operator(m, n, ks, data)
+    ref = lt.lsqr(Ah, b, 0.01, atol=1e-6, btol=1e-6, pair=True)
+    for kw, kernel in ((dict(), "dia_pair"),
+                       (dict(pair=False), "dia_fused_halfstep"),
+                       (dict(fused=False), "dia_matvec")):
+        spmv.reset_launch_counts()
+        res = lt.lsqr(Ac, b, 0.01, atol=1e-6, btol=1e-6, **kw)
+        assert spmv.launch_counts()[kernel] > 0
+        assert res.x.is_cuda and int(res.istop) == int(ref.istop)
+        assert abs(int(res.itn) - int(ref.itn)) <= 2
+        assert rel_err(res.x, ref.x) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_solves_take_the_pair(rng, cuda_device):
+    m = n = 200_000
+    ks = tuple(range(-5, 6))
+    data, _ = banded(rng, m, n, ks, np.float32, boost=12.0, dense=False)
+    b = rng.standard_normal(m).astype(np.float32)
+    for build, kernel in ((lt.dia_operator, "dia_pair[bf16]"),
+                          (lt.dia_shared_operator, "dia_pair_shared[bf16]")):
+        ref = lt.lsqr(build(m, n, ks, data, storage_dtype=torch.bfloat16), b, 0.01,
+                      atol=1e-6, btol=1e-6, pair=True)
+        spmv.reset_launch_counts()
+        res = lt.lsqr(build(m, n, ks, data, storage_dtype=torch.bfloat16,
+                            device=cuda_device), b, 0.01, atol=1e-6, btol=1e-6)
+        assert spmv.launch_counts(by_variant=True)[kernel] > 0
+        assert int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 2
         assert rel_err(res.x, ref.x) < 1e-4
