@@ -35,11 +35,21 @@ each raises on failure:
 8. bf16 stripe storage at 2^23 on both layouts: solves to 1e-6 checked in
    f64 against the bf16-rounded operator and against the f32 x, the fixed
    64-iteration time, forced half-steps (the product+axpy kernels), and the
-   launches per iteration of each pair solve.
+   launches per iteration of each pair solve;
+9. the three iteration megakernels (LSQR in f32 and bf16, LSMR, CRAIG)
+   against their plain twins on the card: one call of K = 8 iterations
+   from the same setup on the phase-7 operator (2^23, packed), and on a
+   one-sided band and a ragged rectangular shape at 2^20; the kernels' and
+   the twins' times per call;
+10. solves through the megakernels: ``lsqr``, ``lsmr`` and ``craig`` with
+   ``megakernel=True`` against the regular (pair) path on the card, in f32
+   and bf16, the LSQR answer checked in f64; fixed 64-iteration LSQR runs
+   with and without the megakernel at 2^23 and 2^19 (ms and CUDA launches
+   per iteration); ``cgls`` (regular, and ``pair=True``) checked in f64.
 
-Every solve of phases 2-5, 7 and 8 runs with the launch counts reset just
-before it and read just after; each path must launch the kernels it runs,
-and every kernel variant must have launched on some path. The
+Every solve of phases 2-5, 7, 8 and 10 runs with the launch counts reset
+just before it and read just after; each path must launch the kernels it
+runs, and every kernel variant must have launched on some path. The
 second-to-last line of output is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -54,8 +64,14 @@ OFFSETS = tuple(range(-5, 6))
 WIDE = (2 ** 20, 2 ** 20, (-1500, 0, 1500))
 DAMP = 0.01
 TOL = 1e-5  # f32 kernel vs twin, relative to the max: summation order only
+BF16_TOL = 1e-2  # bf16 results (the packed axpy's): one bf16 ulp is 2^-8
 SHARED = "lsqr_tpu_torch/csrc/dia_shared.cu"
 PACKED = "lsqr_tpu_torch/csrc/dia_packed.cu"
+MEGA = "lsqr_tpu_torch/csrc/megakernel.cu"
+MK_K = 8  # iterations per megakernel call in phase 9
+MK_SIDE = 2 ** 20  # phase 9's one-sided and ragged shapes
+M_SMALL = 2 ** 19  # phase 10's second timing size, the JAX megakernel's size class
+MK_TOL = 1e-4  # megakernel vs twin after MK_K iterations, relative
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "dia_pair_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1969"),
     "dia_product_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1653"),
@@ -64,7 +80,12 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "dia_matvec": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:452"),
     "dia_matvec_axpy": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:690"),
     "dia_fused_halfstep": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:582"),
+    "lsqr_megakernel": (MEGA, "lsqr_tpu/ops/megakernel.py:411"),
+    "lsmr_megakernel": (MEGA, "lsqr_tpu/ops/megakernel_lsmr.py:332"),
+    "craig_megakernel": (MEGA, "lsqr_tpu/ops/megakernel_craig.py:195"),
 }
+#: grid-wide barriers per iteration of each megakernel (csrc/megakernel.cu)
+BARRIERS = {"lsqr": 3, "lsmr": 3, "craig": 2}
 #: f32 vectors each call reads or writes, in units of (m, n) lengths
 VECTORS = {"dia_product_shared": (1, 1), "dia_matvec": (1, 1),
            "dia_product_shared_axpy": (2, 1), "dia_matvec_axpy": (2, 1),
@@ -182,7 +203,11 @@ def kernel_calls(dev, data, v, y, m, n, ks, storage):
             (lambda: spmv.dia_matvec_axpy(pd, y, v, c1, c2, **pkw),
              lambda: spmv.dia_matvec_axpy_plain(pd, y, v, c1, c2, **kw)),
             (lambda: spmv.dia_matvec_axpy(pt, v, y, c1, c2, **ptkw),
-             lambda: spmv.dia_matvec_axpy_plain(pt, v, y, c1, c2, **tkw))],
+             lambda: spmv.dia_matvec_axpy_plain(pt, v, y, c1, c2, **tkw)),
+            # the f32 result the operators' half-steps take (bf16 stripes)
+            (lambda: spmv.dia_matvec_axpy(pd, y, v, c1, c2, out_dtype=torch.float32, **pkw),
+             lambda: spmv.dia_matvec_axpy_plain(pd, y, v, c1, c2, out_dtype=torch.float32,
+                                                **kw))],
         "dia_pair": [
             (lambda: spmv.dia_pair(pd, y, v, c1, c2, **pkw),
              lambda: spmv.dia_pair_plain(pd, y, v, c1, c2, **kw))],
@@ -211,9 +236,10 @@ def hold(calls, errs, m, n, ks, bound):
                       f"{name}: {a.dtype}{tuple(a.shape)} vs twin {b.dtype}{tuple(b.shape)}")
                 r = rel(a, b)
                 errs[name] = max(errs.get(name, 0.0), absdiff(a, b))
-                log(f"  {name:30s} m={m} n={n} nd={len(ks)} out {tuple(a.shape)}: "
-                    f"max rel err {r:.3e}")
-                check(r <= bound, f"{name} disagrees with its twin: {r:.3e} > {bound}")
+                tol = BF16_TOL if a.dtype == torch.bfloat16 else bound
+                log(f"  {name:30s} m={m} n={n} nd={len(ks)} out {tuple(a.shape)} "
+                    f"{str(a.dtype)[6:]}: max rel err {r:.3e}")
+                check(r <= tol, f"{name} disagrees with its twin: {r:.3e} > {tol}")
 
 
 def phase_kernels(dev, shapes, errs):
@@ -498,10 +524,10 @@ def phase_f64(dev, m, paths):
                                                rtol=1e-5), "README 3x3")
 
 
-def phase_launches(A, b):
-    """Phase 6 (and 7, 8): CUDA launches per iteration of a pair solve,
-    from the profiler: (launches of a 128-iteration run - a 64-iteration
-    run) / 64."""
+def phase_launches(A, b, **extra):
+    """Phase 6 (and 7, 8, 10): CUDA launches per iteration of a solve (the
+    pair solve, or ``extra``'s), from the profiler: (launches of a
+    128-iteration run - a 64-iteration run) / 64."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -510,7 +536,7 @@ def phase_launches(A, b):
 
     counts = {}
     for itnlim in (64, 128):
-        kw = dict(itnlim=itnlim, atol=0.0, btol=0.0, conlim=0.0, nconv=itnlim + 1)
+        kw = dict(itnlim=itnlim, atol=0.0, btol=0.0, conlim=0.0, nconv=itnlim + 1, **extra)
         lt.lsqr(A, b, DAMP, **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -675,6 +701,190 @@ def phase_bf16(dev, m, x_f32, card, paths):
         del A
     return out
 
+def mk_modules():
+    """{solver: (its megakernel module, the counted call wrapper)}."""
+    from lsqr_tpu_torch.ops import megakernel, megakernel_craig, megakernel_lsmr
+
+    return {"lsqr": (megakernel, megakernel.lsqr_megakernel_call),
+            "lsmr": (megakernel_lsmr, megakernel_lsmr.lsmr_megakernel_call),
+            "craig": (megakernel_craig, megakernel_craig.craig_megakernel_call)}
+
+
+def mk_pair(solver, A, b):
+    """(kernel call, twin call, kernel vectors+state, twin vectors+state):
+    one megakernel call of MK_K iterations from the solver's own setup, on
+    two copies of it, so the kernel and its twin start equal."""
+    mod, wrapper = mk_modules()[solver]
+    kw = {} if solver == "craig" else dict(damp=DAMP)
+    vectors, state = getattr(mod, f"{solver}_megakernel_prepare")(A, b, itnlim=10_000, **kw)
+    mine = [t.clone() for t in (*vectors, state)]
+    twin = [t.clone() for t in (*vectors, state)]
+    args = dict(offsets=A.offsets, m=A.m, n=A.n, K=MK_K)
+    plain = getattr(mod, f"{solver}_megakernel_plain")
+    return (lambda: wrapper(A.data, A.tdata, *mine, offsets_t=A.offsets_t,
+                            toffsets_t=A.toffsets_t, **args),
+            lambda: plain(A.data, A.tdata, *twin, **args), mine, twin)
+
+
+def phase_megakernels(dev, m, errs, card):
+    """Phase 9: each megakernel against its twin on the card, one call of
+    MK_K iterations from the same setup; returns {variant: (kernel ms per
+    call, twin ms per call)} at the main shape."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+
+    times = {}
+    shapes = [(m, m, OFFSETS, (torch.float32, torch.bfloat16)),
+              (MK_SIDE, MK_SIDE, (0, 1, 2, 3), (torch.float32,)),  # one-sided
+              (MK_SIDE + 3, 3 * MK_SIDE // 4 + 5, OFFSETS, (torch.float32,))]  # ragged
+    for si, (mm, nn, ks, storages) in enumerate(shapes):
+        data, b, g = random_stripes(mm, nn, ks, dev, seed=100 if si == 0 else 200 + si,
+                                    boost=12.0)
+        xt = torch.randn(nn, generator=g, device=dev)
+        for storage in storages:
+            A = lt.dia_operator_device(mm, nn, ks, data, storage_dtype=storage)
+            sfx = "" if storage == torch.float32 else "[bf16]"
+            for solver in ("lsqr", "lsmr", "craig"):
+                rhs = A.matvec(xt) if solver == "craig" else b  # CRAIG: consistent
+                kernel, plain, mine, twin = mk_pair(solver, A, rhs)
+                state0 = mine[-1].clone()
+                kernel()
+                plain()
+                torch.cuda.synchronize()
+                name = f"{solver}_megakernel{sfx}"
+                got, ref = mine[-1].double(), twin[-1].double()
+                scale = ref.abs().clamp_min(1e-6)
+                worst = float(((got - ref).abs() / scale).max())
+                errs[name] = max(errs.get(name, 0.0), absdiff(got, ref))
+                for a, r in zip(mine[:-1], twin[:-1]):
+                    worst = max(worst, rel(a, r))
+                    errs[name] = max(errs[name], absdiff(a, r))
+                _, wrapper = mk_modules()[solver]
+                log(f"  {name:24s} m={mm} n={nn} ks={ks[0]}..{ks[-1]} K={MK_K}: "
+                    f"itn {int(mine[-1][{'lsqr': 15, 'lsmr': 23, 'craig': 7}[solver]])}, "
+                    f"max rel err (state and vectors) {worst:.3e}; grid {wrapper.blocks} "
+                    f"blocks x 256, {BARRIERS[solver]} grid barriers per iteration")
+                check(worst <= MK_TOL, f"{name} disagrees with its twin: {worst:.3e}")
+                if si == 0:
+                    # time calls from the same state (restored before each), so
+                    # every call runs MK_K live iterations
+                    def again(fn, st, s0=state0):
+                        st.copy_(s0)
+                        fn()
+                    ms = time_ms(lambda: again(kernel, mine[-1]), reps=10)
+                    plain_ms = time_ms(lambda: again(plain, twin[-1]), reps=2)
+                    times[name] = (ms, plain_ms)
+                    log(f"    {name}: kernel {ms:.4f} ms per call ({ms / MK_K:.4f} ms per "
+                        f"iteration), twin {plain_ms:.4f} ms per call  [{card}]")
+                del kernel, plain, mine, twin
+            del A
+        del data, b, xt
+        torch.cuda.empty_cache()
+    return times
+
+
+def mk_solve(label, fn, A, b, card, paths, **kw):
+    """One counted solve through ``fn`` (lsqr, lsmr, craig or cgls):
+    (result, launches by variant, wall seconds)."""
+    import torch
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(A, b, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    (res, secs), delta = counted(run)
+    paths.append(delta)
+    check(bool(torch.isfinite(res.x).all()) and res.x.shape == (A.n,), f"{label}: bad x")
+    launched = {k: v for k, v in delta.items() if v}
+    log(f"  {label}: istop={int(res.istop)} itn={int(res.itn)} wall={secs * 1e3:.3f} ms "
+        f"({secs * 1e3 / max(int(res.itn), 1):.4f} ms/iteration incl. setup, {card}) "
+        f"launches={launched}")
+    return res, delta, secs
+
+
+def phase_mk_solves(dev, m, card, paths):
+    """Phase 10: megakernel solves against the regular path on the card,
+    the fixed-length timing with and without the megakernel, and CGLS."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+
+    out = {}
+    data, b, g = random_stripes(m, m, OFFSETS, dev, seed=100, boost=12.0)
+    xt = torch.randn(m, generator=g, device=dev)
+    for storage in (torch.float32, torch.bfloat16):
+        A = lt.dia_operator_device(m, m, OFFSETS, data, storage_dtype=storage)
+        sfx = "" if storage == torch.float32 else "[bf16]"
+        bc = A.matvec(xt)
+        for solver, fn, rhs, kw in (
+                ("lsqr", lt.lsqr, b, dict(damp=DAMP)),
+                ("lsmr", lt.lsmr, b, dict(damp=DAMP)),
+                ("craig", lt.craig, bc, {})):
+            kw.update(atol=1e-6, btol=1e-6)
+            ref, delta, _ = mk_solve(f"{solver}{sfx} regular", fn, A, rhs, card, paths, **kw)
+            pair = "dia_pair" + sfx
+            check(delta[pair] > 0, f"{solver}{sfx} regular: no {pair} launches {delta}")
+            res, delta, secs = mk_solve(f"{solver}{sfx} megakernel=True", fn, A, rhs, card,
+                                        paths, megakernel=True, **kw)
+            name = f"{solver}_megakernel{sfx}"
+            check(delta[name] > 0 and delta[pair] == 0,
+                  f"{solver}{sfx}: megakernel=True must launch {name} only: {delta}")
+            err = rel(res.x, ref.x)
+            log(f"    x rel diff to the regular path {err:.3e}; {delta[name]} launches")
+            check(int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 1,
+                  f"{solver}{sfx} megakernel: istop/itn differ from the regular path")
+            check(err <= 1e-3, f"{solver}{sfx} megakernel: x differs by {err:.3e}")
+            entry = dict(istop=int(res.istop), itn=int(res.itn), itn_regular=int(ref.itn),
+                         ms=secs * 1e3, x_rel_to_regular=err)
+            if solver == "lsqr":
+                ratio = packed_optimality(A, b, res.x)
+                log(f"    independent check (f64, twins) {ratio:.3e}")
+                check(ratio <= 1e-4, f"lsqr{sfx} megakernel: optimality {ratio:.3e}")
+                entry["optimality"] = ratio
+            out[f"{solver}{sfx}"] = entry
+        del A
+    torch.cuda.empty_cache()
+
+    # CGLS on the f32 packed operator, regular and pair=True
+    A = lt.dia_operator_device(m, m, OFFSETS, data)
+    for label, kw, kernel in (("cgls regular", {}, "dia_matvec"),
+                              ("cgls pair=True", dict(pair=True), "dia_pair")):
+        res, delta, secs = mk_solve(label, lt.cgls, A, b, card, paths, damp=DAMP,
+                                    atol=1e-6, btol=1e-6, **kw)
+        ratio = packed_optimality(A, b, res.x)
+        log(f"    independent check {ratio:.3e}")
+        check(int(res.istop) in (1, 2) and delta[kernel] > 0, f"{label}: {delta}")
+        check(ratio <= 1e-4, f"{label}: optimality {ratio:.3e} > 1e-4")
+        out[label.replace(" ", "_")] = dict(istop=int(res.istop), itn=int(res.itn),
+                                            ms=secs * 1e3, optimality=ratio)
+    del A, data, b, xt
+    torch.cuda.empty_cache()
+
+    # fixed 64 iterations with and without the megakernel, at 2^23 and 2^19
+    for mm in (m, M_SMALL):
+        data, b, _ = random_stripes(mm, mm, OFFSETS, dev, seed=100, boost=12.0)
+        A = lt.dia_operator_device(mm, mm, OFFSETS, data)
+        del data
+        row = {}
+        for label, extra in (("regular", {}), ("megakernel", dict(megakernel=True))):
+            kw = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65, **extra)
+            mk_solve(f"m=n={mm} {label} warm-up 64 iterations", lt.lsqr, A, b, card, paths,
+                     damp=DAMP, **kw)
+            res, delta, secs = mk_solve(f"m=n={mm} {label} fixed 64 iterations", lt.lsqr, A,
+                                        b, card, paths, damp=DAMP, **kw)
+            check(int(res.itn) == 64, f"fixed run {label}: itn {int(res.itn)} != 64")
+            log(f"  launch profile, m=n={mm} {label}:")
+            row[label] = dict(ms_per_iteration=secs * 1e3 / 64,
+                              launch_profile=phase_launches(A, b, **extra))
+        out[f"fixed64_m{mm}"] = row
+        del A, b
+        torch.cuda.empty_cache()
+    return out
+
 
 def main():
     import torch
@@ -726,9 +936,15 @@ def main():
     torch.cuda.empty_cache()
     log("phase 8: bf16 stripe storage")
     solves["bf16"] = phase_bf16(dev, M_MAIN, x_shared, card, paths)
+    torch.cuda.empty_cache()
+    log("phase 9: megakernels vs twins")
+    mk_times = phase_megakernels(dev, M_MAIN, errs, card)
+    log("phase 10: solves through the megakernels")
+    solves["megakernel"] = phase_mk_solves(dev, M_MAIN, card, paths)
+    times.update({name: (ms, plain_ms) for name, (ms, plain_ms) in mk_times.items()})
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
-    log(f"  launches on the paths of phases 2-5, 7 and 8: {launches}")
+    log(f"  launches on the paths of phases 2-5, 7, 8 and 10: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

@@ -51,8 +51,14 @@ class LSQROptions:
     * ``loop``: both forms run the same host-stepped masked segments of
       ``loop_segment`` iterations (one host read of istop/itn per
       segment); ``istop``/``itn`` equal those of JAX's ``while_loop``.
-    * ``debug_log=True`` and ``megakernel=True`` raise
-      ``NotImplementedError`` (ROADMAP Queue 1 items 8 and 13).
+    * ``debug_log=True`` raises ``NotImplementedError`` (ROADMAP Queue 1
+      item 8).
+    * ``megakernel=True`` routes the solve through the LSQR iteration
+      megakernel (K iterations per launch, :mod:`.ops.megakernel`): the
+      CUDA kernel on the card, its plain twin on the CPU (where JAX runs
+      the Pallas kernel interpreted). An unsupported configuration raises
+      ``ValueError``. None means False, as in the JAX package; whether the
+      amortization pays on the H100 is measured in PERF.md, not assumed.
     """
 
     atol: float = 0.0

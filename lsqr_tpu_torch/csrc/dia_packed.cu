@@ -15,7 +15,10 @@
 // them on the host.
 //
 // Stripe storage: f32, f64 (dia_matvec only) or bf16 (a storage format:
-// vectors, c1, c2, the accumulation and the results stay f32).
+// vectors, c1, c2 and the accumulation stay f32). The results are f32,
+// except that dia_matvec_axpy on bf16 stripes stores bf16 (the f32 sum
+// rounded to nearest even, as the JAX kernel returns data.dtype), or f32
+// through its _f32out launcher.
 //
 // Kernels and the TPU kernels they replace (lsqr_tpu/ops/pallas_spmv.py):
 //
@@ -104,11 +107,17 @@ __global__ void dia_matvec_kernel(
   }
 }
 
-template <typename S>
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// O: result type (f32, or bf16 for bf16 stripes).
+template <typename S, typename O>
 __global__ void dia_matvec_axpy_kernel(
     const S* __restrict__ data, const float* __restrict__ vec,
     const float* __restrict__ y, const float* __restrict__ c1p,
-    const float* __restrict__ c2p, float* __restrict__ out,
+    const float* __restrict__ c2p, O* __restrict__ out,
     const int* __restrict__ offsets, int nd, long long dim_out,
     long long dim_in) {
   const float c1 = __ldg(c1p);
@@ -124,7 +133,7 @@ __global__ void dia_matvec_axpy_kernel(
         acc += widen(data + d * dim_out + i) * (__ldg(vec + src) * c1);
       }
     }
-    out[i] = acc;
+    store(out + i, acc);
   }
 }
 
@@ -247,16 +256,16 @@ int launch_matvec(const void* data, const void* vec, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
+template <typename S, typename O>
 int launch_matvec_axpy(const void* data, const void* vec, const void* y,
                        const void* c1, const void* c2, void* out,
                        const void* offsets, int nd, long long dim_out,
                        long long dim_in, void* stream) {
-  dia_matvec_axpy_kernel<S>
+  dia_matvec_axpy_kernel<S, O>
       <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const S*>(data), static_cast<const float*>(vec),
           static_cast<const float*>(y), static_cast<const float*>(c1),
-          static_cast<const float*>(c2), static_cast<float*>(out),
+          static_cast<const float*>(c2), static_cast<O*>(out),
           static_cast<const int*>(offsets), nd, dim_out, dim_in);
   return static_cast<int>(cudaGetLastError());
 }
@@ -293,13 +302,13 @@ extern "C" {
                                column, stream);                                 \
   }
 
-#define LSQR_MATVEC_AXPY(SUFFIX, S)                                             \
+#define LSQR_MATVEC_AXPY(SUFFIX, S, O)                                          \
   int lsqr_dia_matvec_axpy_##SUFFIX(                                            \
       const void* data, const void* vec, const void* y, const void* c1,         \
       const void* c2, void* out, const void* offsets, int nd,                   \
       long long dim_out, long long dim_in, void* stream) {                      \
-    return launch_matvec_axpy<S>(data, vec, y, c1, c2, out, offsets, nd,        \
-                                 dim_out, dim_in, stream);                      \
+    return launch_matvec_axpy<S, O>(data, vec, y, c1, c2, out, offsets, nd,     \
+                                    dim_out, dim_in, stream);                   \
   }
 
 #define LSQR_PAIR(SUFFIX, S)                                                    \
@@ -314,8 +323,9 @@ extern "C" {
 LSQR_MATVEC(f32, float, float)
 LSQR_MATVEC(f64, double, double)
 LSQR_MATVEC(bf16, __nv_bfloat16, float)
-LSQR_MATVEC_AXPY(f32, float)
-LSQR_MATVEC_AXPY(bf16, __nv_bfloat16)
+LSQR_MATVEC_AXPY(f32, float, float)
+LSQR_MATVEC_AXPY(bf16, __nv_bfloat16, __nv_bfloat16)
+LSQR_MATVEC_AXPY(bf16_f32out, __nv_bfloat16, float)
 LSQR_PAIR(f32, float)
 LSQR_PAIR(bf16, __nv_bfloat16)
 

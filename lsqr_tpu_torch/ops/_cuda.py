@@ -47,7 +47,7 @@ _SIGNATURES = {
        for s in ("f32", "f64", "bf16")},
     # data, vec, y, c1, c2, out, offsets, nd, dim_out, dim_in, stream
     **{f"lsqr_dia_matvec_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P)
-       for s in ("f32", "bf16")},
+       for s in ("f32", "bf16", "bf16_f32out")},
     # data, vec, y, c1, c2, out, partial, ticket, ssq, offsets, nd, dim_out,
     # dim_in, slots, stream
     "lsqr_dia_fused_halfstep_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
@@ -55,6 +55,14 @@ _SIGNATURES = {
     # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, stream
     **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _P)
        for s in ("f32", "bf16")},
+    # csrc/megakernel.cu
+    # solver, bf16, dim, blocks (out)
+    "lsqr_mk_grid": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # data, tdata, offsets, toffsets, nd, m, n, u, v, x, w, hbar, state,
+    # partial, blocks, K, stream
+    **{f"lsqr_mk_{solver}_{s}": (_P, _P, _P, _P, _I, _L, _L, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _P)
+       for solver in ("lsqr", "lsmr", "craig") for s in ("f32", "bf16")},
 }
 
 

@@ -57,7 +57,8 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
 
 
 def result_to_numpy(res) -> dict:
-    """{field: numpy array or None} for an LSQRResult of either package."""
+    """{field: numpy array or None} for a result of either package: an
+    LSQRResult, LSMRResult, CRAIGResult or CGLSResult."""
     out = {}
     for name, value in res._asdict().items():
         if isinstance(value, torch.Tensor):

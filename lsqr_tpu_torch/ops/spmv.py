@@ -23,7 +23,11 @@ attribute (a plain integer), and per stripe dtype in ``variants``
 (:func:`launch_counts`, :func:`reset_launch_counts`).
 
 Stripes are f32, f64 where the kernel says so, or bf16: bf16 is a storage
-format, so vectors, c1, c2, the accumulation and the results are f32.
+format, so vectors, c1, c2 and the accumulation are f32, and so are the
+results, except that ``dia_matvec_axpy`` and ``dia_fused_halfstep`` return
+the stripes' dtype as the JAX kernels do (their ``ssq`` stays f32;
+``dia_matvec_axpy(out_dtype=torch.float32)`` keeps an f32 result, which the
+operators' half-steps and the wide-halo pair take).
 
 Shared layout: ``dp`` is the flat ``(nd * Lp,)`` stripe array of
 :func:`dia_shared_geometry` with ``dp[d * Lp + H + i] = A[i, i + offsets[d]]``
@@ -57,6 +61,7 @@ __all__ = [
     "dia_pair_plain",
     "launch_counts",
     "reset_launch_counts",
+    "register",
     "PAIR_MAX_HALO",
 ]
 
@@ -180,8 +185,8 @@ def dia_matvec_plain(data, x, *, offsets, m, n, adjoint=False):
     return out
 
 
-def dia_matvec_axpy_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
-    """Plain twin of :func:`dia_matvec_axpy`."""
+def _axpy_acc(data, y, win_vec, c1, c2, offsets, m):
+    """A (win_vec*c1) - c2*y in the accumulation dtype."""
     acc_dt = _acc_dtype(data)
     xw = win_vec.to(acc_dt) * _scalar(c1, acc_dt, data.device)
     acc = (-_scalar(c2, acc_dt, data.device)) * y.to(acc_dt)
@@ -190,15 +195,20 @@ def dia_matvec_axpy_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
     return acc
 
 
+def dia_matvec_axpy_plain(data, y, win_vec, c1, c2, *, offsets, m, n, out_dtype=None):
+    """Plain twin of :func:`dia_matvec_axpy`."""
+    return _axpy_acc(data, y, win_vec, c1, c2, offsets, m).to(out_dtype or data.dtype)
+
+
 def dia_fused_halfstep_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
     """Plain twin of :func:`dia_fused_halfstep`."""
-    out = dia_matvec_axpy_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
-    return out, torch.sum(out * out)
+    acc = _axpy_acc(data, y, win_vec, c1, c2, offsets, m)
+    return acc.to(data.dtype), torch.sum(acc * acc)
 
 
 def dia_pair_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
     """Plain twin of :func:`dia_pair`."""
-    u = dia_matvec_axpy_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
+    u = _axpy_acc(data, y, win_vec, c1, c2, offsets, m)
     return u, dia_matvec_plain(data, u, offsets=offsets, m=m, n=n, adjoint=True)
 
 
@@ -229,16 +239,16 @@ def _check(name, t, dtype, device, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel(name, stripes, dtypes, offsets):
-    """The library function lsqr_<name>_<suffix> for these stripes, after
-    checking their dtype and the number of diagonals."""
+def _kernel(name, stripes, dtypes, offsets, tail=""):
+    """The library function lsqr_<name>_<suffix><tail> for these stripes,
+    after checking their dtype and the number of diagonals."""
     from . import _cuda
 
     if stripes.dtype not in dtypes:
         raise TypeError(f"stripes of dtype {stripes.dtype}: the kernel takes {dtypes}")
     if not 1 <= len(offsets) <= 1024:
         raise ValueError(f"the kernels take 1 to 1024 diagonals, got {len(offsets)}")
-    return getattr(_cuda.library(), f"lsqr_{name}_{_SUFFIX[stripes.dtype]}")
+    return getattr(_cuda.library(), f"lsqr_{name}_{_SUFFIX[stripes.dtype]}{tail}")
 
 
 def _launch(wrapper, fn, stripes, *args):
@@ -246,7 +256,7 @@ def _launch(wrapper, fn, stripes, *args):
     from . import _cuda
 
     _cuda.check(fn(*args, torch.cuda.current_stream(stripes.device).cuda_stream),
-                wrapper.__name__)
+                wrapper.kernel_name)
     wrapper.launches += 1
     wrapper.variants[_SUFFIX[stripes.dtype]] += 1
 
@@ -389,19 +399,26 @@ def _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n, offsets_t):
 
 
 def dia_matvec_axpy(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
-                    n: int, offsets_t: Optional[torch.Tensor] = None):
+                    n: int, offsets_t: Optional[torch.Tensor] = None,
+                    out_dtype: Optional[torch.dtype] = None):
     """out = A (win_vec*c1) - c2*y in one pass over the packed stripes
     ``data`` (nd, m), with y (m,), win_vec (n,). c1, c2 are numbers or 0-d
     tensors (read on the device). On CUDA: f32 or bf16 stripes, f32
-    vectors and result."""
+    vectors. The result has the stripes' dtype (bf16 for bf16 stripes, the
+    f32 sum rounded on the store, as in the JAX kernel), or ``out_dtype``
+    (f32 only, for bf16 stripes)."""
     offsets = tuple(int(k) for k in offsets)
+    out_dtype = out_dtype or data.dtype
+    if out_dtype not in (data.dtype, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype}: the stripes' dtype or float32")
     if not data.is_cuda:
         return dia_matvec_axpy_plain(data, y, win_vec, c1, c2, offsets=offsets,
-                                     m=m, n=n)
-    fn = _kernel("dia_matvec_axpy", data, (torch.float32, torch.bfloat16), offsets)
+                                     m=m, n=n, out_dtype=out_dtype)
+    tail = "_f32out" if out_dtype != data.dtype else ""
+    fn = _kernel("dia_matvec_axpy", data, (torch.float32, torch.bfloat16), offsets, tail)
     offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
                                           offsets_t)
-    out = torch.empty(m, dtype=torch.float32, device=data.device)
+    out = torch.empty(m, dtype=out_dtype, device=data.device)
     if m == 0:
         return out
     _launch(dia_matvec_axpy, fn, data, data.data_ptr(), win_vec.data_ptr(),
@@ -420,9 +437,10 @@ def dia_fused_halfstep(data, y, win_vec, c1, c2, *, offsets: Sequence[int],
                        m: int, n: int, offsets_t: Optional[torch.Tensor] = None):
     """One pass over the packed stripes computing
         out = A (win_vec*c1) - c2*y,     ssq = sum(out**2)
-    with data (nd, m), y (m,), win_vec (n,). Returns (out, ssq), ssq a 0-d
-    tensor. On CUDA: f32 only; the sum of squares is reduced in the same
-    launch, in a fixed order (deterministic)."""
+    with data (nd, m), y (m,), win_vec (n,). Returns (out, ssq), ssq an f32
+    0-d tensor of the unrounded sum and out in the stripes' dtype (the twin
+    takes bf16 stripes too). On CUDA: f32 only; the sum of squares is
+    reduced in the same launch, in a fixed order (deterministic)."""
     offsets = tuple(int(k) for k in offsets)
     if not data.is_cuda:
         return dia_fused_halfstep_plain(data, y, win_vec, c1, c2, offsets=offsets,
@@ -467,7 +485,7 @@ def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int
     lo, hi = _halos(offsets)
     if max(lo, hi) > PAIR_MAX_HALO:
         u = dia_matvec_axpy(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n,
-                            offsets_t=offsets_t)
+                            offsets_t=offsets_t, out_dtype=torch.float32)
         return u, dia_matvec(data, u, offsets=offsets, m=m, n=n, adjoint=True,
                              offsets_t=offsets_t)
     u = torch.empty(m, dtype=torch.float32, device=data.device)
@@ -498,14 +516,25 @@ def reset_launch_counts() -> None:
         fn.variants = dict.fromkeys(suffixes, 0)
 
 
+def register(wrapper, suffixes, name=None) -> None:
+    """Count a kernel wrapper of another module here too, under ``name``
+    (its own ``__name__`` by default); it launches through :func:`_launch`."""
+    wrapper.kernel_name = name or wrapper.__name__
+    KERNELS[wrapper] = tuple(suffixes)
+    wrapper.launches = 0
+    wrapper.variants = dict.fromkeys(suffixes, 0)
+
+
+for _fn in KERNELS:
+    _fn.kernel_name = _fn.__name__
 reset_launch_counts()
 
 
 def launch_counts(by_variant: bool = False) -> dict:
-    """{wrapper name: kernel launches since the last reset}. With
-    ``by_variant``, one entry per stripe dtype a kernel takes: the wrapper's
-    name for f32, ``name[bf16]`` and ``name[f64]`` for the others."""
+    """{kernel name: launches since the last reset}. With ``by_variant``,
+    one entry per stripe dtype a kernel takes: the name for f32,
+    ``name[bf16]`` and ``name[f64]`` for the others."""
     if not by_variant:
-        return {fn.__name__: fn.launches for fn in KERNELS}
-    return {(fn.__name__ if s == "f32" else f"{fn.__name__}[{s}]"): count
+        return {fn.kernel_name: fn.launches for fn in KERNELS}
+    return {(fn.kernel_name if s == "f32" else f"{fn.kernel_name}[{s}]"): count
             for fn in KERNELS for s, count in fn.variants.items()}

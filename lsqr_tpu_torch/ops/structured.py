@@ -169,7 +169,7 @@ class DIAOperator(LinearOperator):
         kw = dict(offsets=offs, m=m_out, n=n_in, offsets_t=offs_t)
         if self.data.dtype == torch.float32:
             return dia_fused_halfstep(*args, **kw)
-        out = dia_matvec_axpy(*args, **kw)
+        out = dia_matvec_axpy(*args, **kw, out_dtype=torch.float32)
         return out, torch.sum(out * out)
 
     def fused_pair(self, *, y, win, c1, c2):

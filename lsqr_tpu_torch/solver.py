@@ -378,12 +378,12 @@ def _build(
     return carry0, cond_fun, body_fun, finalize
 
 
-def _masked_step(c: _Carry, cond_fun, body_fun) -> _Carry:
-    """One iteration that leaves the carry as it was once the solver has
-    stopped (``_masked_body`` of the JAX package)."""
+def _masked_step(c, cond_fun, body_fun):
+    """One iteration that leaves the carry (a NamedTuple of tensors) as it
+    was once the solver has stopped (``_masked_body`` of the JAX package)."""
     active = cond_fun(c)
     new = body_fun(c, active)
-    return _Carry(*[a if a is b else torch.where(active, a, b) for a, b in zip(new, c)])
+    return type(c)(*[a if a is b else torch.where(active, a, b) for a, b in zip(new, c)])
 
 
 def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int):
@@ -426,11 +426,6 @@ def lsqr(
     opts = options or LSQROptions()
     if option_overrides:
         opts = opts.replace(**option_overrides)
-    if opts.megakernel:
-        raise NotImplementedError(
-            "megakernel=True: the iteration megakernels are not ported yet "
-            "(ROADMAP Queue 1 item 13)"
-        )
     if opts.debug_log:
         raise NotImplementedError(
             "debug_log=True is not ported yet (ROADMAP Queue 1 item 8, "
@@ -450,6 +445,22 @@ def lsqr(
             f"b must be a vector of length m = {A.m} (the number of rows of "
             f"A); got shape {tuple(b.shape)}"
         )
+
+    if opts.megakernel:
+        # None means False, as in the JAX package (LSQROptions.megakernel)
+        from .ops.megakernel import lsqr_megakernel, megakernel_supported
+
+        if not (dtype == torch.float32 and opts.scalar_dtype is None
+                and megakernel_supported(A, wantse=opts.wantse,
+                                         record_trace=opts.record_trace)):
+            raise ValueError(
+                "megakernel=True requires an f32 DIAOperator (f32 or bf16 "
+                "stripes) without wantse, record_trace or scalar_dtype (see "
+                "ops.megakernel.megakernel_supported)"
+            )
+        return lsqr_megakernel(A, b, damp, atol=opts.atol, btol=opts.btol,
+                               conlim=opts.conlim, itnlim=opts.itnlim,
+                               nconv=opts.nconv, x0=x0)
 
     if x0 is not None:
         if float(damp) != 0.0:

@@ -21,7 +21,8 @@ PORT_DIR = Path(__file__).resolve().parents[1] / "lsqr_tpu_torch"
 
 def to_np(a):
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
 
 

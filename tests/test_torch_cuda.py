@@ -212,6 +212,10 @@ def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
         *zip(spmv.dia_pair(A.data, dy, dv, c1, 1.1, **kw),
              spmv.dia_pair_plain(Ah.data, y, v, 0.8, 1.1, **kw)),
     ]
+    if storage == "bfloat16":  # the axpy's f32 result, as the operators take it
+        f32 = dict(out_dtype=torch.float32)
+        checks.append((spmv.dia_matvec_axpy(A.data, dy, dv, c1, 1.3, **kw, **f32),
+                       spmv.dia_matvec_axpy_plain(Ah.data, y, v, 0.8, 1.3, **kw, **f32)))
     if storage == "float32":
         out, ssq = spmv.dia_fused_halfstep(A.data, dy, dv, c1, 1.3, **kw)
         out_r, ssq_r = spmv.dia_fused_halfstep_plain(Ah.data, y, v, 0.8, 1.3, **kw)
@@ -219,11 +223,16 @@ def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
         assert ssq.shape == () and ssq.is_cuda
         np.testing.assert_allclose(float(ssq), float(ssq_r), rtol=1e-5)
     torch.cuda.synchronize()
-    for got, ref in checks:
-        assert got.dtype == torch.float32 and got.shape == ref.shape
-        assert rel_err(got, ref) < TOL
+    for i, (got, ref) in enumerate(checks):
+        # the axpy returns the stripes' dtype, as the JAX kernel does: bf16
+        # results may round one bf16 ulp (2^-8 relative) apart
+        bf16_out = storage == "bfloat16" and i in (3, 4)
+        assert got.dtype == ref.dtype == (torch.bfloat16 if bf16_out else torch.float32)
+        assert got.shape == ref.shape
+        assert rel_err(got, ref) < (1e-2 if bf16_out else TOL)
     wide = max(spmv._halos(ks)) > spmv.PAIR_MAX_HALO
-    expect = dict(dia_pair=0 if wide else 1, dia_matvec_axpy=3 if wide else 2,
+    bf16 = storage == "bfloat16"
+    expect = dict(dia_pair=0 if wide else 1, dia_matvec_axpy=(3 if wide else 2) + bf16,
                   dia_matvec=4 if wide else 3,
                   dia_fused_halfstep=int(storage == "float32"))
     assert spmv.launch_counts() == _only(**expect)
@@ -283,3 +292,128 @@ def test_cuda_bf16_solves_take_the_pair(rng, cuda_device):
         assert spmv.launch_counts(by_variant=True)[kernel] > 0
         assert int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 2
         assert rel_err(res.x, ref.x) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the iteration megakernels (csrc/megakernel.cu)
+# ---------------------------------------------------------------------------
+
+#: tests/test_megakernel*.py shapes: square, over- and under-determined,
+#: ragged, one-sided offsets
+MK_CASES = [
+    (2048, 2048, (-3, -1, 0, 2, 5)),
+    (3072, 2048, (-3, -1, 0, 2, 5)),
+    (2048, 3072, (-3, -1, 0, 2, 5)),
+    (2500, 1800, (0, 1, 2)),
+    (1800, 2500, (-2, -1, 0)),
+    (300_001, 200_003, (-60, -3, 0, 5)),
+]
+MK_TOL = 1e-4  # kernel vs twin after 8 iterations: summation order only
+
+
+def _mk_problem(rng, m, n, ks, storage, device=None, boost=8.0):
+    data, _ = banded(rng, m, n, ks, np.float32, boost=boost, dense=False)
+    return lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=device)
+
+
+def _mk_setup(solver, A, b):
+    """(call, vectors, state) of one megakernel call from the solver's setup."""
+    from lsqr_tpu_torch.ops import megakernel, megakernel_craig, megakernel_lsmr
+
+    mod, call = {
+        "lsqr": (megakernel, megakernel.lsqr_megakernel_call),
+        "lsmr": (megakernel_lsmr, megakernel_lsmr.lsmr_megakernel_call),
+        "craig": (megakernel_craig, megakernel_craig.craig_megakernel_call),
+    }[solver]
+    vectors, state = getattr(mod, f"{solver}_megakernel_prepare")(
+        A, b, itnlim=1000, **({} if solver == "craig" else dict(damp=0.01)))
+    return call, vectors, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr", "craig"])
+@pytest.mark.parametrize("m,n,ks", MK_CASES)
+def test_cuda_megakernels_match_twins(rng, cuda_device, m, n, ks, solver, storage):
+    Ah = _mk_problem(rng, m, n, ks, storage)
+    A = lt.DIAOperator(data=Ah.data.to(cuda_device), tdata=Ah.tdata.to(cuda_device),
+                       m=m, n=n, offsets=ks)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    if solver == "craig":  # a consistent system
+        b = Ah.matvec(torch.from_numpy(rng.standard_normal(n).astype(np.float32)))
+    call, vec_h, state_h = _mk_setup(solver, Ah, b)
+    vec_d = [t.to(cuda_device) for t in vec_h]
+    state_d = state_h.to(cuda_device)
+    spmv.reset_launch_counts()
+    call(A.data, A.tdata, *vec_d, state_d, offsets=ks, m=m, n=n, K=8)
+    call(Ah.data, Ah.tdata, *vec_h, state_h, offsets=ks, m=m, n=n, K=8)
+    torch.cuda.synchronize()
+    name = f"{solver}_megakernel" + ("" if storage == "float32" else "[bf16]")
+    assert spmv.launch_counts(by_variant=True)[name] == 1
+    assert sum(spmv.launch_counts().values()) == 1
+    got, ref = state_d.cpu().numpy(), state_h.numpy()
+    scale = np.maximum(np.abs(ref), 1e-6)
+    assert np.all(np.abs(got - ref) <= MK_TOL * scale), (got, ref)
+    for g, r in zip(vec_d, vec_h):
+        assert rel_err(g, r) < MK_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr", "craig"])
+def test_cuda_megakernel_carryover_bit_equal(rng, cuda_device, solver):
+    """A stop in the middle of a launch masks the rest: K = 64 and K = 4
+    give bit-equal results on the card, as in the JAX tests."""
+    A = _mk_problem(rng, 2048, 2048, (-3, -1, 0, 2, 5), None, cuda_device)
+    b = torch.from_numpy(rng.standard_normal(2048).astype(np.float32)).to(cuda_device)
+    fn = {"lsqr": lt.lsqr_megakernel, "lsmr": lt.lsmr_megakernel,
+          "craig": lt.craig_megakernel}[solver]
+    if solver == "craig":
+        b = A.matvec(b)
+    kw = dict(atol=1e-4, btol=1e-4, itnlim=100)
+    r1, r2 = fn(A, b, iters_per_call=64, **kw), fn(A, b, iters_per_call=4, **kw)
+    assert int(r1.istop) == int(r2.istop) and int(r1.itn) == int(r2.itn)
+    assert r1.x.is_cuda and torch.equal(r1.x, r2.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr", "craig"])
+def test_cuda_megakernel_solves_match_regular(rng, cuda_device, solver, storage):
+    m = n = 200_000
+    ks = tuple(range(-5, 6))
+    A = _mk_problem(rng, m, n, ks, storage, cuda_device, boost=12.0)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda_device)
+    fn = {"lsqr": lt.lsqr, "lsmr": lt.lsmr, "craig": lt.craig}[solver]
+    kw = dict(atol=1e-6, btol=1e-6)
+    if solver == "craig":
+        b = A.matvec(b)
+    else:
+        kw["damp"] = 0.01
+    ref = fn(A, b, **kw)
+    spmv.reset_launch_counts()
+    res = fn(A, b, megakernel=True, **kw)
+    name = f"{solver}_megakernel" + ("" if storage == "float32" else "[bf16]")
+    assert spmv.launch_counts(by_variant=True)[name] > 0
+    assert res.x.is_cuda and int(res.istop) == int(ref.istop)
+    assert abs(int(res.itn) - int(ref.itn)) <= 1
+    assert rel_err(res.x, ref.x) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_megakernel_routes_raise(rng, cuda_device):
+    m = n = 3000
+    ks = (-1, 0, 1)
+    data, _ = banded(rng, m, n, ks, np.float32, boost=8.0, dense=False)
+    b = torch.ones(m, device=cuda_device)
+    shared = lt.dia_shared_operator(m, n, ks, data, device=cuda_device)
+    packed = lt.dia_operator(m, n, ks, data, device=cuda_device)
+    assert lt.megakernel_supported(packed) and not lt.megakernel_supported(shared)
+    for fn in (lt.lsqr, lt.lsmr, lt.craig):
+        with pytest.raises(ValueError):
+            fn(shared, b, megakernel=True)
+    with pytest.raises(ValueError):
+        lt.lsqr(packed, b, megakernel=True, wantse=True)
+    with pytest.raises(ValueError):
+        lt.lsmr(packed, b, megakernel=True, record_trace=True)
+    with pytest.raises(ValueError):
+        lt.lsqr_megakernel(packed, b, 0.1, x0=torch.zeros(n, device=cuda_device))

@@ -419,6 +419,46 @@ def test_cpu_wrappers_run_twins_and_count_nothing(rng):
 
 
 def test_megakernel_on_packed_raises_naming_item_13(rng):
-    _, _, At = _packed(rng, 100, 100, (-1, 0, 1))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        lt.lsqr(At, np.ones(100, np.float32), megakernel=True)
+    # item 13 is ported: megakernel=True runs on the packed operator and
+    # raises ValueError only where the configuration is unsupported
+    data, _, At = _packed(rng, 100, 100, (-1, 0, 1))
+    data[1] += 6.0
+    At = lt.dia_operator(100, 100, (-1, 0, 1), data)
+    b = np.ones(100, np.float32)
+    res = lt.lsqr(At, b, megakernel=True, atol=1e-6, btol=1e-6)
+    ref = lt.lsqr(At, b, atol=1e-6, btol=1e-6)
+    assert int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 1
+    with pytest.raises(ValueError, match="megakernel=True requires"):
+        lt.lsqr(At, b, megakernel=True, record_trace=True)
+    with pytest.raises(ValueError, match="megakernel=True requires"):
+        lt.lsqr(lt.dia_shared_operator(100, 100, (-1, 0, 1), data), b, megakernel=True)
+
+
+@pytest.mark.parametrize("m,n", FUSED_SHAPES)
+def test_axpy_and_fused_twins_return_stripe_dtype_on_bf16(rng, m, n):
+    """JAX's dia_matvec_axpy and dia_fused_halfstep return data.dtype: bf16
+    results for bf16 stripes, the sum of squares in f32. JAX's kernels take
+    bf16 stripes with a bf16 window vector, so v holds bf16 values on both
+    sides (f32 in the port)."""
+    data, Aj, At = _packed(rng, m, n, FUSED_OFFSETS, storage_dtype="bfloat16")
+    y = rng.standard_normal(m).astype(np.float32)
+    v16 = jnp.asarray(rng.standard_normal(n), jnp.bfloat16)
+    v = _t(np.asarray(v16.astype(jnp.float32)))
+    c1, c2 = 0.37, 1.21
+    kw = dict(offsets=FUSED_OFFSETS, m=m, n=n)
+    ref = jspmv.dia_matvec_axpy(Aj.data, jnp.asarray(y), v16, c1, c2, interpret=True, **kw)
+    got = spmv.dia_matvec_axpy_plain(At.data, _t(y), v, c1, c2, **kw)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    # both round an f32 sum to bf16: at most one bf16 ulp (2^-8) apart
+    assert rel_err(got.float(), np.asarray(ref, np.float32)) < 1e-2
+    got32 = spmv.dia_matvec_axpy(At.data, _t(y), v, c1, c2, out_dtype=torch.float32, **kw)
+    assert got32.dtype == torch.float32 and rel_err(got.float(), got32) < 1e-2
+    ref, ssq_ref = jspmv.dia_fused_halfstep(Aj.data, jnp.asarray(y), v16, c1, c2,
+                                            interpret=True, **kw)
+    got, ssq = spmv.dia_fused_halfstep_plain(At.data, _t(y), v, torch.tensor(c1),
+                                             torch.tensor(c2), **kw)
+    assert got.dtype == torch.bfloat16 and ssq.dtype == torch.float32 and ssq.shape == ()
+    assert rel_err(got.float(), np.asarray(ref, np.float32)) < 1e-2
+    # JAX sums bf16-rounded per-tile partials; the port the f32 squares
+    np.testing.assert_allclose(float(ssq), float(ssq_ref), rtol=1e-2)
+    np.testing.assert_allclose(float(ssq), float(got32 @ got32), rtol=1e-5)
