@@ -5,8 +5,9 @@
 
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
-from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/, then runs eight phases;
-each raises on failure:
+from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
+from lsqr_tpu_torch/native with g++), then runs thirteen phases; each raises
+on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
    the main path's shape (m = n = 2^23, 11 diagonals: f32, and bf16
@@ -47,11 +48,33 @@ each raises on failure:
    with and without the megakernel at 2^23 and 2^19 (ms and CUDA launches
    per iteration); ``cgls`` (regular, and ``pair=True``) checked in f64.
 
-Every solve of phases 2-5, 7, 8 and 10 runs with the launch counts reset
-just before it and read just after; each path must launch the kernels it
-runs, and every kernel variant must have launched on some path. The
-second-to-last line of output is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.
+11. the general-sparsity kernels against their twins on the card:
+   ``jdia_matvec`` on a jittered-diagonal pattern at m = n = 2^22 (6
+   entries per row around five diagonals, 12 added on the main diagonal,
+   packed through ``auto_operator``) and at 1,000,003 x 700,001; the three
+   BlockELL kernels at m = n = 2^18 (128 x 128 blocks, 3 per block row), at
+   100,003 x 70,001 and at a tall 76,763 x 1,485 whose transpose packing
+   (kt > 96 blocks per block column) overflows the windowed kernel's
+   window; kernel, twin and ``torch.sparse_csr_tensor @ x`` times, the
+   bytes each must move;
+12. solves on those operators: JDIA (damped, to 1e-6, checked in f64;
+   fixed 64 iterations with the launches per iteration), BlockELL at 2^18
+   with the windowed products and with ``pair=True``, the tall BlockELL
+   pattern (its adjoint through ``block_ell_matvec``, the operator's route
+   for a packing that overflows the window), and an f64 JDIA solve at 2^16
+   against ``scipy.sparse.linalg.lsqr``;
+13. the routes: ``plan_general`` reorders a scrambled 2^18 JDIA pattern back
+   to JDIA and its solve matches the unscrambled one; a Zipf power-law
+   pattern at 2^19 goes to HYB and solves; a tall unstructured f32 pattern
+   raises the not-ported WCOO/RWCOO route's ``NotImplementedError``.
+
+Every solve of phases 2-5, 7, 8, 10, 12 and 13 runs with the launch counts
+reset just before it and read just after; each path must launch the
+kernels it runs, and every kernel variant must have launched on some path.
+The second-to-last line of output is a JSON object describing each kernel
+(its time, its twin's, the least time the card could take for the bytes or
+operations it must handle, and a PyTorch library call's time where one
+computes the same function); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -68,6 +91,24 @@ BF16_TOL = 1e-2  # bf16 results (the packed axpy's): one bf16 ulp is 2^-8
 SHARED = "lsqr_tpu_torch/csrc/dia_shared.cu"
 PACKED = "lsqr_tpu_torch/csrc/dia_packed.cu"
 MEGA = "lsqr_tpu_torch/csrc/megakernel.cu"
+JDIA = "lsqr_tpu_torch/csrc/jdia.cu"
+BELL = "lsqr_tpu_torch/csrc/block_ell.cu"
+M_JDIA = 2 ** 22  # phase 11-12's jittered-diagonal size
+M_BELL = 2 ** 18  # phase 11-12's BlockELL size
+M_PLAN = 2 ** 18  # phase 13's scrambled pattern
+#: RCM's order (the reference's, scipy's) recovers a JDIA fit of 0.98 on this
+#: seed's pattern; on others it can fall below 0.95 (PERF.md, Findings)
+PLAN_SEED = 4
+M_ZIPF = 2 ** 19  # phase 13's power-law pattern
+JDIA_RAGGED = (1_000_003, 700_001)
+BELL_RAGGED = (100_003, 70_001)
+#: 600 block rows over 12 block columns: about 150 blocks per block column,
+#: more than the 96 the windowed kernel's window holds
+BELL_TALL = (76_763, 1_485)
+#: the H100 SXM's device-memory rate and non-tensor-core peaks (NVIDIA's data
+#: sheet), for the least time a kernel could take
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 2: 67e12, 8: 34e12}  # by stripe bytes: f32, bf16 (f32 math), f64
 MK_K = 8  # iterations per megakernel call in phase 9
 MK_SIDE = 2 ** 20  # phase 9's one-sided and ragged shapes
 M_SMALL = 2 ** 19  # phase 10's second timing size, the JAX megakernel's size class
@@ -83,6 +124,10 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "lsqr_megakernel": (MEGA, "lsqr_tpu/ops/megakernel.py:411"),
     "lsmr_megakernel": (MEGA, "lsqr_tpu/ops/megakernel_lsmr.py:332"),
     "craig_megakernel": (MEGA, "lsqr_tpu/ops/megakernel_craig.py:195"),
+    "jdia_matvec": (JDIA, "lsqr_tpu/ops/pallas_spmv.py:885"),
+    "block_ell_matvec": (BELL, "lsqr_tpu/ops/pallas_spmv.py:76"),
+    "block_ell_matvec_windowed": (BELL, "lsqr_tpu/ops/pallas_spmv.py:196"),
+    "block_ell_pair_windowed": (BELL, "lsqr_tpu/ops/pallas_spmv.py:323"),
 }
 #: grid-wide barriers per iteration of each megakernel (csrc/megakernel.cu)
 BARRIERS = {"lsqr": 3, "lsmr": 3, "craig": 2}
@@ -128,6 +173,56 @@ def time_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops, esize=4):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    device-memory rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[esize] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def perf_entry(ms, plain_ms, nbytes, flops, esize=4, library_ms=None):
+    return dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops, esize=esize,
+                library_ms=library_ms)
+
+
+def report(name, entry, card):
+    ms, nbytes = entry["ms"], entry["bytes"]
+    lib = entry["library_ms"]
+    least = bound(nbytes, entry["flops"], entry["esize"])[0]
+    log(f"  {name:30s} kernel {ms:.4f} ms ({nbytes / (ms * 1e6):.1f} GB/s of the "
+        f"{nbytes / 1e6:.0f} MB it must move; bound {least:.4f} ms), "
+        f"twin {entry['plain_ms']:.4f} ms, library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}  [{card}]")
+
+
+def csr_of(rows, cols, vals, m, n):
+    """torch.sparse_csr_tensor of COO triplets (tensors on the card; no
+    duplicates), sorted on the card."""
+    import warnings
+
+    import torch
+
+    _, order = torch.sort(rows * n + cols)
+    crow = torch.zeros(m + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=m), 0)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, cols[order], vals[order], size=(m, n),
+                                       check_invariants=False)
+
+
+def stripes_csr(data, offsets, m, n):
+    """The CSR of row-aligned stripes (nd, m): the same banded matrix."""
+    import torch
+
+    i = torch.arange(m, device=data.device)
+    cols = i[None, :] + torch.tensor(offsets, device=data.device)[:, None]
+    ok = (cols >= 0) & (cols < n)
+    rows = i[None, :].expand_as(cols)
+    return csr_of(rows[ok], cols[ok], data[ok], m, n)
 
 
 def random_stripes(m, n, offsets, device, seed, boost=0.0, dtype=None):
@@ -242,11 +337,20 @@ def hold(calls, errs, m, n, ks, bound):
                 check(r <= tol, f"{name} disagrees with its twin: {r:.3e} > {tol}")
 
 
+def library_ms(csr, x, kernel_out):
+    """The time of ``csr @ x`` (cuSPARSE), after checking that it computes
+    what the kernel computed."""
+    err = rel(csr @ x, kernel_out)
+    check(err <= 1e-5, f"the library product disagrees with the kernel: {err:.3e}")
+    return time_ms(lambda: csr @ x)
+
+
 def phase_kernels(dev, shapes, errs):
     """Phase 1: every kernel against its twin on the card; returns
-    {variant: (kernel ms, twin ms, m, n, nd, stripe bytes per element)} of the
-    first call of each, at the first (main-path) shape for f32 and bf16 and
-    at the second for f64."""
+    {variant: (kernel ms, twin ms, m, n, nd, stripe bytes per element,
+    library ms or None)} of the first call of each, at the first (main-path)
+    shape for f32 and bf16 and at the second for f64. The library call is
+    ``torch.sparse_csr_tensor @ x`` of the same matrix, for the products."""
     import torch
 
     from lsqr_tpu_torch.ops import spmv
@@ -259,9 +363,14 @@ def phase_kernels(dev, shapes, errs):
             calls = kernel_calls(dev, data, v, y, m, n, ks, storage)
             hold(calls, errs, m, n, ks, TOL)
             if si == 0:
+                csr = stripes_csr(data, ks, m, n) if storage == torch.float32 else None
                 for name, pairs in calls.items():
+                    lib = None
+                    if csr is not None and name in ("dia_product_shared", "dia_matvec"):
+                        lib = library_ms(csr, v, pairs[0][0]())
                     times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
-                                   len(ks), storage.itemsize)
+                                   len(ks), storage.itemsize, lib)
+                del csr
             del calls
         if si == 1:  # the f64 products (f64 solves on the card use them);
             # full-width f64 values: products of f32 values would be exact
@@ -288,10 +397,11 @@ def phase_kernels(dev, shapes, errs):
                      lambda: spmv.dia_matvec_plain(Ap.tdata, y64, **tkw))],
             }
             hold(calls, errs, m, n, ks, 1e-12)
+            csr = stripes_csr(d64, ks, m, n)
             for name, pairs in calls.items():
                 times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
-                               len(ks), 8)
-            del calls, As, Ap, d64
+                               len(ks), 8, library_ms(csr, x64, pairs[0][0]()))
+            del calls, As, Ap, d64, csr
         del data, y, v
         torch.cuda.empty_cache()
     return times
@@ -450,7 +560,8 @@ def phase_auto_operator(dev, m, paths):
     res, delta = counted(lambda: lt.lsqr(A, b, DAMP, atol=1e-6, btol=1e-6))
     paths.append(delta)
     check(delta["dia_pair_shared"] > 0, f"auto_operator solve: no pair launches {delta}")
-    ref = lt.lsqr(lt.auto_operator(m, m, vals, rows, cols), b, DAMP, atol=1e-6, btol=1e-6)
+    ref = lt.lsqr(lt.auto_operator(m, m, vals, rows, cols, device="cpu"), b, DAMP,
+                  atol=1e-6, btol=1e-6)
     err = rel(res.x.cpu(), ref.x)
     log(f"  auto_operator -> {type(A).__name__} on {A.dp.device}: istop={int(res.istop)} "
         f"itn={int(res.itn)}; host twin solve istop={int(ref.istop)} itn={int(ref.itn)}; "
@@ -886,6 +997,377 @@ def phase_mk_solves(dev, m, card, paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: general sparsity
+# ---------------------------------------------------------------------------
+
+
+def coo_on(dev, vals, rows, cols):
+    """COO triplets (numpy) as tensors on the card: (rows, cols, vals)."""
+    import torch
+
+    return (torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(vals).to(dev))
+
+
+def coo_optimality(coo, m, n, b, x):
+    """:func:`optimality` from the COO triplets on the card, in f64."""
+    import torch
+
+    r_, c_, v_ = coo
+    v64 = v_.double()
+
+    def forward(x64):
+        return torch.zeros(m, dtype=torch.float64, device=x64.device).index_add_(
+            0, r_, v64 * x64[c_])
+
+    def adjoint(r64):
+        return torch.zeros(n, dtype=torch.float64, device=r64.device).index_add_(
+            0, c_, v64 * r64[r_])
+
+    return optimality(forward, adjoint, v64.norm(), b, x)
+
+
+def jdia_calls(A, x, y):
+    """[(kernel call, twin call)] of jdia_matvec on both packings of A."""
+    from lsqr_tpu_torch.ops import spmv_sparse as sp
+
+    out = []
+    for data, eoff, base, vec, p_lo, m_out in (
+            (A.data, A.eoff, A.base, x, A.p_lo, A.m),
+            (A.tdata, A.teoff, A.tbase, y, A.tp_lo, A.n)):
+        kw = dict(m=m_out, p_lo=p_lo, tm=A.tm)
+        out.append((lambda a=(data, eoff, base, vec), kw=kw: sp.jdia_matvec(*a, **kw),
+                    lambda a=(data, eoff, base, vec), kw=kw: sp.jdia_matvec_plain(*a, **kw)))
+    return out
+
+
+def fits_window(blocks):
+    """Whether a packing's block rows fit the windowed kernel's window."""
+    from lsqr_tpu_torch.ops import spmv_sparse as sp
+
+    mb, kb, _, bw = blocks.shape
+    return sp.windowed_rows_per_tile(mb, kb, bw) > 0
+
+
+def bell_calls(A, x, y, c1, c2):
+    """{kernel: [(kernel call, twin call)]} of the three BlockELL kernels on
+    A's packings (x, y padded to the packings); the windowed kernel on the
+    packings that fit its window."""
+    from lsqr_tpu_torch.ops import spmv_sparse as sp
+
+    sides = ((A.blocks, A.bcols, x), (A.tblocks, A.tbrows, y))
+    return {
+        "block_ell_matvec": [(lambda a=a: sp.block_ell_matvec(*a),
+                              lambda a=a: sp.block_ell_matvec_plain(*a)) for a in sides],
+        "block_ell_matvec_windowed": [(lambda a=a: sp.block_ell_matvec_windowed(*a),
+                                       lambda a=a: sp.block_ell_matvec_plain(*a))
+                                      for a in sides if fits_window(a[0])],
+        "block_ell_pair_windowed": [
+            (lambda: sp.block_ell_pair_windowed(A.blocks, A.bcols, x, y, c1, c2),
+             lambda: sp.block_ell_pair_plain(A.blocks, A.bcols, x, y, c1, c2))],
+    }
+
+
+def padded_vectors(dev, A, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb, mb = A.tblocks.shape[0], A.blocks.shape[0]
+    return (torch.randn(nb * A.bw, generator=g, device=dev),
+            torch.randn(mb * A.bh, generator=g, device=dev))
+
+
+def phase_general_kernels(dev, errs, card):
+    """Phase 11: jdia_matvec and the three BlockELL kernels against their
+    twins at their solve shapes and at ragged ones. Returns (perf entries,
+    the 2^22 JDIA operator and its triplets, the 2^18 and the tall BlockELL
+    operators and their triplets)."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch import native
+    from lsqr_tpu_torch.models.synthetic import jittered_band_coo, random_block_coo
+
+    log(f"  host packer: {'g++-built native library' if native.available() else 'numpy fallback'}"
+        f" ({native.library_path().name if native.available() else '-'})")
+    perf = {}
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    # jdia_matvec at 2^22 (through auto_operator, as phase 12 solves it) and ragged
+    jdia = None
+    for m, n, seed in ((M_JDIA, M_JDIA, 11), (*JDIA_RAGGED, 12)):
+        t0 = time.perf_counter()
+        trip = jittered_band_coo(m, n, diag=12.0, seed=seed)
+        t1 = time.perf_counter()
+        A = (lt.auto_operator if m == M_JDIA else lt.jdia_operator)(m, n, *trip, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(isinstance(A, lt.JDIAOperator), f"JDIA pattern packed as {type(A).__name__}")
+        dev_mb = sum(t.numel() * t.element_size() for t in (
+            A.data, A.eoff, A.base, A.tdata, A.teoff, A.tbase, A.rem_vals, A.rem_rows,
+            A.rem_cols)) / 1e6
+        log(f"  JDIA m={m} n={n}: {len(trip[0])} entries made in {t1 - t0:.2f} s, packed "
+            f"in {t2 - t1:.2f} s (host); ns={A.ns} forward, {A.tdata.shape[0]} adjoint "
+            f"slots, tm={A.tm}, fit {A.fit_fraction:.6f} ({A.rem_vals.numel()} in the "
+            f"remainder), {dev_mb:.0f} MB on the card")
+        x = torch.randn(n, generator=g, device=dev)
+        y = torch.randn(m, generator=g, device=dev)
+        calls = jdia_calls(A, x, y)
+        hold({"jdia_matvec": calls}, errs, m, n, range(A.ns), TOL)
+        if m == M_JDIA:
+            csr = csr_of(*coo_on(dev, *trip), m, n)
+            nbytes = (A.data.numel() * 4 + A.eoff.numel() + A.base.numel() * 4
+                      + n * 4 + m * 4)
+            perf["jdia_matvec"] = perf_entry(
+                time_ms(calls[0][0]), time_ms(calls[0][1], reps=3), nbytes,
+                2 * A.data.numel(), library_ms=library_ms(csr, x, A.matvec(x)))
+            report("jdia_matvec", perf["jdia_matvec"], card)
+            del csr
+            jdia = (A, trip)
+        del A, calls, x, y
+        torch.cuda.empty_cache()
+
+    # the BlockELL kernels at 2^18, ragged, and tall (the transpose packing
+    # overflows the windowed kernel's window)
+    bell = {}
+    c1 = torch.tensor(0.8, device=dev)
+    c2 = torch.tensor(1.1, device=dev)
+    for m, n, seed in ((M_BELL, M_BELL, 13), (*BELL_RAGGED, 14), (*BELL_TALL, 15)):
+        t0 = time.perf_counter()
+        trip = random_block_coo(m, n, diag=2.0, seed=seed)
+        t1 = time.perf_counter()
+        A = lt.block_ell_operator(m, n, *trip, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"  BlockELL m={m} n={n}: {len(trip[0])} entries made in {t1 - t0:.2f} s, "
+            f"packed in {t2 - t1:.2f} s (host); kb={A.kb} kt={A.kt}; blocks "
+            f"{A.blocks.numel() * 4 / 1e6:.0f} MB, tblocks {A.tblocks.numel() * 4 / 1e6:.0f} MB "
+            f"on the card; the windowed kernel takes the forward packing: "
+            f"{fits_window(A.blocks)}, the transpose: {fits_window(A.tblocks)}")
+        if (m, n) == BELL_TALL:
+            check(fits_window(A.blocks) and not fits_window(A.tblocks),
+                  f"the tall pattern's transpose (kt={A.kt}) must overflow the window")
+        x, y = padded_vectors(dev, A, seed)
+        calls = bell_calls(A, x, y, c1, c2)
+        hold(calls, errs, m, n, range(A.kb), TOL)
+        if m == M_BELL:
+            csr = csr_of(*coo_on(dev, *trip), m, n)
+            numel = A.blocks.numel()
+            io = A.bcols.numel() * 4 + x.numel() * 4 + y.numel() * 4
+            ref = A.matvec(x[:n])
+            for name in ("block_ell_matvec", "block_ell_matvec_windowed"):
+                perf[name] = perf_entry(
+                    time_ms(calls[name][0][0]), time_ms(calls[name][0][1], reps=3),
+                    numel * 4 + io, 2 * numel, library_ms=library_ms(csr, x[:n], ref))
+                report(name, perf[name], card)
+            mb, kb = A.bcols.shape
+            perf["block_ell_pair_windowed"] = perf_entry(
+                time_ms(calls["block_ell_pair_windowed"][0][0]),
+                time_ms(calls["block_ell_pair_windowed"][0][1], reps=3),
+                numel * 4 + io + y.numel() * 4 + mb * kb * A.bw * 4, 4 * numel)
+            report("block_ell_pair_windowed", perf["block_ell_pair_windowed"], card)
+            del csr
+        if (m, n) in ((M_BELL, M_BELL), BELL_TALL):
+            bell[m, n] = (A, trip)
+        del A, calls, x, y
+        torch.cuda.empty_cache()
+    return perf, jdia, bell
+
+
+def phase_general_solves(dev, jdia, bell, card, paths):
+    """Phase 12: solves on the phase-11 operators, and f64 JDIA against
+    scipy."""
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.linalg
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.models.synthetic import jittered_band_coo
+
+    out = {}
+    seg = lt.LSQROptions().loop_segment
+    fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
+
+    A, trip = jdia
+    check(A.fit_fraction >= 0.95, f"auto_operator's JDIA fit {A.fit_fraction} < 0.95")
+    log(f"  auto_operator -> JDIAOperator, fit {A.fit_fraction:.6f}")
+    coo = coo_on(dev, trip[0], trip[1], trip[2])
+    b = torch.randn(A.m, generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+    res, delta, secs = timed_solve(A, b, f"JDIA m=n={A.m} (b) atol=btol=1e-6", card,
+                                   atol=1e-6, btol=1e-6)
+    paths.append(delta)
+    body = iterations_run(int(res.itn), seg)
+    check(int(res.istop) in (1, 2, 3), f"JDIA solve istop {int(res.istop)}")
+    check(delta["jdia_matvec"] == 2 * body + 1,
+          f"JDIA solve: expected two jdia_matvec launches per iteration run: {delta}")
+    ratio = coo_optimality(coo, A.m, A.n, b, res.x)
+    log(f"  JDIA independent check (f64, COO) {ratio:.3e}")
+    check(ratio <= 1e-4, f"JDIA solve: optimality {ratio:.3e} > 1e-4")
+    timed_solve(A, b, "JDIA warm-up 64 iterations", card, **fixed)
+    res64, delta, secs64 = timed_solve(A, b, "JDIA fixed 64 iterations", card, **fixed)
+    paths.append(delta)
+    check(int(res64.itn) == 64, "JDIA fixed run: itn != 64")
+    log("  launch profile of the JDIA solve:")
+    out["jdia"] = dict(m=A.m, fit=A.fit_fraction, istop=int(res.istop), itn=int(res.itn),
+                       ms=secs * 1e3, optimality=ratio,
+                       ms_per_iteration_fixed64=secs64 * 1e3 / 64,
+                       launch_profile=phase_launches(A, b))
+    del A, coo, b, jdia, trip
+    torch.cuda.empty_cache()
+
+    # BlockELL: the 2^18 operator's products both through the windowed
+    # kernel, and its pair; the tall operator's forward product through the
+    # windowed kernel and its adjoint through block_ell_matvec
+    runs = {}
+    for label, key, kw, kernels in (
+            ("windowed", (M_BELL, M_BELL), {}, ("block_ell_matvec_windowed",)),
+            ("pair=True", (M_BELL, M_BELL), dict(pair=True), ("block_ell_pair_windowed",)),
+            ("tall", BELL_TALL, {}, ("block_ell_matvec_windowed", "block_ell_matvec"))):
+        A, trip = bell[key]
+        coo = coo_on(dev, trip[0], trip[1], trip[2])
+        b = torch.randn(A.m, generator=torch.Generator(device=dev).manual_seed(22),
+                        device=dev)
+        res, delta, secs = timed_solve(A, b, f"BlockELL {A.m} x {A.n} {label} (b)", card,
+                                       atol=1e-6, btol=1e-6, **kw)
+        paths.append(delta)
+        body = iterations_run(int(res.itn), seg)
+        # lsqr: one adjoint before the loop, one product each way per iteration
+        expect = {("block_ell_pair_windowed",): (body,),
+                  ("block_ell_matvec_windowed",): (2 * body + 1,),
+                  ("block_ell_matvec_windowed", "block_ell_matvec"): (body, body + 1)}[kernels]
+        got = tuple(delta[k] for k in kernels)
+        check(got == expect, f"BlockELL {label}: expected {dict(zip(kernels, expect))} "
+                             f"launches: {delta}")
+        ratio = coo_optimality(coo, A.m, A.n, b, res.x)
+        log(f"  BlockELL {label} (kb={A.kb}, kt={A.kt}) independent check (f64, COO) "
+            f"{ratio:.3e}")
+        check(ratio <= 1e-4, f"BlockELL {label}: optimality {ratio:.3e} > 1e-4")
+        timed_solve(A, b, f"BlockELL {label} warm-up 64 iterations", card, **fixed, **kw)
+        res64, delta, secs64 = timed_solve(A, b, f"BlockELL {label} fixed 64 iterations",
+                                           card, **fixed, **kw)
+        paths.append(delta)
+        check(int(res64.itn) == 64, f"BlockELL {label} fixed run: itn != 64")
+        log(f"  launch profile of the BlockELL {label} solve:")
+        runs[label] = (res, dict(m=A.m, n=A.n, kb=A.kb, kt=A.kt, istop=int(res.istop),
+                                 itn=int(res.itn), ms=secs * 1e3, optimality=ratio,
+                                 ms_per_iteration_fixed64=secs64 * 1e3 / 64,
+                                 launch_profile=phase_launches(A, b, **kw)))
+        del A, trip, coo, b
+    ref, res = runs["windowed"][0], runs["pair=True"][0]
+    err = rel(res.x, ref.x)
+    log(f"  BlockELL pair=True: istop {int(res.istop)} itn {int(res.itn)} against "
+        f"{int(ref.istop)} {int(ref.itn)}; x rel diff {err:.3e}")
+    check(int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 1,
+          "BlockELL pair=True: istop/itn differ from the windowed solve")
+    check(err <= 1e-3, f"BlockELL pair=True: x differs by {err:.3e}")
+    out["block_ell"] = {label: entry for label, (_, entry) in runs.items()}
+    del bell, runs, ref, res
+    torch.cuda.empty_cache()
+
+    # f64 JDIA at 2^16 against scipy: the twin on the card (no kernel)
+    m = 2 ** 16
+    vals, rows, cols = jittered_band_coo(m, m, diag=12.0, seed=23, dtype=np.float64)
+    rhs = np.random.default_rng(23).standard_normal(m)
+    S = scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(m, m))
+    tol = dict(atol=1e-10, btol=1e-10, conlim=1e8)
+    ref = scipy.sparse.linalg.lsqr(S, rhs, damp=DAMP, iter_lim=2 * m, **tol)
+    A = lt.auto_operator(m, m, vals, rows, cols, device=dev)
+    check(isinstance(A, lt.JDIAOperator) and A.dtype == torch.float64,
+          f"f64 JDIA pattern packed as {type(A).__name__} {A.dtype}")
+    res, launched = counted(lambda: lt.lsqr(A, rhs, DAMP, itnlim=2 * m, **tol))
+    paths.append(launched)
+    err = float(np.abs(res.x.cpu().numpy() - ref[0]).max() / np.abs(ref[0]).max())
+    istop_ref = scipy_istop(ref[1], DAMP > 0)
+    log(f"  f64 JDIA m=n={m}: port istop={int(res.istop)} itn={int(res.itn)}; scipy "
+        f"istop={ref[1]} (= {istop_ref}) itn={ref[2]}; x rel diff {err:.3e}")
+    check(int(res.istop) == istop_ref and abs(int(res.itn) - ref[2]) <= 1,
+          "f64 JDIA: istop/itn differ from scipy")
+    check(err <= 1e-8, f"f64 JDIA: x differs from scipy by {err:.3e}")
+    check(launched["jdia_matvec"] == 0 and res.x.dtype == torch.float64,
+          "f64 JDIA must run the twin on the card")
+    out["jdia_f64"] = dict(istop=int(res.istop), itn=int(res.itn), x_rel_to_scipy=err)
+    return out
+
+
+def phase_routes(dev, card, paths):
+    """Phase 13: the reordering planner, HYB, and the not-ported step 3."""
+    import numpy as np
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.models.synthetic import jittered_band_coo, zipf_coo
+
+    out = {}
+    m = M_PLAN
+    vals, rows, cols = jittered_band_coo(m, m, diag=12.0, seed=PLAN_SEED)
+    rng = np.random.default_rng(PLAN_SEED)
+    rp, cp = rng.permutation(m), rng.permutation(m)
+    b = rng.standard_normal(m).astype(np.float32)
+    kw = dict(atol=1e-6, btol=1e-6)
+    A0 = lt.auto_operator(m, m, vals, rows, cols, device=dev)
+    res0, delta = counted(lambda: lt.lsqr(A0, b, DAMP, **kw))
+    paths.append(delta)
+    t0 = time.perf_counter()
+    plan = lt.plan_general(m, m, vals, rp[rows], cp[cols], device=dev)
+    t_plan = time.perf_counter() - t0
+    check(isinstance(plan.op, lt.JDIAOperator) and plan.op.fit_fraction >= 0.95
+          and not np.array_equal(plan.row_order, np.arange(m)),
+          f"plan_general chose {type(plan.op).__name__} without reordering it to JDIA")
+    b_scr = np.empty_like(b)
+    b_scr[rp] = b
+    res, delta = counted(lambda: plan.solve(b_scr, DAMP, **kw))
+    paths.append(delta)
+    check(delta["jdia_matvec"] > 0, f"the planned solve launched no jdia_matvec: {delta}")
+    err = rel(res.x[torch.from_numpy(cp).to(dev)], res0.x)
+    log(f"  plan_general m=n={m} scrambled: {type(plan.op).__name__} fit "
+        f"{plan.op.fit_fraction:.6f} in {t_plan:.2f} s; istop {int(res.istop)} itn "
+        f"{int(res.itn)} against the unscrambled {int(res0.istop)} {int(res0.itn)}; x "
+        f"rel diff mapped back {err:.3e}")
+    check(int(res.istop) == int(res0.istop), "the planned solve stops otherwise")
+    check(err <= 1e-4, f"the planned solve's x differs by {err:.3e}")
+    out["plan_general"] = dict(fit=plan.op.fit_fraction, seconds=t_plan, itn=int(res.itn),
+                               itn_unscrambled=int(res0.itn), x_rel=err)
+    del A0, plan, res, res0
+    torch.cuda.empty_cache()
+
+    m = M_ZIPF
+    trip = zipf_coo(m, m, seed=32)
+    t0 = time.perf_counter()
+    A = lt.auto_operator(m, m, *trip, device=dev)
+    t_pack = time.perf_counter() - t0
+    check(isinstance(A, lt.SumOperator) and [type(op).__name__ for op in A.ops]
+          == ["ELLOperator", "COOOperator"], f"the Zipf pattern went to {type(A).__name__}")
+    b = torch.randn(m, generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+    res, delta, secs = timed_solve(A, b, f"HYB m=n={m} (b)", card, **kw)
+    paths.append(delta)
+    ratio = coo_optimality(coo_on(dev, *trip), m, m, b, res.x)
+    log(f"  Zipf m=n={m}: {len(trip[0])} entries -> HYB (ELL width "
+        f"{A.ops[0].vals.shape[1]}, {A.ops[1].nnz} spilled) in {t_pack:.2f} s; "
+        f"istop {int(res.istop)} itn {int(res.itn)}; independent check {ratio:.3e}")
+    check(int(res.istop) in (1, 2, 3) and ratio <= 1e-4, f"HYB solve: {ratio:.3e}")
+    out["hyb"] = dict(nnz=len(trip[0]), width=A.ops[0].vals.shape[1], spilled=A.ops[1].nnz,
+                      istop=int(res.istop), itn=int(res.itn), ms=secs * 1e3,
+                      optimality=ratio)
+    del A
+    torch.cuda.empty_cache()
+
+    m, n = 2 ** 16, 2 ** 12
+    r = np.random.default_rng(33)
+    rows, cols = r.integers(0, m, 8 * m), r.integers(0, n, 8 * m)
+    try:
+        lt.auto_operator(m, n, r.standard_normal(8 * m).astype(np.float32), rows, cols,
+                         device=dev)
+    except NotImplementedError as exc:
+        check("11b" in str(exc), f"unexpected message: {exc}")
+        log(f"  tall unstructured f32 {m} x {n}: NotImplementedError (WCOO/RWCOO, "
+            "ROADMAP Queue 1 item 11b)")
+    else:
+        raise AssertionError("a tall unstructured f32 pattern must raise the step-3 route")
+    return out
+
+
 def main():
     import torch
 
@@ -903,58 +1385,86 @@ def main():
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     log(sh(_cuda._nvcc(), "--version").splitlines()[-1])
     t_start = t0 = time.perf_counter()
+
+    def phase(label):
+        log(f"{label} ({time.perf_counter() - t_start:.0f} s in)")
     lib = _cuda.library()
     log(f"kernel library {lib.path.name}: ready in {time.perf_counter() - t0:.2f} s")
     for line in _cuda.build_log().splitlines():
         if "registers" in line or "spill" in line.lower():
             log("  ptxas:", line.strip())
 
-    log("phase 1: kernels vs twins")
+    phase("phase 1: kernels vs twins")
     errs = {}
     times = phase_kernels(dev, [(M_MAIN, M_MAIN, OFFSETS),
                                 (300_001, 200_003, (-60, -3, 0, 5)),
                                 (200_000, 300_007, (0, 1, 7)), WIDE], errs)
-    for name, (ms, plain_ms, m, n, nd, esize) in times.items():
+    perf = {}
+    for name, (ms, plain_ms, m, n, nd, esize, lib) in times.items():
         vm, vn = VECTORS[base(name)]
         moved = nd * m * esize + (vm * m + vn * n) * (8 if esize == 8 else 4)
-        log(f"  {name:30s} m={m} n={n}: kernel {ms:.4f} ms ({moved / (ms * 1e6):.1f} GB/s "
-            f"of the {moved / 1e6:.0f} MB it must move), twin {plain_ms:.4f} ms  [{card}]")
+        flops = 2 * nd * m * (2 if "pair" in name else 1)
+        perf[name] = perf_entry(ms, plain_ms, moved, flops, esize, lib)
+        report(name, perf[name], card)
 
     paths = []  # launches by variant of every path run below
-    log("phases 2-3: main-path solves, shared layout")
+    phase("phases 2-3: main-path solves, shared layout")
     A, b, x_shared, solves = phase_main_solve(dev, M_MAIN, card, paths)
-    log("phase 4: auto_operator")
+    phase("phase 4: auto_operator")
     phase_auto_operator(dev, 2 ** 20, paths)
-    log("phase 5: f64 conformance")
+    phase("phase 5: f64 conformance")
     phase_f64(dev, 2 ** 16, paths)
-    log("phase 6: launches per iteration")
+    phase("phase 6: launches per iteration")
     solves["launch_profile"] = phase_launches(A, b)
     del A, b
     torch.cuda.empty_cache()
-    log("phase 7: the packed layout")
+    phase("phase 7: the packed layout")
     solves["packed"] = phase_packed_solve(dev, M_MAIN, x_shared, card, paths)
     torch.cuda.empty_cache()
-    log("phase 8: bf16 stripe storage")
+    phase("phase 8: bf16 stripe storage")
     solves["bf16"] = phase_bf16(dev, M_MAIN, x_shared, card, paths)
     torch.cuda.empty_cache()
-    log("phase 9: megakernels vs twins")
+    phase("phase 9: megakernels vs twins")
     mk_times = phase_megakernels(dev, M_MAIN, errs, card)
-    log("phase 10: solves through the megakernels")
+    for name, (ms, plain_ms) in mk_times.items():
+        # K iterations: both stripe arrays once per iteration (they do not fit
+        # the 50 MB L2), the vectors read and written once per call
+        esize = 2 if name.endswith("[bf16]") else 4
+        nvec = 2 * (M_MAIN + (4 if name.startswith("lsmr") else 3) * M_MAIN) * 4
+        moved = MK_K * len(OFFSETS) * 2 * M_MAIN * esize + nvec
+        perf[name] = perf_entry(ms, plain_ms, moved, MK_K * 4 * len(OFFSETS) * M_MAIN, esize)
+        report(name, perf[name], card)
+    phase("phase 10: solves through the megakernels")
     solves["megakernel"] = phase_mk_solves(dev, M_MAIN, card, paths)
-    times.update({name: (ms, plain_ms) for name, (ms, plain_ms) in mk_times.items()})
+    torch.cuda.empty_cache()
+    phase("phase 11: general-sparsity kernels vs twins")
+    general, jdia, bell = phase_general_kernels(dev, errs, card)
+    perf.update(general)
+    phase("phase 12: general-sparsity solves")
+    solves["general"] = phase_general_solves(dev, jdia, bell, card, paths)
+    del jdia, bell
+    torch.cuda.empty_cache()
+    phase("phase 13: the routes (plan_general, HYB, step 3)")
+    solves["routes"] = phase_routes(dev, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
-    log(f"  launches on the paths of phases 2-5, 7, 8 and 10: {launches}")
+    log(f"  launches on the paths of phases 2-5, 7, 8, 10, 12 and 13: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,
                     "seconds": time.perf_counter() - t_start}))
 
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[base(name)][0],
-         "replaces": KERNELS[base(name)][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in launches]}))
+    rows = []
+    for name in launches:
+        entry = perf[name]
+        bound_ms, bound_by = bound(entry["bytes"], entry["flops"], entry["esize"])
+        rows.append({"name": name, "route": "cuda", "source": KERNELS[base(name)][0],
+                     "replaces": KERNELS[base(name)][1], "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": entry["ms"],
+                     "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": entry["library_ms"]})
+    log(card)
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -16,7 +16,16 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["LSQROptions", "default_dtype", "eps_for", "as_dtype"]
+__all__ = ["LSQROptions", "default_dtype", "eps_for", "as_dtype", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """Where a builder puts what it builds: the card (``cuda``) unless the
+    caller names a device. An explicit device passes through unchanged.
+    There is no fallback: without a card, building on the default device
+    fails (as ``.to("cuda")`` does on a CPU build of torch); the CPU is
+    used only when asked for, as in ``device="cpu"``."""
+    return torch.device("cuda") if device is None else torch.device(device)
 
 
 def default_dtype() -> torch.dtype:

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import as_dtype, default_dtype
+from ..config import as_dtype, default_dtype, resolve_device
 from ..ops.blas import nrm2
 from ..ops.linop import LinearOperator, as_tensor
 
@@ -81,8 +81,10 @@ class LSTPProblem(NamedTuple):
 def lstp(m: int, n: int, nduplc: int, npower: int, damp: float, x_true=None,
          *, dtype=None, device=None) -> LSTPProblem:
     """Generate problem P(m, n, nduplc, npower, damp)
-    (lstp, lsqrtest_module.f90:422-505); see the JAX package's ``lstp``."""
+    (lstp, lsqrtest_module.f90:422-505) on ``device`` (the card when None);
+    see the JAX package's ``lstp``."""
     dtype = as_dtype(dtype) or default_dtype()
+    device = resolve_device(device)
     minmn = min(m, n)
     damp = torch.tensor(damp, dtype=dtype, device=device)
     dampsq = damp * damp

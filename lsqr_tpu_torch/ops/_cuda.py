@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile at first use with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The library goes
+The sources compile at first use with ``nvcc`` for ``sm_90a``, one process
+per source, all started together, and link into one shared library with a
+plain C interface, loaded with ``ctypes``. The library goes
 to ``build/lsqr_tpu_torch/`` under the repository root, named by a hash of
 the sources and flags, so a changed source builds anew and an unchanged one
 loads the library already there. A failed build raises; nothing falls back.
@@ -55,6 +56,17 @@ _SIGNATURES = {
     # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, stream
     **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _P)
        for s in ("f32", "bf16")},
+    # csrc/jdia.cu
+    # data, eoff, base, x, out, ns, m_pad, nt_p, m, n, tm, p_lo, stream
+    "lsqr_jdia_matvec_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _P),
+    # csrc/block_ell.cu
+    # blocks, bcols, x, out, mb, kb, bh, bw, nb, stream
+    "lsqr_block_ell_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # blocks, bcols, x, out, mb, kb, bh, bw, nb, tr, stream
+    "lsqr_block_ell_matvec_windowed_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # blocks, bcols, x, y, c1, c2, u, zp, mb, kb, bh, bw, nb, keep, stream
+    "lsqr_block_ell_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P),
     # csrc/megakernel.cu
     # solver, bf16, dim, blocks (out)
     "lsqr_mk_grid": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
@@ -89,6 +101,33 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _compile(sources, out):
+    """One ``nvcc -c`` per source, all started together, then one link;
+    nvcc's output (``-Xptxas=-v``) goes to ``<library>.log``."""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(src.name, log) for src, proc, log in zip(sources, procs, logs)
+              if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(("link", proc.stderr))
+    Path(f"{out}.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(f"{name}:\n{log}"
+                                                        for name, log in failed))
+    os.replace(tmp, out)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
@@ -101,15 +140,7 @@ def library() -> ctypes.CDLL:
     out = build_dir() / f"liblsqr_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        Path(f"{out}.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
+        _compile(sources, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -16,18 +16,41 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..config import as_dtype
+from ..config import as_dtype, resolve_device
 
 __all__ = ["LinearOperator", "DenseOperator", "CallbackOperator", "as_operator",
-           "as_tensor"]
+           "as_tensor", "placement", "to_numpy"]
+
+
+def to_numpy(a, dtype=None) -> np.ndarray:
+    """A numpy array of a tensor (copied to the host), numpy array or list,
+    cast to ``dtype`` (torch or numpy, or its name) when one is given: the
+    input of the host packers."""
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    if dtype is None:
+        return a
+    return a.astype(torch.empty((), dtype=as_dtype(dtype)).numpy().dtype, copy=False)
+
+
+def placement(a, device=None) -> torch.device:
+    """Where a builder puts what it makes from ``a``: ``device`` when one is
+    named, else the device of a tensor ``a``, else the card
+    (:func:`~lsqr_tpu_torch.config.resolve_device`)."""
+    if device is None and isinstance(a, torch.Tensor):
+        return a.device
+    return resolve_device(device)
 
 
 def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     """Tensor from a tensor, numpy array or nested list. Python floats
-    become float64 (numpy's rule), so the dtype follows the input values."""
+    become float64 (numpy's rule), so the dtype follows the input values.
+    A tensor stays on its device unless ``device`` names another; host data
+    goes to :func:`~lsqr_tpu_torch.config.resolve_device` (the card when
+    ``device`` is None)."""
+    dev = placement(a, device)
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.array(a, copy=True))
-    return a.to(device=device, dtype=as_dtype(dtype))
+    return a.to(device=dev, dtype=as_dtype(dtype))
 
 
 class LinearOperator:
@@ -143,9 +166,12 @@ class CallbackOperator(LinearOperator):
         return self._rmatvec(y)
 
 
-def as_operator(a, m: Optional[int] = None, n: Optional[int] = None) -> LinearOperator:
+def as_operator(a, m: Optional[int] = None, n: Optional[int] = None, *,
+                device=None) -> LinearOperator:
     """Coerce an operator, a dense 2-D array or tensor, or a
-    (matvec, rmatvec) pair with explicit m, n to a LinearOperator."""
+    (matvec, rmatvec) pair with explicit m, n to a LinearOperator. A numpy
+    array or list goes to ``device`` (the card when None); a tensor stays
+    where it is."""
     if isinstance(a, LinearOperator):
         return a
     if callable(a):
@@ -157,7 +183,7 @@ def as_operator(a, m: Optional[int] = None, n: Optional[int] = None) -> LinearOp
         if m is None or n is None:
             raise ValueError("m and n are required for a (matvec, rmatvec) pair")
         return CallbackOperator(m=m, n=n, _matvec=a[0], _rmatvec=a[1])
-    arr = as_tensor(a)
+    arr = as_tensor(a, device=device)
     if arr.ndim != 2:
         raise ValueError(f"expected a 2-D array, got shape {tuple(arr.shape)}")
     return DenseOperator(a=arr)

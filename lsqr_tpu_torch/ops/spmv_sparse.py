@@ -1,0 +1,233 @@
+"""General-sparsity products: the JDIA and BlockELL kernels.
+
+PyTorch counterpart of the JDIA and BlockELL part of
+:mod:`lsqr_tpu.ops.pallas_spmv`. Each kernel is written by hand in CUDA C++
+and has a plain PyTorch twin beside it in this module:
+
+==========================  ===========================================  ==================
+wrapper                     computes                                     source
+==========================  ===========================================  ==================
+jdia_matvec                 y[i] = sum_s data[s,i] x[i + d(s,tile) + e]  csrc/jdia.cu
+block_ell_matvec            y_r = sum_j blocks[r,j] @ x[bcols[r,j]]      csrc/block_ell.cu
+block_ell_matvec_windowed   the same, x segments staged per tile         csrc/block_ell.cu
+block_ell_pair_windowed     u = A(x c1) - c2 y, zp[r,j] = blocks[r,j]' u  csrc/block_ell.cu
+==========================  ===========================================  ==================
+
+Each replaces the Pallas kernel of the same name. A wrapper given CPU
+tensors runs the twin; given CUDA tensors it launches its kernel or raises,
+with no fallback. The kernels take f32 only (f64 operators call the twins
+themselves on every device, as the JAX operators take their XLA forms).
+The wrappers count their launches with :mod:`.spmv`'s counters
+(:func:`~lsqr_tpu_torch.ops.spmv.launch_counts`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import spmv
+
+__all__ = [
+    "JITTER",
+    "jdia_matvec",
+    "jdia_matvec_plain",
+    "block_ell_matvec",
+    "block_ell_matvec_windowed",
+    "block_ell_pair_windowed",
+    "block_ell_matvec_plain",
+    "block_ell_pair_plain",
+    "windowed_rows_per_tile",
+    "pair_keeps_blocks",
+]
+
+#: |e| budget of the jitter offsets (the JAX package's JDIA_JITTER)
+JITTER = 32
+#: shared memory the windowed kernel's two x-segment buffers may take (its
+#: tile size follows from it; the launcher sizes the CTA's shared memory)
+WIN_SMEM_BYTES = 96 * 1024
+#: the dynamic shared memory a CTA may have on the H100; the pair kernel keeps
+#: a block row's blocks there when they fit beside its x segments and u
+PAIR_SMEM_BYTES = 232_448
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+
+def jdia_matvec_plain(data, eoff, base, x, *, m, p_lo, tm):
+    """Plain twin of :func:`jdia_matvec`, written from the JAX package's
+    ``_jdia_matvec_xla``: the gather of slot values against the padded x
+    (zero outside ``[p_lo, p_lo + n)``), summed over the slots."""
+    ns, m_pad = data.shape
+    n = x.shape[0]
+    rows = torch.arange(m_pad, device=data.device)
+    d = base[:ns, rows // tm].long() + JITTER            # P_lo + d, per slot and row
+    col = rows[None, :] + d + eoff.long() - p_lo          # the column in x
+    valid = (col >= 0) & (col < n)
+    xv = torch.where(valid, x[col.clamp(0, max(n - 1, 0))], torch.zeros((), dtype=x.dtype,
+                                                                         device=x.device))
+    return torch.sum(data * xv, dim=0)[:m]
+
+
+def block_ell_matvec_plain(blocks, bcols, x):
+    """Plain twin of :func:`block_ell_matvec` and
+    :func:`block_ell_matvec_windowed` (the JAX operator's einsum form):
+    x (nb*bw,) -> y (mb*bh,)."""
+    mb, kb, bh, bw = blocks.shape
+    xb = x.reshape(-1, bw)[bcols.long()]                   # (mb, kb, bw)
+    return torch.einsum("rkij,rkj->ri", blocks, xb.to(blocks.dtype)).reshape(-1)
+
+
+def block_ell_pair_plain(blocks, bcols, x, y, c1, c2):
+    """Plain twin of :func:`block_ell_pair_windowed` (the JAX operator's
+    einsum form): (u (mb*bh,), zp (mb, kb, bw))."""
+    mb, kb, bh, bw = blocks.shape
+    dt = blocks.dtype
+    c1 = spmv._scalar(c1, dt, blocks.device)
+    c2 = spmv._scalar(c2, dt, blocks.device)
+    xb = x.to(dt).reshape(-1, bw)[bcols.long()] * c1
+    ub = torch.einsum("rkij,rkj->ri", blocks, xb) - c2 * y.to(dt).reshape(mb, bh)
+    return ub.reshape(-1), torch.einsum("rkij,ri->rkj", blocks, ub)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _fn(name):
+    from . import _cuda
+
+    return getattr(_cuda.library(), name)
+
+
+def jdia_matvec(data, eoff, base, x, *, m: int, p_lo: int, tm: int):
+    """y = A x for a JDIA packing: data (ns, m_pad), eoff (ns, m_pad) int8,
+    base (ns_p, nt_p) int32 window starts P_lo + d - JITTER, x (n,) the
+    unpadded vector; returns y (m,). Row i of slot s reads
+    x[i + base[s, i // tm] + JITTER - p_lo + eoff[s, i]] where that lies in
+    [0, n), and 0 elsewhere (the padded x of the JAX kernel, without the
+    copy). On CUDA: f32 only."""
+    if not data.is_cuda:
+        return jdia_matvec_plain(data, eoff, base, x, m=m, p_lo=p_lo, tm=tm)
+    ns, m_pad = data.shape
+    spmv._check("data", data, torch.float32, data.device, (ns, m_pad))
+    spmv._check("eoff", eoff, torch.int8, data.device, (ns, m_pad))
+    spmv._check("base", base, torch.int32, data.device, tuple(base.shape))
+    spmv._check("x", x, torch.float32, data.device, (x.shape[0],))
+    if m > m_pad or m_pad % tm or base.shape[0] < ns or base.shape[1] * tm < m_pad:
+        raise ValueError(f"a packing of {m_pad} rows in tiles of {tm} with base "
+                         f"{tuple(base.shape)} cannot give {m} rows")
+    out = torch.empty(m, dtype=torch.float32, device=data.device)
+    if m == 0:
+        return out
+    spmv._launch(jdia_matvec, _fn("lsqr_jdia_matvec_f32"), data, data.data_ptr(),
+                 eoff.data_ptr(), base.data_ptr(), x.data_ptr(), out.data_ptr(), ns,
+                 m_pad, base.shape[1], m, x.shape[0], tm, p_lo)
+    return out
+
+
+def _check_blocks(blocks, bcols, x, x_len):
+    mb, kb, bh, bw = blocks.shape
+    spmv._check("blocks", blocks, torch.float32, blocks.device, tuple(blocks.shape))
+    spmv._check("bcols", bcols, torch.int32, blocks.device, (mb, kb))
+    spmv._check("x", x, torch.float32, blocks.device, (x_len,))
+    if x_len % bw:
+        raise ValueError(f"x of length {x_len} is not a whole number of {bw}-wide "
+                         "block columns")
+    return mb, kb, bh, bw
+
+
+def block_ell_matvec(blocks, bcols, x):
+    """y = A x for a BlockELL matrix: blocks (mb, kb, bh, bw), bcols
+    (mb, kb) int32 block columns, x (nb*bw,); returns y (mb*bh,). One CTA
+    per block row reads the x segments from global memory (L1/L2). On CUDA:
+    f32 only."""
+    if not blocks.is_cuda:
+        return block_ell_matvec_plain(blocks, bcols, x)
+    mb, kb, bh, bw = _check_blocks(blocks, bcols, x, x.shape[0])
+    out = torch.empty(mb * bh, dtype=torch.float32, device=blocks.device)
+    if out.numel() == 0:
+        return out
+    spmv._launch(block_ell_matvec, _fn("lsqr_block_ell_matvec_f32"), blocks,
+                 blocks.data_ptr(), bcols.data_ptr(), x.data_ptr(), out.data_ptr(), mb,
+                 kb, bh, bw, x.shape[0] // bw)
+    return out
+
+
+def windowed_rows_per_tile(mb: int, kb: int, bw: int, tr: Optional[int] = None) -> int:
+    """The windowed kernel's block rows per tile: ``tr`` (by default 8, or
+    1 below 8 block rows, as in JAX) lowered until the two x-segment buffers
+    fit WIN_SMEM_BYTES and ``tr`` divides mb. 0 when one block row's
+    segments do not fit (the operator then takes :func:`block_ell_matvec`)."""
+    tr = tr or (8 if mb >= 8 else 1)
+    while tr > 0 and 2 * tr * kb * bw * 4 > WIN_SMEM_BYTES:
+        tr -= 1
+    while tr > 1 and mb % tr:
+        tr -= 1
+    return tr
+
+
+def block_ell_matvec_windowed(blocks, bcols, x, *, tr: Optional[int] = None):
+    """y = A x for a BlockELL matrix, the design of the windowed Pallas
+    kernel: persistent CTAs walk tiles of ``tr`` block rows; each tile's
+    tr*kb x segments are staged in shared memory with cp.async,
+    double-buffered so the next tile's copies fly while this one computes.
+    Same arguments and result as :func:`block_ell_matvec`. On CUDA: f32
+    only; raises ValueError when one block row's segments overflow the
+    shared-memory window."""
+    if not blocks.is_cuda:
+        return block_ell_matvec_plain(blocks, bcols, x)
+    mb, kb, bh, bw = _check_blocks(blocks, bcols, x, x.shape[0])
+    tr = windowed_rows_per_tile(mb, kb, bw, tr)
+    if tr == 0:
+        raise ValueError(f"{kb} x-segments of {bw} floats per block row do not fit "
+                         f"the windowed kernel's {WIN_SMEM_BYTES}-byte window")
+    out = torch.empty(mb * bh, dtype=torch.float32, device=blocks.device)
+    if out.numel() == 0:
+        return out
+    spmv._launch(block_ell_matvec_windowed, _fn("lsqr_block_ell_matvec_windowed_f32"),
+                 blocks, blocks.data_ptr(), bcols.data_ptr(), x.data_ptr(), out.data_ptr(),
+                 mb, kb, bh, bw, x.shape[0] // bw, tr)
+    return out
+
+
+def block_ell_pair_windowed(blocks, bcols, x, y, c1, c2):
+    """(u, zp) for a BlockELL matrix in one pass over the blocks:
+        u = A (x*c1) - c2*y,     zp[r, j] = blocks[r, j]' @ u_r
+    with x (nb*bw,), y (mb*bh,), c1, c2 numbers or 0-d tensors (read on the
+    device); returns u (mb*bh,) and zp (mb, kb, bw). The caller assembles
+    A'u as the sum of the zp rows by bcols. One CTA per block row; the
+    row's blocks stay in shared memory between the two products when they
+    fit PAIR_SMEM_BYTES beside the row's x segments and u
+    (:func:`pair_keeps_blocks`), else the transposed product reads them a
+    second time (from L2). On CUDA: f32 only."""
+    if not blocks.is_cuda:
+        return block_ell_pair_plain(blocks, bcols, x, y, c1, c2)
+    mb, kb, bh, bw = _check_blocks(blocks, bcols, x, x.shape[0])
+    spmv._check("y", y, torch.float32, blocks.device, mb * bh)
+    c1 = spmv._device_scalar(c1, blocks.device)
+    c2 = spmv._device_scalar(c2, blocks.device)
+    u = torch.empty(mb * bh, dtype=torch.float32, device=blocks.device)
+    zp = torch.empty((mb, kb, bw), dtype=torch.float32, device=blocks.device)
+    if u.numel() == 0:
+        return u, zp
+    spmv._launch(block_ell_pair_windowed, _fn("lsqr_block_ell_pair_f32"), blocks,
+                 blocks.data_ptr(), bcols.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 c1.data_ptr(), c2.data_ptr(), u.data_ptr(), zp.data_ptr(), mb, kb, bh,
+                 bw, x.shape[0] // bw, int(pair_keeps_blocks(kb, bh, bw)))
+    return u, zp
+
+
+def pair_keeps_blocks(kb: int, bh: int, bw: int) -> bool:
+    """Whether the pair kernel holds a block row's blocks in shared memory
+    (with its x segments and u) between the two products."""
+    return 4 * (kb * bh * bw + kb * bw + bh) <= PAIR_SMEM_BYTES
+
+
+for _wrapper in (jdia_matvec, block_ell_matvec, block_ell_matvec_windowed,
+                 block_ell_pair_windowed):
+    spmv.register(_wrapper, ("f32",))

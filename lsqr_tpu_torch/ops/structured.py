@@ -1,6 +1,6 @@
-"""Banded operators in the two DIA layouts of the JAX package.
+"""Structured operators: the two DIA layouts, ELL, HYB and BlockELL.
 
-PyTorch counterpart of :mod:`lsqr_tpu.ops.structured`'s DIA part:
+PyTorch counterpart of :mod:`lsqr_tpu.ops.structured`:
 
 * ``DIAOperator`` / ``dia_operator`` / ``dia_operator_device``: the packed
   layout, row-aligned stripes ``data (nd, m)`` with
@@ -21,6 +21,18 @@ computes exact products.
 
 bf16 stripes (``storage_dtype=torch.bfloat16``) are a storage format: the
 products accumulate in f32 and return f32, and ``dtype`` reports f32.
+
+* ``ELLOperator`` / ``ell_operator``: padded rows and their transpose
+  packing; the products are gathers (JAX has no ELL kernel either).
+* ``hyb_operator``: ELL of a bounded width plus a COO spill, summed
+  (:class:`~lsqr_tpu_torch.ops.compose.SumOperator`), for power-law rows.
+* ``BlockELLOperator`` / ``block_ell_operator``: dense (bh, bw) blocks in
+  ELL layout. On CUDA its f32 products go through the BlockELL kernels
+  (:mod:`.spmv_sparse`), on the CPU and for f64 through their twins.
+
+The ELL, HYB and BlockELL builders pack on the host (:mod:`..native`) and
+move the packed arrays to ``device`` once; ``device=None`` means the device
+of a tensor ``vals``, else the card.
 """
 
 from __future__ import annotations
@@ -28,10 +40,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config import as_dtype
-from .linop import LinearOperator, as_tensor
+from .linop import LinearOperator, as_tensor, placement, to_numpy
 from .spmv import (
     _geometry,
     dia_fused_halfstep,
@@ -42,9 +55,18 @@ from .spmv import (
     dia_product_shared,
     dia_product_shared_axpy,
 )
+from .spmv_sparse import (
+    block_ell_matvec,
+    block_ell_matvec_plain,
+    block_ell_matvec_windowed,
+    block_ell_pair_plain,
+    block_ell_pair_windowed,
+    windowed_rows_per_tile,
+)
 
 __all__ = ["DIAOperator", "dia_operator", "dia_operator_device",
-           "DIASharedOperator", "dia_shared_operator"]
+           "DIASharedOperator", "dia_shared_operator", "ELLOperator", "ell_operator",
+           "hyb_operator", "BlockELLOperator", "block_ell_operator"]
 
 
 def _offsets_tensor(offsets, device):
@@ -218,13 +240,15 @@ def dia_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
     """Build a :class:`DIAOperator` from row-aligned stripes ``data``
     (len(offsets), m), ``data[d, i] = A[i, i + offsets[d]]`` (a numpy array,
     tensor or nested list). The masking and the transpose packing run on
-    the host; the two stripe arrays then move to ``device`` once.
+    the host; the two stripe arrays then move to ``device`` once (when None:
+    the device of a tensor ``data``, else the card).
     ``storage_dtype=torch.bfloat16`` keeps bf16 stripes (f32 products).
     Complex stripes raise ``NotImplementedError`` (ZDIA, ROADMAP Queue 1
     item 12)."""
+    device = placement(data, device)
     data = as_tensor(data, dtype=dtype, device="cpu")
     op = dia_operator_device(m, n, offsets, data, storage_dtype=storage_dtype)
-    if device is None:
+    if op.device == device:
         return op
     return DIAOperator(data=op.data.to(device), tdata=op.tdata.to(device), m=op.m,
                        n=op.n, offsets=op.offsets)
@@ -334,9 +358,10 @@ class DIASharedOperator(LinearOperator):
 def dia_shared_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
                         storage_dtype=None, device=None) -> DIASharedOperator:
     """Build a :class:`DIASharedOperator` from row-aligned stripes ``data``
-    of shape (len(offsets), m), ``data[d, i] = A[i, i + offsets[d]]``.
-    Entries outside the matrix are zeroed; the padding is one copy on the
-    device. ``storage_dtype=torch.bfloat16`` keeps bf16 stripes (f32
+    of shape (len(offsets), m), ``data[d, i] = A[i, i + offsets[d]]``, on
+    ``device`` (the card when None; a tensor stays where it is unless a
+    device is named). Entries outside the matrix are zeroed; the padding is
+    one copy on the device. ``storage_dtype=torch.bfloat16`` keeps bf16 stripes (f32
     products)."""
     offsets = tuple(int(k) for k in offsets)
     nd = len(offsets)
@@ -352,3 +377,259 @@ def dia_shared_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
     dp[:, H:H + m] = data
     return DIASharedOperator(dp=dp.reshape(-1), m=int(m), n=int(n),
                              offsets=offsets, H=H)
+
+
+# ---------------------------------------------------------------------------
+# ELL: padded rows (gather-only products)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ELLOperator(LinearOperator):
+    """m x n sparse matrix in ELL (padded-row) layout with its transpose
+    packing, so both products are gathers:
+
+    vals/cols (m, k): the forward packing (padded entries: value 0, col 0);
+    tvals/trows (n, kt): the packing of A'. Indices are int64 on the
+    device."""
+
+    vals: torch.Tensor
+    cols: torch.Tensor
+    tvals: torch.Tensor
+    trows: torch.Tensor
+    m: int
+    n: int
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def nnz(self) -> int:
+        return self.vals.shape[0] * self.vals.shape[1]
+
+    def matvec(self, x):
+        return torch.sum(self.vals * x.to(self.dtype)[self.cols], dim=1)
+
+    def rmatvec(self, y):
+        return torch.sum(self.tvals * y.to(self.dtype)[self.trows], dim=1)
+
+    def todense(self):
+        dense = torch.zeros((self.m, self.n), dtype=self.dtype, device=self.device)
+        rows = torch.arange(self.m, device=self.device).repeat_interleave(self.vals.shape[1])
+        return dense.index_put_((rows, self.cols.reshape(-1)), self.vals.reshape(-1),
+                                accumulate=True)
+
+
+def ell_operator(m, n, vals, rows, cols, *, dtype=None, device=None) -> ELLOperator:
+    """Build an :class:`ELLOperator` and its transpose packing from COO
+    triplets, packed on the host by :mod:`..native`."""
+    from .. import native
+
+    device = placement(vals, device)
+    vals, rows, cols = to_numpy(vals, dtype), to_numpy(rows), to_numpy(cols)
+    fv, fc = native.ell_pack(rows, cols, vals, m)
+    tv, tr = native.ell_pack(cols, rows, vals, n)
+
+    def t(a, dt=None):
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    return ELLOperator(vals=t(fv), cols=t(fc, torch.int64), tvals=t(tv),
+                       trows=t(tr, torch.int64), m=int(m), n=int(n))
+
+
+#: the HYB width rule's cost of a spilled COO entry against a streamed ELL
+#: slot (the JAX package's SPILL_COST, kept so both pick the same width)
+SPILL_COST = 1.5
+
+
+def hyb_width(counts, m) -> int:
+    """The JAX package's cost-balanced HYB width: the smallest w minimising
+    m*w + SPILL_COST * (entries past w), over w = 1 and the distinct row
+    lengths."""
+    wmax = int(counts.max())
+    best_w, best_cost = wmax, m * wmax
+    for w in np.union1d([1], np.unique(counts[counts > 0])):
+        w = int(w)
+        cost = m * w + SPILL_COST * int(np.maximum(counts - w, 0).sum())
+        if cost < best_cost:
+            best_w, best_cost = w, cost
+    return max(1, best_w)
+
+
+def hyb_operator(m, n, vals, rows, cols, *, width=None, dtype=None, device=None):
+    """HYB (ELL + COO spill) operator for power-law row distributions: each
+    row's first ``width`` entries (in column order) go to an ELL part, the
+    rest to a COO part, summed by a
+    :class:`~lsqr_tpu_torch.ops.compose.SumOperator` (a pure ELL operator
+    when nothing spills). ``width=None`` takes :func:`hyb_width`. Real
+    values only."""
+    from .compose import add_operators
+    from .coo import coo_operator
+
+    device = placement(vals, device)
+    vals, rows, cols = to_numpy(vals, dtype), to_numpy(rows), to_numpy(cols)
+    if np.iscomplexobj(vals):
+        raise ValueError("hyb_operator is real-only; complex matrices use the COO "
+                         "path (coo_operator / auto_operator)")
+    if vals.size == 0:
+        return coo_operator(m, n, vals, rows, cols, dtype=dtype, device=device)
+    order = np.lexsort((cols, rows))
+    rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
+    counts = np.bincount(rows_s, minlength=m)
+    row_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(len(vals_s)) - np.repeat(row_start, counts)
+    if width is None:
+        width = hyb_width(counts, m)
+    main = rank < width
+    E = ell_operator(m, n, vals_s[main], rows_s[main], cols_s[main], dtype=dtype,
+                     device=device)
+    if bool(np.all(main)):
+        return E
+    C = coo_operator(m, n, vals_s[~main], rows_s[~main], cols_s[~main], dtype=dtype,
+                     device=device)
+    return add_operators([E, C])
+
+
+# ---------------------------------------------------------------------------
+# BlockELL: dense blocks in ELL layout
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(x, length):
+    if x.shape[0] == length:
+        return x
+    return torch.cat([x, x.new_zeros(length - x.shape[0])])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockELLOperator(LinearOperator):
+    """Block-sparse m x n matrix: dense (bh, bw) blocks in ELL layout.
+
+    blocks (mb, kb, bh, bw), bcols (mb, kb) int32: kb blocks per block row,
+    zero blocks padding the short rows; tblocks/tbrows (nb, kt, bw, bh),
+    (nb, kt): the transpose packing, padded to the most blocks in one block
+    column (kt), so a scattered pattern stores more there than in blocks.
+
+    Products: on CUDA an f32 operator runs, for each packing, the windowed
+    kernel (``block_ell_matvec_windowed``, x segments staged in shared
+    memory) where one block row's segments fit its window, else
+    ``block_ell_matvec`` (x segments from L1/L2): with 128-wide blocks, a
+    packing of more than 96 blocks per block row (such as the transpose of
+    a tall pattern, kt > 96) takes the latter.
+    ``fused_pair`` runs ``block_ell_pair_windowed``. On the CPU and for f64
+    they run the einsum twins. ``prefers_pair`` stays False, as in JAX:
+    ``pair=True`` is the opt-in."""
+
+    blocks: torch.Tensor
+    bcols: torch.Tensor
+    tblocks: torch.Tensor
+    tbrows: torch.Tensor
+    m: int
+    n: int
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def device(self):
+        return self.blocks.device
+
+    @property
+    def bh(self) -> int:
+        return self.blocks.shape[2]
+
+    @property
+    def bw(self) -> int:
+        return self.blocks.shape[3]
+
+    @property
+    def kb(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def kt(self) -> int:
+        return self.tblocks.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return self.blocks.numel()
+
+    @property
+    def prefers_pair(self) -> bool:
+        return False
+
+    def _kernels(self) -> bool:
+        return self.blocks.is_cuda and self.dtype == torch.float32
+
+    def _product(self, blocks, bcols, x):
+        if not self._kernels():
+            return block_ell_matvec_plain(blocks, bcols, x)
+        mb, kb, _, bw = blocks.shape
+        if windowed_rows_per_tile(mb, kb, bw):
+            return block_ell_matvec_windowed(blocks, bcols, x)
+        return block_ell_matvec(blocks, bcols, x)
+
+    def matvec(self, x):
+        xp = _pad_to(x.to(self.dtype), self.tblocks.shape[0] * self.bw)
+        return self._product(self.blocks, self.bcols, xp)[:self.m]
+
+    def rmatvec(self, y):
+        yp = _pad_to(y.to(self.dtype), self.blocks.shape[0] * self.bh)
+        return self._product(self.tblocks, self.tbrows, yp)[:self.n]
+
+    def fused_pair(self, *, y, win, c1, c2):
+        """Both bidiagonalization products: u = A(win*c1) - c2*y and
+        z = A'u, from one pass over ``blocks`` (no transpose packing): the
+        pair gives u and the per-block partials zp[r, j] = blocks[r, j]' u_r,
+        and z is their sum by block column, ``index_add_`` of the mb*kb zp
+        rows into the nb block columns. On CUDA ``index_add_`` adds with
+        float atomics in no fixed order, so the last bits of z vary from run
+        to run; on the CPU it adds in row order."""
+        mb, kb, bh, bw = self.blocks.shape
+        nb = self.tblocks.shape[0]
+        xp = _pad_to(win.to(self.dtype), nb * bw)
+        yp = _pad_to(y.to(self.dtype), mb * bh)
+        pair = block_ell_pair_windowed if self._kernels() else block_ell_pair_plain
+        u, zp = pair(self.blocks, self.bcols, xp, yp, c1, c2)
+        z = zp.new_zeros((nb, bw)).index_add_(0, self.bcols.reshape(-1).long(),
+                                              zp.reshape(mb * kb, bw))
+        return u[:self.m], z.reshape(-1)[:self.n]
+
+    def todense(self):
+        mb, kb, bh, bw = self.blocks.shape
+        nb = self.tblocks.shape[0]
+        dense = torch.zeros((mb, bh, nb, bw), dtype=self.dtype, device=self.device)
+        r = torch.arange(mb, device=self.device).repeat_interleave(kb)
+        dense = dense.permute(0, 2, 1, 3)            # (mb, nb, bh, bw), a view
+        dense.index_put_((r, self.bcols.reshape(-1).long()),
+                         self.blocks.reshape(mb * kb, bh, bw), accumulate=True)
+        return dense.permute(0, 2, 1, 3).reshape(mb * bh, nb * bw)[:self.m, :self.n]
+
+
+def block_ell_operator(m, n, vals, rows, cols, *, block=(128, 128), dtype=None,
+                       device=None) -> BlockELLOperator:
+    """Build a :class:`BlockELLOperator` from COO triplets by snapping the
+    entries into dense (bh, bw) blocks, on the host (:mod:`..native`).
+    Raises ValueError when the blocks would store more than 64x the
+    entries (a pattern that is not blocky)."""
+    from .. import native
+
+    device = placement(vals, device)
+    bh, bw = block
+    vals, rows, cols = to_numpy(vals, dtype), to_numpy(rows), to_numpy(cols)
+    mb, nb = -(-m // bh), -(-n // bw)
+    stride = max(nb, mb)
+    fb, fc = native.block_pack(rows, cols, vals, mb, bh, bw, stride)
+    tb, tr = native.block_pack(cols, rows, vals, nb, bw, bh, stride)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return BlockELLOperator(blocks=t(fb), bcols=t(fc), tblocks=t(tb), tbrows=t(tr),
+                            m=int(m), n=int(n))

@@ -16,6 +16,9 @@ import torch
 # the suite runs under xdist with several workers per host
 torch.set_num_threads(1)
 
+#: the port builds on the card unless told otherwise; the CPU tests say so
+DEV = torch.device("cpu")
+
 PORT_DIR = Path(__file__).resolve().parents[1] / "lsqr_tpu_torch"
 
 
@@ -62,7 +65,7 @@ def banded_triplets(data, offsets, n):
     return np.concatenate(vals), np.concatenate(rows), np.concatenate(cols)
 
 
-def shared_to_torch(op, device="cpu"):
+def shared_to_torch(op, device=DEV):
     """The port's operator over the JAX DIASharedOperator's own stripes."""
     from lsqr_tpu_torch import operator_from_arrays
 

@@ -14,7 +14,7 @@ import lsqr_tpu_torch as lt
 from lsqr_tpu.ops import blas as jblas
 from lsqr_tpu_torch.ops import blas as tblas
 
-from _torch_parity import banded, jax_imports_in, rel_err, shared_to_torch, to_np
+from _torch_parity import DEV, banded, jax_imports_in, rel_err, shared_to_torch, to_np
 
 EDGE_VECTORS = {
     "zeros": np.zeros(7),
@@ -87,7 +87,7 @@ def _coo(rng, m, n, nnz):
 def test_coo_products_match_jax(rng, m, n):
     vals, rows, cols = _coo(rng, m, n, 3 * max(m, n))
     Aj = lj.coo_operator(m, n, vals, rows, cols)
-    At = lt.coo_operator(m, n, vals, rows, cols)
+    At = lt.coo_operator(m, n, vals, rows, cols, device=DEV)
     x, y = rng.standard_normal(n), rng.standard_normal(m)
     assert rel_err(At.matvec(torch.from_numpy(x)), Aj.matvec(jnp.asarray(x))) < 1e-14
     assert rel_err(At.rmatvec(torch.from_numpy(y)), Aj.rmatvec(jnp.asarray(y))) < 1e-14
@@ -100,7 +100,7 @@ def test_dense_callback_and_transpose_match_jax(rng):
     a = rng.standard_normal((30, 20))
     x, y = rng.standard_normal(20), rng.standard_normal(30)
     Dj = lj.DenseOperator(jnp.asarray(a))
-    Dt = lt.as_operator(a)
+    Dt = lt.as_operator(a, device=DEV)
     assert isinstance(Dt, lt.DenseOperator) and Dt.shape == (30, 20)
     assert rel_err(Dt.matvec(torch.from_numpy(x)), Dj.matvec(jnp.asarray(x))) < 1e-14
     assert rel_err(Dt.rmatvec(torch.from_numpy(y)), Dj.rmatvec(jnp.asarray(y))) < 1e-14
@@ -121,13 +121,13 @@ def test_as_operator_and_coo_validation_errors():
     with pytest.raises(ValueError):
         lt.as_operator((lambda v: v, lambda v: v))
     with pytest.raises(ValueError):
-        lt.as_operator(np.zeros(3))
+        lt.as_operator(np.zeros(3), device=DEV)
     with pytest.raises(ValueError):
-        lt.coo_operator(3, 3, [1.0, 2.0], [0, 1, 2], [0, 1, 2])
+        lt.coo_operator(3, 3, [1.0, 2.0], [0, 1, 2], [0, 1, 2], device=DEV)
     with pytest.raises(ValueError):
-        lt.coo_operator(2, 3, [1.0], [2], [0])
+        lt.coo_operator(2, 3, [1.0], [2], [0], device=DEV)
     with pytest.raises(ValueError):
-        lt.coo_operator(3, 2, [1.0], [0], [2])
+        lt.coo_operator(3, 2, [1.0], [0], [2], device=DEV)
 
 
 def test_operator_from_arrays_round_trips_shared(rng):
@@ -136,7 +136,7 @@ def test_operator_from_arrays_round_trips_shared(rng):
     Aj = lj.dia_shared_operator(m, n, ks, data)
     At = lt.operator_from_arrays(
         "dia_shared", {"dp": np.asarray(Aj.dp)},
-        {"m": m, "n": n, "offsets": Aj.offsets, "H": Aj.H})
+        {"m": m, "n": n, "offsets": Aj.offsets, "H": Aj.H}, device=DEV)
     assert isinstance(At, lt.DIASharedOperator)
     assert to_np(At.dp).tobytes() == np.asarray(Aj.dp).tobytes()
     np.testing.assert_array_equal(to_np(At.todense()), np.asarray(Aj.todense()))
@@ -144,9 +144,9 @@ def test_operator_from_arrays_round_trips_shared(rng):
     assert (At.nnz, At.Lp, At.dtype) == (Aj.nnz, Aj.Lp, torch.float32)
     with pytest.raises(ValueError, match="geometry"):
         lt.operator_from_arrays("dia_shared", {"dp": np.asarray(Aj.dp)[:-1]},
-                                {"m": m, "n": n, "offsets": ks, "H": Aj.H})
+                                {"m": m, "n": n, "offsets": ks, "H": Aj.H}, device=DEV)
     with pytest.raises(ValueError, match="unknown"):
-        lt.operator_from_arrays("ell", {}, {})
+        lt.operator_from_arrays("wcoo", {}, {}, device=DEV)
 
 
 def test_operator_from_arrays_bf16_stripes(rng):
@@ -155,7 +155,7 @@ def test_operator_from_arrays_bf16_stripes(rng):
     Aj = lj.dia_shared_operator(m, n, ks, data, storage_dtype="bfloat16")
     At = lt.operator_from_arrays(
         "dia_shared", {"dp": np.asarray(Aj.dp)},
-        {"m": m, "n": n, "offsets": Aj.offsets, "H": Aj.H})
+        {"m": m, "n": n, "offsets": Aj.offsets, "H": Aj.H}, device=DEV)
     assert At.is_bf16_storage and At.dtype == torch.float32
     x = rng.standard_normal(n).astype(np.float32)
     assert rel_err(At.matvec(torch.from_numpy(x)), Aj.matvec(jnp.asarray(x))) < 1e-6
@@ -166,7 +166,7 @@ def test_operator_from_arrays_round_trips_coo(rng):
     Aj = lj.coo_operator(20, 15, vals, rows, cols)
     At = lt.operator_from_arrays(
         "coo", {"vals": np.asarray(Aj.vals), "rows": np.asarray(Aj.rows),
-                "cols": np.asarray(Aj.cols)}, {"m": 20, "n": 15})
+                "cols": np.asarray(Aj.cols)}, {"m": 20, "n": 15}, device=DEV)
     np.testing.assert_allclose(to_np(At.todense()), np.asarray(Aj.todense()),
                                rtol=1e-15)
 

@@ -15,7 +15,7 @@ import torch
 import lsqr_tpu_torch as lt
 from lsqr_tpu_torch.ops import spmv
 
-from _torch_parity import banded, cuda_device, rel_err  # noqa: F401
+from _torch_parity import DEV, banded, cuda_device, rel_err  # noqa: F401
 
 # f32, relative to the max: kernel and twin differ in rounding only (the
 # kernel contracts multiply-adds)
@@ -44,7 +44,7 @@ WIDE = [
 
 def _operator(rng, m, n, ks, dtype=np.float32):
     data, _ = banded(rng, m, n, ks, dtype, dense=False)
-    return lt.dia_shared_operator(m, n, ks, data)
+    return lt.dia_shared_operator(m, n, ks, data, device=DEV)
 
 
 def _only(**launched):
@@ -144,7 +144,7 @@ def test_cuda_solve_runs_through_kernels(rng, cuda_device):
     data, _ = banded(rng, m, n, ks, np.float32, boost=12.0, dense=False)
     b = rng.standard_normal(m).astype(np.float32)
     Ac = lt.dia_shared_operator(m, n, ks, data, device=cuda_device)
-    Ah = lt.dia_shared_operator(m, n, ks, data)
+    Ah = lt.dia_shared_operator(m, n, ks, data, device=DEV)
     ref = lt.lsqr(Ah, b, 0.01, atol=1e-6, btol=1e-6, pair=True)
     for kw, kernel in ((dict(), "dia_pair_shared"),
                        (dict(pair=False), "dia_product_shared_axpy"),
@@ -161,7 +161,7 @@ def test_cuda_solve_runs_through_kernels(rng, cuda_device):
 @pytest.mark.parametrize("m,n,ks", CASES[:4] + CASES[-1:])
 def test_cuda_bf16_shared_kernels_match_twins(rng, cuda_device, m, n, ks):
     data, _ = banded(rng, m, n, ks, np.float32, dense=False)
-    Ah = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16)
+    Ah = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16, device=DEV)
     dp = Ah.dp.to(cuda_device)
     v, y = _vectors(rng, m, n)
     kw = dict(offsets=ks, m=m, n=n)
@@ -189,7 +189,7 @@ def test_cuda_bf16_shared_kernels_match_twins(rng, cuda_device, m, n, ks):
 @pytest.mark.parametrize("m,n,ks", CASES + WIDE)
 def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
     data, _ = banded(rng, m, n, ks, np.float32, dense=False)
-    Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage)
+    Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
     A = lt.DIAOperator(data=Ah.data.to(cuda_device), tdata=Ah.tdata.to(cuda_device),
                        m=m, n=n, offsets=ks)
     v, y = _vectors(rng, m, n)
@@ -244,7 +244,7 @@ def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
 def test_cuda_packed_f64_matvec(rng, cuda_device):
     m, n, ks = 5000, 4000, (-1500, -2, 0, 3, 1100)
     data, _ = banded(rng, m, n, ks, np.float64, dense=False)
-    Ah = lt.dia_operator(m, n, ks, data)
+    Ah = lt.dia_operator(m, n, ks, data, device=DEV)
     A = lt.dia_operator(m, n, ks, data, device=cuda_device)
     x, y = torch.from_numpy(rng.standard_normal(n)), torch.from_numpy(rng.standard_normal(m))
     assert rel_err(A.matvec(x.to(cuda_device)), Ah.matvec(x)) < 1e-13
@@ -263,7 +263,7 @@ def test_cuda_packed_solve_runs_through_kernels(rng, cuda_device):
     data, _ = banded(rng, m, n, ks, np.float32, boost=12.0, dense=False)
     b = rng.standard_normal(m).astype(np.float32)
     Ac = lt.dia_operator(m, n, ks, data, device=cuda_device)
-    Ah = lt.dia_operator(m, n, ks, data)
+    Ah = lt.dia_operator(m, n, ks, data, device=DEV)
     ref = lt.lsqr(Ah, b, 0.01, atol=1e-6, btol=1e-6, pair=True)
     for kw, kernel in ((dict(), "dia_pair"),
                        (dict(pair=False), "dia_fused_halfstep"),
@@ -311,7 +311,7 @@ MK_CASES = [
 MK_TOL = 1e-4  # kernel vs twin after 8 iterations: summation order only
 
 
-def _mk_problem(rng, m, n, ks, storage, device=None, boost=8.0):
+def _mk_problem(rng, m, n, ks, storage, device=DEV, boost=8.0):
     data, _ = banded(rng, m, n, ks, np.float32, boost=boost, dense=False)
     return lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=device)
 
@@ -417,3 +417,127 @@ def test_cuda_megakernel_routes_raise(rng, cuda_device):
         lt.lsmr(packed, b, megakernel=True, record_trace=True)
     with pytest.raises(ValueError):
         lt.lsqr_megakernel(packed, b, 0.1, x0=torch.zeros(n, device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# General sparsity: jdia_matvec and the three BlockELL kernels
+# ---------------------------------------------------------------------------
+
+from lsqr_tpu_torch.models.synthetic import jittered_band_coo, random_block_coo  # noqa: E402
+from lsqr_tpu_torch.ops import spmv_sparse  # noqa: E402
+from lsqr_tpu_torch.ops.jdia import jdia_pack  # noqa: E402
+
+
+def _cuda(a, device):
+    return torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,tm", [(3000, 2500, 1024), (70_001, 50_003, 8192),
+                                    (65_536, 65_536, 8192)])
+def test_cuda_jdia_kernel_matches_twin(rng, cuda_device, m, n, tm):
+    vals, rows, cols = jittered_band_coo(m, n, outliers=0.001, seed=m)
+    p = jdia_pack(m, n, vals, rows, cols, tm=tm)
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    spmv.reset_launch_counts()
+    for pre, vec, p_lo, m_out in (("", x, p["p_lo"], m), ("t", y, p["tp_lo"], n)):
+        args = [_cuda(p[pre + k], cuda_device) for k in ("data", "eoff", "base")]
+        got = spmv_sparse.jdia_matvec(*args, _cuda(vec, cuda_device), m=m_out, p_lo=p_lo,
+                                      tm=tm)
+        ref = spmv_sparse.jdia_matvec_plain(*args, _cuda(vec, cuda_device), m=m_out,
+                                            p_lo=p_lo, tm=tm)
+        torch.cuda.synchronize()
+        assert got.shape == (m_out,) and rel_err(got, ref) < TOL
+    assert spmv.launch_counts() == _only(jdia_matvec=2)
+
+
+def _random_blocks(rng, mb, kb, bh, bw, nb, device):
+    blocks = torch.from_numpy(rng.standard_normal((mb, kb, bh, bw)).astype(np.float32))
+    bcols = torch.from_numpy(rng.integers(0, nb, (mb, kb)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal(nb * bw).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(mb * bh).astype(np.float32))
+    return [t.to(device) for t in (blocks, bcols, x, y)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb,kb,bh,bw,nb", [
+    (16, 3, 128, 128, 20),     # the pair keeps the blocks in shared memory
+    (64, 5, 128, 128, 40),     # it reads them again from L2
+    (37, 3, 24, 30, 11),       # bw not a multiple of 4: scalar loads
+    (12, 2, 32, 32, 9),        # tr = 6 divides mb
+])
+def test_cuda_block_ell_kernels_match_twins(rng, cuda_device, mb, kb, bh, bw, nb):
+    blocks, bcols, x, y = _random_blocks(rng, mb, kb, bh, bw, nb, cuda_device)
+    ref = spmv_sparse.block_ell_matvec_plain(blocks, bcols, x)
+    spmv.reset_launch_counts()
+    got = spmv_sparse.block_ell_matvec(blocks, bcols, x)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) < TOL
+    for tr in (None, 1, 8):
+        got = spmv_sparse.block_ell_matvec_windowed(blocks, bcols, x, tr=tr)
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) < TOL
+    c1 = torch.tensor(0.7, device=cuda_device)
+    u, zp = spmv_sparse.block_ell_pair_windowed(blocks, bcols, x, y, c1, -1.3)
+    u_ref, zp_ref = spmv_sparse.block_ell_pair_plain(blocks, bcols, x, y, c1, -1.3)
+    torch.cuda.synchronize()
+    assert rel_err(u, u_ref) < TOL and rel_err(zp, zp_ref) < TOL
+    assert spmv.launch_counts() == _only(block_ell_matvec=1, block_ell_matvec_windowed=3,
+                                         block_ell_pair_windowed=1)
+
+
+@pytest.mark.cuda
+def test_cuda_general_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
+    blocks, bcols, x, _ = _random_blocks(rng, 8, 200, 128, 128, 300, cuda_device)
+    with pytest.raises(ValueError, match="window"):   # 200 segments overflow the window
+        spmv_sparse.block_ell_matvec_windowed(blocks, bcols, x)
+    with pytest.raises(TypeError):
+        spmv_sparse.block_ell_matvec(blocks.double(), bcols, x.double())
+    with pytest.raises(TypeError):
+        spmv_sparse.block_ell_matvec(blocks, bcols.long(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["jdia", "block_pair_off", "block_pair_on", "block_tall"])
+def test_cuda_general_solves_run_through_kernels(rng, cuda_device, kind):
+    if kind == "jdia":
+        m = n = 40_000
+        vals, rows, cols = jittered_band_coo(m, n, seed=3, diag=12.0)
+        build = lambda dev: lt.auto_operator(m, n, vals, rows, cols, device=dev)  # noqa: E731
+        launched = ("jdia_matvec",)
+    else:
+        # block_tall: 120 block rows over 3 block columns, so the transpose
+        # packing (kt = 120) overflows the windowed kernel's window
+        m, n = (5000, 4100) if kind != "block_tall" else (15_355, 364)
+        vals, rows, cols = random_block_coo(m, n, seed=3, diag=2.0)
+        build = lambda dev: lt.block_ell_operator(  # noqa: E731
+            m, n, vals, rows, cols, device=dev)
+        launched = {"block_pair_on": ("block_ell_pair_windowed",),
+                    "block_pair_off": ("block_ell_matvec_windowed",),
+                    "block_tall": ("block_ell_matvec_windowed", "block_ell_matvec")}[kind]
+    b = rng.standard_normal(m).astype(np.float32)
+    kw = dict(atol=1e-6, btol=1e-6, pair=kind == "block_pair_on")
+    host = lt.lsqr(build(DEV), torch.from_numpy(b), 0.01, **kw)
+    A = build(cuda_device)
+    assert type(A).__name__ == ("JDIAOperator" if kind == "jdia" else "BlockELLOperator")
+    spmv.reset_launch_counts()
+    res = lt.lsqr(A, torch.from_numpy(b).to(cuda_device), 0.01, **kw)
+    assert all(spmv.launch_counts()[name] > 0 for name in launched)
+    assert int(res.istop) == int(host.istop) and abs(int(res.itn) - int(host.itn)) <= 1
+    assert rel_err(res.x, host.x) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_f64_general_operators_take_the_twins(rng, cuda_device):
+    m = n = 3000
+    vals, rows, cols = jittered_band_coo(m, n, seed=4, dtype=np.float64)
+    A = lt.jdia_operator(m, n, vals, rows, cols, device=cuda_device)
+    B = lt.block_ell_operator(m, n, *random_block_coo(m, n, seed=4, dtype=np.float64),
+                              device=cuda_device)
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda_device)
+    spmv.reset_launch_counts()
+    for op in (A, B):
+        assert op.dtype == torch.float64
+        assert rel_err(op.matvec(x), op.todense() @ x) < 1e-12
+    assert spmv.launch_counts() == _only()

@@ -18,7 +18,7 @@ from lsqr_tpu.ops import pallas_spmv as jspmv
 from lsqr_tpu.ops.structured import _dia_matvec_xla, dia_operator_device, dia_pair_xla
 from lsqr_tpu_torch.ops import spmv
 
-from _torch_parity import banded, banded_triplets, rel_err, to_np
+from _torch_parity import DEV, banded, banded_triplets, rel_err, to_np
 
 # tests/test_pair.py shapes of the pair kernel (tm = 1024): aligned, ragged,
 # over- and under-determined, offsets wider than the tile, one tile, lo > tm
@@ -59,7 +59,8 @@ def _bits(a):
 
 def _packed(rng, m, n, ks, dtype=np.float32, **kw):
     data = rng.standard_normal((len(ks), m)).astype(dtype)
-    return data, lj.dia_operator(m, n, ks, data, **kw), lt.dia_operator(m, n, ks, data, **kw)
+    return (data, lj.dia_operator(m, n, ks, data, **kw),
+            lt.dia_operator(m, n, ks, data, **kw, device=DEV))
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +76,7 @@ def test_packed_stripes_byte_equal_to_jax(rng, m, n, ks, storage):
     data = rng.standard_normal((len(ks), m)).astype(dtype)
     for Aj, At in (
         (lj.dia_operator(m, n, ks, data, storage_dtype=sd),
-         lt.dia_operator(m, n, ks, data, storage_dtype=sd)),
+         lt.dia_operator(m, n, ks, data, storage_dtype=sd, device=DEV)),
         (dia_operator_device(m, n, ks, jnp.asarray(data), storage_dtype=sd),
          lt.dia_operator_device(m, n, ks, _t(data), storage_dtype=sd)),
     ):
@@ -200,7 +201,7 @@ def test_shared_bf16_twins_match_pallas(rng, kernel):
     m, n, ks = 500, 300, (-4, 0, 3)
     data = rng.standard_normal((len(ks), m)).astype(np.float32)
     Aj = lj.dia_shared_operator(m, n, ks, data, storage_dtype="bfloat16")
-    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16)
+    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16, device=DEV)
     assert _bits(At.dp) == _bits(Aj.dp)
     v = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
@@ -248,7 +249,7 @@ def test_forced_modes_on_packed_f32_match_jax(rng, problem, mode):
     kw = dict(atol=1e-6, btol=1e-6, **extra)
     kw.update(pair=True) if mode == "pair" else kw.update(fused=True, pair=False)
     rj = lj.lsqr(lj.dia_operator(m, n, ks, data), b, damp, **kw)
-    rt = lt.lsqr(lt.dia_operator(m, n, ks, data), b, damp, **kw)
+    rt = lt.lsqr(lt.dia_operator(m, n, ks, data, device=DEV), b, damp, **kw)
     assert rt.x.dtype == torch.float32
     assert int(rt.istop) == int(rj.istop)
     assert abs(int(rt.itn) - int(rj.itn)) <= 2
@@ -264,7 +265,7 @@ def test_f64_banded_through_auto_operator_matches_jax(rng, damp):
     vals, rows, cols = banded_triplets(data, ks, n)
     b = rng.standard_normal(m)
     Aj = lj.auto_operator(m, n, vals, rows, cols)
-    At = lt.auto_operator(m, n, vals, rows, cols)
+    At = lt.auto_operator(m, n, vals, rows, cols, device=DEV)
     assert isinstance(At, lt.DIAOperator) and type(Aj).__name__ == "DIAOperator"
     kw = dict(atol=1e-10, btol=1e-10, wantse=True)
     rj, rt = lj.lsqr(Aj, b, damp, **kw), lt.lsqr(At, b, damp, **kw)
@@ -280,7 +281,7 @@ def test_f64_banded_through_auto_operator_matches_jax(rng, damp):
 def test_f64_forced_modes_stay_exact(rng):
     m, n, ks = 600, 500, (-1, 0, 2)
     data, dense = banded(rng, m, n, ks, np.float64)
-    At = lt.dia_operator(m, n, ks, data)
+    At = lt.dia_operator(m, n, ks, data, device=DEV)
     v, y = rng.standard_normal(n), rng.standard_normal(m)
     c1, c2 = torch.tensor(0.3, dtype=torch.float64), torch.tensor(1.7, dtype=torch.float64)
     u_ref = dense @ (v * 0.3) - 1.7 * y
@@ -303,7 +304,7 @@ def test_bf16_packed_solve_matches_jax():
     x_true = rng.standard_normal(m).astype(np.float32)
     b = np.asarray(lj.dia_operator(m, m, ks, data).matvec(jnp.asarray(x_true)))
     Aj = lj.dia_operator(m, m, ks, data, storage_dtype="bfloat16")
-    At = lt.dia_operator(m, m, ks, data, storage_dtype=torch.bfloat16)
+    At = lt.dia_operator(m, m, ks, data, storage_dtype=torch.bfloat16, device=DEV)
     assert At.is_bf16_storage and At.dtype == torch.float32
     rj = lj.lsqr(Aj, b, atol=1e-6, btol=1e-6)
     rt = lt.lsqr(At, b, atol=1e-6, btol=1e-6)
@@ -327,7 +328,7 @@ def _scipy_banded(rng, m=400, n=300, ks=(-3, 0, 2, 7)):
 def test_from_scipy_matches_jax(rng, fmt):
     S, dense = _scipy_banded(rng)
     Aj = lj.from_scipy(S, format=fmt)
-    At = lt.from_scipy(S, format=fmt)
+    At = lt.from_scipy(S, format=fmt, device=DEV)
     assert type(At).__name__ == type(Aj).__name__
     assert type(At).__name__ == {"coo": "COOOperator"}.get(fmt, "DIAOperator")
     x, y = rng.standard_normal(S.shape[1]), rng.standard_normal(S.shape[0])
@@ -338,15 +339,19 @@ def test_from_scipy_matches_jax(rng, fmt):
 
 def test_from_scipy_unported_formats_raise(rng):
     S, _ = _scipy_banded(rng)
-    for fmt in ("ell", "block"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            lt.from_scipy(S, format=fmt)
+    # "ell" and "block" are ported since the general-sparsity slice; this
+    # thin band is not blocky, which both packages refuse for "block"
+    assert type(lt.from_scipy(S, format="ell", device=DEV)).__name__ == \
+        type(lj.from_scipy(S, format="ell")).__name__ == "ELLOperator"
+    for pkg, kw in ((lj, {}), (lt, dict(device=DEV))):
+        with pytest.raises(ValueError, match="not blocky"):
+            pkg.from_scipy(S, format="block", **kw)
     with pytest.raises(ValueError, match="unknown format"):
-        lt.from_scipy(S, format="csr")
+        lt.from_scipy(S, format="csr", device=DEV)
     with pytest.raises(TypeError):
-        lt.from_scipy(S.toarray())
+        lt.from_scipy(S.toarray(), device=DEV)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        lt.from_scipy(S.astype(np.complex128), format="dia")
+        lt.from_scipy(S.astype(np.complex128), format="dia", device=DEV)
 
 
 @pytest.mark.parametrize("gen", ["banded_dia", "banded_problem", "random_coo_problem",
@@ -354,16 +359,16 @@ def test_from_scipy_unported_formats_raise(rng):
 def test_synthetic_generators_match_jax(gen):
     if gen == "banded_dia":
         Aj = jsyn.banded_dia(500, 400, (-2, 0, 3), seed=3)
-        At = lt.banded_dia(500, 400, (-2, 0, 3), seed=3)
+        At = lt.banded_dia(500, 400, (-2, 0, 3), seed=3, device=DEV)
         assert _bits(At.data) == _bits(Aj.data) and _bits(At.tdata) == _bits(Aj.tdata)
     elif gen == "banded_problem":
         (Aj, bj, nj), (At, bt, nt) = (jsyn.banded_problem(600, 500, 2, seed=4),
-                                      lt.banded_problem(600, 500, 2, seed=4))
+                                      lt.banded_problem(600, 500, 2, seed=4, device=DEV))
         assert nt == nj and isinstance(At, lt.DIAOperator)
         assert _bits(At.data) == _bits(Aj.data) and _bits(bt) == _bits(bj)
     elif gen == "random_coo_problem":
         (Aj, bj), (At, bt) = (jsyn.random_coo_problem(80, 60, 300, seed=5),
-                              lt.random_coo_problem(80, 60, 300, seed=5))
+                              lt.random_coo_problem(80, 60, 300, seed=5, device=DEV))
         assert _bits(At.vals) == _bits(Aj.vals) and _bits(bt) == _bits(bj)
         np.testing.assert_array_equal(to_np(At.rows), np.asarray(Aj.rows))
         np.testing.assert_array_equal(to_np(At.cols), np.asarray(Aj.cols))
@@ -382,7 +387,7 @@ def test_operator_from_arrays_round_trips_packed(rng, storage):
     Aj = lj.dia_operator(m, n, ks, data, storage_dtype=storage)
     At = lt.operator_from_arrays(
         "dia", {"data": np.asarray(Aj.data), "tdata": np.asarray(Aj.tdata)},
-        {"m": m, "n": n, "offsets": Aj.offsets})
+        {"m": m, "n": n, "offsets": Aj.offsets}, device=DEV)
     assert isinstance(At, lt.DIAOperator) and At.dtype == torch.float32
     assert At.is_bf16_storage == (storage is not None)
     assert _bits(At.data) == _bits(Aj.data) and _bits(At.tdata) == _bits(Aj.tdata)
@@ -423,7 +428,7 @@ def test_megakernel_on_packed_raises_naming_item_13(rng):
     # raises ValueError only where the configuration is unsupported
     data, _, At = _packed(rng, 100, 100, (-1, 0, 1))
     data[1] += 6.0
-    At = lt.dia_operator(100, 100, (-1, 0, 1), data)
+    At = lt.dia_operator(100, 100, (-1, 0, 1), data, device=DEV)
     b = np.ones(100, np.float32)
     res = lt.lsqr(At, b, megakernel=True, atol=1e-6, btol=1e-6)
     ref = lt.lsqr(At, b, atol=1e-6, btol=1e-6)
@@ -431,7 +436,7 @@ def test_megakernel_on_packed_raises_naming_item_13(rng):
     with pytest.raises(ValueError, match="megakernel=True requires"):
         lt.lsqr(At, b, megakernel=True, record_trace=True)
     with pytest.raises(ValueError, match="megakernel=True requires"):
-        lt.lsqr(lt.dia_shared_operator(100, 100, (-1, 0, 1), data), b, megakernel=True)
+        lt.lsqr(lt.dia_shared_operator(100, 100, (-1, 0, 1), data, device=DEV), b, megakernel=True)
 
 
 @pytest.mark.parametrize("m,n", FUSED_SHAPES)

@@ -15,7 +15,7 @@ from lsqr_tpu.ops import pallas_spmv as jspmv
 from lsqr_tpu.ops.structured import dia_shared_operator as j_shared
 from lsqr_tpu_torch.ops import spmv
 
-from _torch_parity import banded, banded_triplets, rel_err, shared_to_torch, to_np
+from _torch_parity import DEV, banded, banded_triplets, rel_err, shared_to_torch, to_np
 
 # tests/test_dia_shared.py CASES: square, wide, tall, ragged single diagonal
 CASES = [
@@ -55,7 +55,7 @@ def test_geometry_matches_jax(m, n, ks):
 def test_stripes_byte_equal_to_jax(rng, m, n, ks):
     data = rng.standard_normal((len(ks), m)).astype(np.float32)
     Aj = j_shared(m, n, ks, data)
-    At = lt.dia_shared_operator(m, n, ks, data)
+    At = lt.dia_shared_operator(m, n, ks, data, device=DEV)
     assert At.H == Aj.H and At.offsets == Aj.offsets
     assert to_np(At.dp).dtype == np.float32
     assert to_np(At.dp).tobytes() == np.asarray(Aj.dp).tobytes()
@@ -164,7 +164,7 @@ def test_bf16_storage_on_cpu_matches_jax(rng):
     m, n, ks = 500, 300, (-4, 0, 3)
     data = rng.standard_normal((3, m)).astype(np.float32)
     Aj = j_shared(m, n, ks, data, storage_dtype="bfloat16")
-    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16)
+    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=torch.bfloat16, device=DEV)
     assert At.is_bf16_storage and At.dtype == torch.float32
     assert to_np(At.dp.view(torch.int16)).tobytes() == np.asarray(Aj.dp).tobytes()
     x = rng.standard_normal(n).astype(np.float32)
@@ -200,29 +200,37 @@ def test_auto_operator_routes_banded_like_jax(rng):
     data, _ = banded(rng, m, n, ks, np.float32)
     vals, rows, cols = banded_triplets(data, ks, n)
     Aj = lj.auto_operator(m, n, vals, rows, cols)
-    At = lt.auto_operator(m, n, vals, rows, cols)
+    At = lt.auto_operator(m, n, vals, rows, cols, device=DEV)
     assert type(Aj).__name__ == type(At).__name__ == "DIASharedOperator"
     assert to_np(At.dp).tobytes() == np.asarray(Aj.dp).tobytes()
     # f64: the packed DIA layout, as in JAX
     vals64 = vals.astype(np.float64)
     A64j = lj.auto_operator(m, n, vals64, rows, cols)
-    A64t = lt.auto_operator(m, n, vals64, rows, cols)
+    A64t = lt.auto_operator(m, n, vals64, rows, cols, device=DEV)
     assert type(A64j).__name__ == type(A64t).__name__ == "DIAOperator"
     assert A64t.dtype == torch.float64 and A64t.offsets == A64j.offsets
     assert to_np(A64t.data).tobytes() == np.asarray(A64j.data).tobytes()
     assert to_np(A64t.tdata).tobytes() == np.asarray(A64j.tdata).tobytes()
     # compact=True: the shared layout for f64 too
     Acj = lj.auto_operator(m, n, vals64, rows, cols, compact=True)
-    Act = lt.auto_operator(m, n, vals64, rows, cols, compact=True)
+    Act = lt.auto_operator(m, n, vals64, rows, cols, compact=True, device=DEV)
     assert type(Acj).__name__ == type(Act).__name__ == "DIASharedOperator"
     assert to_np(Act.dp).tobytes() == np.asarray(Acj.dp).tobytes()
 
 
 def test_auto_operator_empty_and_unported_patterns(rng):
-    empty = lt.auto_operator(4, 3, np.zeros(0), np.zeros(0, int), np.zeros(0, int))
+    empty = lt.auto_operator(4, 3, np.zeros(0), np.zeros(0, int), np.zeros(0, int), device=DEV)
     assert isinstance(empty, lt.COOOperator) and empty.nnz == 0
     rows, cols = rng.integers(0, 200, 300), rng.integers(0, 200, 300)
+    vals = rng.standard_normal(300)
+    # an unstructured pattern: the same operator in both packages since the
+    # general slice (one 8192-row tile: JDIA's 16 slots take it)
+    assert type(lt.auto_operator(200, 200, vals, rows, cols, device=DEV)).__name__ == \
+        type(lj.auto_operator(200, 200, vals, rows, cols)).__name__
+    # a tall unstructured f32 one takes JAX's WCOO, not ported yet
+    rows, cols = rng.integers(0, 16384, 40000), rng.integers(0, 2048, 40000)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        lt.auto_operator(200, 200, rng.standard_normal(300), rows, cols)
+        lt.auto_operator(16384, 2048, rng.standard_normal(40000).astype(np.float32), rows,
+                         cols, device=DEV)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        lt.auto_operator(3, 3, np.array([1j]), np.array([0]), np.array([0]))
+        lt.auto_operator(3, 3, np.array([1j]), np.array([0]), np.array([0]), device=DEV)

@@ -27,7 +27,7 @@ from lsqr_tpu_torch.ops import megakernel_craig as tmk_craig
 from lsqr_tpu_torch.ops import megakernel_lsmr as tmk_lsmr
 from lsqr_tpu_torch.ops import spmv
 
-from _torch_parity import PORT_DIR, rel_err, to_np
+from _torch_parity import DEV, PORT_DIR, rel_err, to_np
 
 OFFS = (-3, -1, 0, 2, 5)
 SOLVERS = {  # name: (JAX megakernel, port megakernel, JAX regular, port regular)
@@ -43,7 +43,7 @@ def _problem(seed, m, n, boost, offs=OFFS, consistent=False, storage=None):
     stripes = rng.standard_normal((len(offs), m)).astype(np.float32)
     stripes[offs.index(0) if 0 in offs else 0] += boost
     Aj = lj.dia_operator(m, n, offs, stripes, use_pallas=False, storage_dtype=storage)
-    At = lt.dia_operator(m, n, offs, stripes, storage_dtype=storage)
+    At = lt.dia_operator(m, n, offs, stripes, storage_dtype=storage, device=DEV)
     if consistent:
         z = rng.standard_normal(n).astype(np.float32)
         b = np.asarray(Aj.matvec(jnp.asarray(z)))
@@ -195,9 +195,9 @@ def test_megakernel_supported_gates():
     assert not lt.lsmr_megakernel_supported(At, record_trace=True)
     # as in JAX: f64 stripes, other layouts and other operators are refused
     data = to_np(At.data).astype(np.float64)
-    others = [lt.dia_operator(2048, 2048, OFFS, data),
-              lt.dia_shared_operator(2048, 2048, OFFS, to_np(At.data)),
-              lt.as_operator(np.eye(4, dtype=np.float32))]
+    others = [lt.dia_operator(2048, 2048, OFFS, data, device=DEV),
+              lt.dia_shared_operator(2048, 2048, OFFS, to_np(At.data), device=DEV),
+              lt.as_operator(np.eye(4, dtype=np.float32), device=DEV)]
     for op in others:
         assert not any(gate(op) for gate in gates)
     assert jmk.megakernel_supported(Aj) and jmk_lsmr.lsmr_megakernel_supported(Aj)
@@ -218,7 +218,7 @@ def test_megakernel_option_routing():
         for off in (None, False):
             assert torch.equal(fn(At, rhs, megakernel=off, **kw).x, regular.x)
         _same(routed, regular)
-    shared = lt.dia_shared_operator(2048, 2048, OFFS, to_np(At.data))
+    shared = lt.dia_shared_operator(2048, 2048, OFFS, to_np(At.data), device=DEV)
     for call in (lambda: lt.lsqr(At, b, megakernel=True, record_trace=True),
                  lambda: lt.lsqr(At, b, megakernel=True, wantse=True),
                  lambda: lt.lsqr(At, b.astype(np.float64), megakernel=True),

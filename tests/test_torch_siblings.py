@@ -19,7 +19,7 @@ import torch
 import lsqr_tpu as lj
 import lsqr_tpu_torch as lt
 
-from _torch_parity import banded, banded_triplets, rel_err, to_np
+from _torch_parity import DEV, banded, banded_triplets, rel_err, to_np
 
 KS = (-2, -1, 0, 1, 3)
 #: per solver: (m, n, damp, keyword arguments); CRAIG gets a consistent b
@@ -31,10 +31,12 @@ CASES = {
 
 
 def _build(layout, pkg, m, n, data):
+    kw = dict(device=DEV) if pkg is lt else {}
     if layout == "coo":
         vals, rows, cols = banded_triplets(data, KS, n)
-        return pkg.coo_operator(m, n, vals, rows, cols)
-    return (pkg.dia_operator if layout == "dia" else pkg.dia_shared_operator)(m, n, KS, data)
+        return pkg.coo_operator(m, n, vals, rows, cols, **kw)
+    return (pkg.dia_operator if layout == "dia" else pkg.dia_shared_operator)(m, n, KS, data,
+                                                                             **kw)
 
 
 def _solve(pkg, solver, A, b, damp, **kw):
@@ -106,7 +108,7 @@ def _scipy_problem(m, n, seed):
     rows, cols, vals = rows[first], cols[first], vals[first]
     b = rng.standard_normal(m)
     S = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    return lt.coo_operator(m, n, vals, rows, cols), S, b
+    return lt.coo_operator(m, n, vals, rows, cols, device=DEV), S, b
 
 
 @pytest.mark.parametrize("m,n,damp", [(300, 120, 0.0), (200, 200, 0.0), (120, 300, 0.0),
@@ -169,7 +171,7 @@ def test_siblings_zero_rhs_and_warm_start_match_jax(rng, solver):
 
 
 def test_siblings_refuse_what_they_do_not_take(rng):
-    A = lt.coo_operator(3, 3, np.ones(3, np.float32), np.arange(3), np.arange(3))
+    A = lt.coo_operator(3, 3, np.ones(3, np.float32), np.arange(3), np.arange(3), device=DEV)
     b = np.ones(3, np.float32)
     for fn in (lt.lsmr, lt.craig, lt.cgls):
         with pytest.raises(ValueError, match="fused_pair"):
@@ -189,14 +191,14 @@ def test_craig_breakdown_and_cgls_divergence_guard_match_jax(rng):
     data[0, :2] = 1.0
     b = np.array([0.0, 0.0, 1.0, 1.0])
     rj = lj.craig(lj.dia_operator(4, 4, (0,), data), b)
-    rt = lt.craig(lt.dia_operator(4, 4, (0,), data), b)
+    rt = lt.craig(lt.dia_operator(4, 4, (0,), data, device=DEV), b)
     assert int(rt.istop) == int(rj.istop) == 4 and int(rt.itn) == int(rj.itn) == 0
     # CGLS run past convergence in f32 with zero tolerances: the same
     # istop and iterate as JAX
     m, n, damp, kw, data, b = _problem(rng, "cgls", np.float32)
     kw = dict(atol=0.0, btol=0.0, itnlim=200)
     rj = lj.cgls(lj.dia_operator(m, n, KS, data), b, damp, **kw)
-    rt = lt.cgls(lt.dia_operator(m, n, KS, data), b, damp, **kw)
+    rt = lt.cgls(lt.dia_operator(m, n, KS, data, device=DEV), b, damp, **kw)
     assert int(rt.istop) == int(rj.istop)
     assert rel_err(rt.x, rj.x) < 1e-4
 

@@ -15,7 +15,7 @@ import lsqr_tpu_torch as lt
 from lsqr_tpu.models.paige_saunders import lstp as j_lstp
 from lsqr_tpu_torch.models.paige_saunders import PaigeSaundersOperator
 
-from _torch_parity import banded, banded_triplets, rel_err, shared_to_torch, to_np
+from _torch_parity import DEV, banded, banded_triplets, rel_err, shared_to_torch, to_np
 
 CONFIGS = list(lt.suite_configs())
 
@@ -66,7 +66,7 @@ def test_paige_saunders_suite_matches_jax(m, n, nduplc, npower, damp):
 @pytest.mark.parametrize("m,n", [(80, 60), (40, 70)])
 def test_lstp_generator_matches_jax(m, n):
     pj = j_lstp(m, n, 10, 3, 1e-3)
-    pt = lt.lstp(m, n, 10, 3, 1e-3, dtype=torch.float64)
+    pt = lt.lstp(m, n, 10, 3, 1e-3, dtype=torch.float64, device=DEV)
     for f in ("b", "x_true", "acond", "rnorm"):
         np.testing.assert_allclose(to_np(getattr(pt, f)), np.asarray(getattr(pj, f)),
                                    rtol=1e-12, atol=1e-12, err_msg=f)
@@ -84,7 +84,7 @@ A34 = ([4.1, 1.1, 11.1, 5.1, -3.1, 3.1, 66.1, 8.1, -87.1, 0.1, -9.1, 2.1],
 @pytest.mark.parametrize("m,n,coo", [(3, 3, A3), (3, 4, A34)], ids=["3x3", "3x4"])
 def test_ez_solver_matches_jax(m, n, coo):
     rj = lj.LSQRSolver(m, n, *coo).solve([1.0, 2.0, 3.0])
-    solver = lt.LSQRSolver(m, n, *coo)
+    solver = lt.LSQRSolver(m, n, *coo, device=DEV)
     rt = solver.solve([1.0, 2.0, 3.0])
     assert int(rt.istop) == 1
     _same_result(rj, rt)
@@ -100,11 +100,11 @@ def test_ez_solver_matches_jax(m, n, coo):
 
 
 def test_ez_zero_rhs_and_validation():
-    rt = lt.LSQRSolver(3, 3, *A3).solve([0.0, 0.0, 0.0])
+    rt = lt.LSQRSolver(3, 3, *A3, device=DEV).solve([0.0, 0.0, 0.0])
     assert int(rt.istop) == 0 and int(rt.itn) == 0 and not to_np(rt.x).any()
     assert rt.istop_message == lt.ISTOP_MESSAGES[0]
     with pytest.raises(ValueError):
-        lt.LSQRSolver(m=2, n=3, a=[1.0], irow=[2], icol=[0])
+        lt.LSQRSolver(m=2, n=3, a=[1.0], irow=[2], icol=[0], device=DEV)
 
 
 def _diag(v):
@@ -141,7 +141,8 @@ def _istop_cases(rng):
 def test_istop_paths_match_jax(case):
     (kind, a), b, damp, kw = _istop_cases(np.random.default_rng(0))[case]
     if kind == "coo":
-        Aj, At = lj.coo_operator(len(b), len(b), *a), lt.coo_operator(len(b), len(b), *a)
+        Aj = lj.coo_operator(len(b), len(b), *a)
+        At = lt.coo_operator(len(b), len(b), *a, device=DEV)
     else:
         Aj, At = lj.DenseOperator(jnp.asarray(a)), lt.DenseOperator(torch.from_numpy(a))
     rj = lj.lsqr(Aj, b, damp, **kw)
@@ -228,7 +229,7 @@ def test_banded_slice_end_to_end_matches_jax(rng):
     vals, rows, cols = banded_triplets(data, ks, n)
     b = rng.standard_normal(m).astype(np.float32)
     Aj = lj.auto_operator(m, n, vals, rows, cols)
-    At = lt.auto_operator(m, n, vals, rows, cols)
+    At = lt.auto_operator(m, n, vals, rows, cols, device=DEV)
     assert type(At).__name__ == type(Aj).__name__
     rj = lj.lsqr(Aj, b, 0.01, atol=1e-6, btol=1e-6)
     rt = lt.lsqr(At, b, 0.01, atol=1e-6, btol=1e-6)
@@ -248,7 +249,7 @@ def test_dtype_follows_inputs(rng):
 
 
 def test_deferred_options_raise():
-    A = lt.as_operator(np.eye(3))
+    A = lt.as_operator(np.eye(3), device=DEV)
     b = np.ones(3)
     with pytest.raises(NotImplementedError, match="item 8"):
         lt.lsqr(A, b, debug_log=True)
@@ -260,4 +261,4 @@ def test_deferred_options_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         lt.lsqr(A, b.astype(np.complex128))
     with pytest.raises(ValueError, match="fused_pair"):
-        lt.lsqr(lt.coo_operator(3, 3, *_diag([1.0, 2.0, 3.0])), b, pair=True)
+        lt.lsqr(lt.coo_operator(3, 3, *_diag([1.0, 2.0, 3.0]), device=DEV), b, pair=True)
