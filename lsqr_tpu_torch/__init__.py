@@ -8,14 +8,15 @@ storage), ``auto_operator`` for banded patterns, ``from_scipy``,
 ``acheck``/``xcheck``, the Paige–Saunders and synthetic problems,
 ``LSQRSolver``, the sibling solvers ``lsmr``, ``craig`` and ``cgls``, the
 three iteration megakernels (``megakernel=True``), and the general-sparsity
-path: JDIA, ELL, HYB, BlockELL, ``csr_operator``, ``auto_operator``'s steps
-2, 4 and 5 and the reordering planner (``plan_general``,
-``solve_general``). The DIA products on CUDA run through seven kernels
-written by hand for Hopper (``csrc/dia_shared.cu``, ``csrc/dia_packed.cu``),
-the megakernels through three persistent cooperative kernels
-(``csrc/megakernel.cu``), the JDIA and BlockELL products through four more
-(``csrc/jdia.cu``, ``csrc/block_ell.cu``), all built with ``nvcc`` at first
-use. The host packer (``native/sparse_pack.cpp``) builds with ``g++``.
+path: JDIA, ELL, HYB, BlockELL, WCOO, WWCOO, RWCOO, ``csr_operator``, all
+five steps of ``auto_operator`` and the reordering planner
+(``plan_general``, ``solve_general``). The DIA products on CUDA run through
+seven kernels written by hand for Hopper (``csrc/dia_shared.cu``,
+``csrc/dia_packed.cu``), the megakernels through three persistent
+cooperative kernels (``csrc/megakernel.cu``), the JDIA and BlockELL
+products through four more (``csrc/jdia.cu``, ``csrc/block_ell.cu``), and
+the WCOO and WWCOO products through three wrappers each (``csrc/wcoo.cu``,
+``csrc/wwcoo.cu``), all built with ``nvcc`` at first use. The host packer (``native/sparse_pack.cpp``) builds with ``g++``.
 
 Builders put what they build on the card unless given ``device=`` (see
 :func:`~lsqr_tpu_torch.config.resolve_device`).
@@ -32,7 +33,7 @@ from .lsmr import LSMR_ISTOP_MESSAGES, LSMRResult, lsmr
 from .models.paige_saunders import PaigeSaundersOperator, lstp, suite_configs
 from .models.synthetic import (banded_dia, banded_problem, block_banded_coo,
                                jittered_band_coo, random_block_coo, random_coo_problem,
-                               zipf_coo)
+                               zipf_column_coo, zipf_coo)
 from .ops.compose import SumOperator, add_operators
 from .ops.convert import operator_from_arrays, result_to_numpy
 from .ops.coo import COOOperator, coo_operator
@@ -43,10 +44,13 @@ from .ops.megakernel import lsqr_megakernel, megakernel_supported
 from .ops.megakernel_craig import craig_megakernel, craig_megakernel_supported
 from .ops.megakernel_lsmr import lsmr_megakernel, lsmr_megakernel_supported
 from .ops.reorder import GeneralPlan, bandwidth_orders, plan_general, solve_general
+from .ops.rwcoo import RWCOOOperator, rwcoo_operator
 from .ops.structured import (BlockELLOperator, DIAOperator, DIASharedOperator,
                              ELLOperator, block_ell_operator, dia_operator,
                              dia_operator_device, dia_shared_operator, ell_operator,
                              hyb_operator)
+from .ops.wcoo import WCOOOperator, wcoo_operator
+from .ops.wwcoo import WWCOOOperator, wwcoo_operator
 from .solver import ISTOP_MESSAGES, TRACE_COLUMNS, LSQRResult, lsqr
 
 __version__ = "0.1.0"
@@ -95,6 +99,12 @@ __all__ = [
     "hyb_operator",
     "BlockELLOperator",
     "block_ell_operator",
+    "WCOOOperator",
+    "wcoo_operator",
+    "WWCOOOperator",
+    "wwcoo_operator",
+    "RWCOOOperator",
+    "rwcoo_operator",
     "SumOperator",
     "add_operators",
     "auto_operator",
@@ -114,6 +124,7 @@ __all__ = [
     "jittered_band_coo",
     "random_block_coo",
     "zipf_coo",
+    "zipf_column_coo",
     "operator_from_arrays",
     "result_to_numpy",
     "default_dtype",

@@ -18,7 +18,7 @@ from ..ops.coo import COOOperator, coo_operator
 from ..ops.structured import DIAOperator, dia_operator
 
 __all__ = ["banded_problem", "random_coo_problem", "banded_dia", "block_banded_coo",
-           "jittered_band_coo", "random_block_coo", "zipf_coo"]
+           "jittered_band_coo", "random_block_coo", "zipf_coo", "zipf_column_coo"]
 
 
 def banded_dia(m, n, offsets: Sequence[int], *, seed=0, dtype=np.float32,
@@ -163,3 +163,20 @@ def zipf_coo(m, n, *, exponent=2.0, cap=2048, diag=8.0, seed=0, dtype=np.float32
     vals = (rng.standard_normal(rows.size) / np.sqrt(lengths[rows])).astype(dtype)
     vals, rows, cols = _first(vals, rows, cols, n)
     return _add_diagonal(vals, rows, cols, m, n, diag)
+
+
+def zipf_column_coo(m, n, nnz, *, exponent=1.1, seed=0):
+    """Unstructured sparsity with a power-law column popularity, the WCOO
+    and RWCOO benchmark pattern of the JAX package's ``bench.py``:
+    ``nnz`` entries at Zipf(``exponent``) columns (shifted to start at 0,
+    draws at n and beyond dropped), sorted uniform rows, N(0, 1) f32
+    values; duplicates kept (the products sum them). Where fewer than
+    ``nnz`` of 3 * nnz column draws fall below n, the rows and values are
+    cut to the columns drawn. Returns numpy (vals, rows, cols), int64
+    indices."""
+    rng = np.random.default_rng(seed)
+    cols = rng.zipf(exponent, size=3 * nnz) - 1
+    cols = cols[cols < n][:nnz].astype(np.int64)
+    rows = np.sort(rng.integers(0, m, nnz).astype(np.int64))
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return vals[:cols.size], rows[:cols.size], cols

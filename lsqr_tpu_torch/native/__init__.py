@@ -1,9 +1,9 @@
 """The host packer: ctypes bindings over ``native/sparse_pack.cpp``.
 
 This package's own copy of the JAX package's host runtime (the C++ source
-is the same file). It packs COO triplets into the ELL, blocked-ELL, CSR and
-JDIA layouts on the host, in numpy arrays, before the operators move them
-to their device once.
+is the same file). It packs COO triplets into the ELL, blocked-ELL, CSR,
+JDIA and WCOO layouts on the host, in numpy arrays, before the operators
+move them to their device once.
 
 The library builds with ``g++`` at first use into ``build/lsqr_tpu_torch/``
 under the repository root, named by a hash of the source and flags (as
@@ -31,6 +31,7 @@ __all__ = [
     "block_pack",
     "coo_dedup",
     "jdia_assign",
+    "wcoo_pack_chunks",
 ]
 
 _SRC = Path(__file__).resolve().parent / "sparse_pack.cpp"
@@ -102,6 +103,11 @@ def _declare(lib):
         fn.restype = None
         fn.argtypes = [i64p, i64p, fp, i64, i64, i32, i32, i32, i32p, i64p, i32p,
                        fp, i8p]
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.lsqr_wcoo_pack.restype = i64
+    lib.lsqr_wcoo_pack.argtypes = [i64p, i64p, f32p, i64, i64, i64, i64, i32, i32, i32,
+                                   f32p, i32p, i32p, f32p, i32p, i32p, i32p, i32p, i32p,
+                                   i64p]
 
 
 def available() -> bool:
@@ -295,3 +301,52 @@ def jdia_assign(rows, deltas, vals, m_pad, tm, ns_max, jitter):
         rows, deltas, vals, np.int64(nnz), np.int64(m_pad), np.int32(tm),
         np.int32(ns_max), np.int32(jitter), assign_slot, slot_d, slot_used, data, eoff)
     return assign_slot, slot_d.reshape(nt, ns_max), slot_used, data, eoff
+
+
+# ---------------------------------------------------------------------------
+# WCOO chunk packing
+# ---------------------------------------------------------------------------
+
+
+def wcoo_pack_chunks(rows, cols, vals, nc, emax, npad, cr, ku_max, kb_max):
+    """The per-chunk loop of :func:`lsqr_tpu_torch.ops.wcoo.wcoo_pack`:
+    bucket by chunk, stable (row, col) sort and every per-chunk table,
+    thread-parallel over chunks and bit-identical to the numpy loop there.
+    Returns the dict of arrays plus ``kb_req`` and ``ku_req``, or None
+    without the library (the caller then runs the numpy loop). Raises
+    ValueError with the numpy loop's messages where a window bound fails."""
+    lib = _lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    vals = np.ascontiguousarray(vals, np.float32)
+    eb = emax // 1024
+    out = dict(
+        vals_p=np.zeros((nc, emax), np.float32),
+        col_p=np.zeros((nc, emax), np.int32),
+        rowl_p=np.zeros((nc, emax), np.int32),
+        vals_r=np.zeros((nc, emax), np.float32),
+        col_r=np.zeros((nc, emax), np.int32),
+        ep=np.zeros((nc, eb * npad), np.int32),
+        gpe=np.zeros((nc, cr), np.int32),
+        ugb=np.zeros((nc, 1, eb), np.int32),
+        bnb=np.zeros((nc, 1, cr // 128), np.int32),
+    )
+    err = np.zeros(3, np.int64)
+    rc = int(lib.lsqr_wcoo_pack(
+        rows, cols, vals, len(rows), nc, emax, npad, np.int32(cr), np.int32(ku_max),
+        np.int32(kb_max), out["vals_p"], out["col_p"], out["rowl_p"], out["vals_r"],
+        out["col_r"], out["ep"], out["gpe"].reshape(-1), out["ugb"].reshape(-1),
+        out["bnb"].reshape(-1), err))
+    if rc == -1:
+        raise ValueError(
+            f"row span {int(err[2])} in one entry subtile exceeds {ku_max} 128-row "
+            f"u-window slices (chunk {int(err[0])}, subtile {int(err[1])})")
+    if rc == -2:
+        raise ValueError(
+            f"entry span {int(err[2])} under 128 rows exceeds {kb_max} 1024-entry "
+            f"S-windows (chunk {int(err[0])}, rows {int(err[1])}..)")
+    out["kb_req"] = int(rc >> 16)
+    out["ku_req"] = int(rc & 0xFFFF)
+    return out

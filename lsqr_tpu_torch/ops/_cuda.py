@@ -67,6 +67,19 @@ _SIGNATURES = {
     # blocks, bcols, x, y, c1, c2, u, zp, mb, kb, bh, bw, nb, keep, stream
     "lsqr_block_ell_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P),
+    # csrc/wcoo.cu
+    # vals_r, col_r, gpe, x, n, y, y_len, c1, c2, u, m_pad, emax, stream
+    "lsqr_wcoo_forward_f32": (_P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _L, _I, _P),
+    # vals, idx, u, u_len, z, n, slots, emax, stream
+    "lsqr_wcoo_adjoint_f32": (_P, _P, _P, _L, _P, _I, _L, _I, _P),
+    # vals_r, col_r, gpe, vals, idx, x, n, y, y_len, c1, c2, u, z, m_pad, emax,
+    # stream
+    "lsqr_wcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _P, _L, _I, _P),
+    # csrc/wwcoo.cu: as csrc/wcoo.cu with (colmap, d_pad) after the index plane
+    "lsqr_wwcoo_forward_f32": (_P, _P, _P, _P, _I, _P, _I, _P, _L, _P, _P, _P, _L, _I, _P),
+    "lsqr_wwcoo_adjoint_f32": (_P, _P, _P, _I, _P, _L, _P, _I, _L, _I, _P),
+    "lsqr_wwcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _L, _P, _P, _P, _P, _L,
+                            _I, _P),
     # csrc/megakernel.cu
     # solver, bf16, dim, blocks (out)
     "lsqr_mk_grid": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
@@ -101,6 +114,12 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    """The headers the sources include (``#include "name.cuh"``): part of
+    the library's hash, not compiled on their own."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _compile(sources, out):
     """One ``nvcc -c`` per source, all started together, then one link;
     nvcc's output (``-Xptxas=-v``) goes to ``<library>.log``."""
@@ -133,7 +152,7 @@ def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     sources = _sources()
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -18,7 +18,12 @@ from .compose import add_operators
 from .coo import coo_operator
 from .jdia import from_packing
 from .linop import LinearOperator
+from .rwcoo import RWCOOOperator
 from .structured import BlockELLOperator, DIAOperator, DIASharedOperator, ELLOperator
+from .wcoo import WCOOOperator
+from .wcoo import packed_from_arrays as wcoo_packed
+from .wwcoo import WWCOOOperator
+from .wwcoo import packed_from_arrays as wwcoo_packed
 
 __all__ = ["operator_from_arrays", "result_to_numpy"]
 
@@ -53,9 +58,22 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
     kind "hyb": the ELL part's arrays as for "ell", and for a JAX
         ``SumOperator`` of ELL and COO also the COO part's as "coo_vals",
         "coo_rows", "coo_cols"; meta {"m", "n"}.
+    kind "wcoo": the arrays of a JAX ``WCOOOperator``'s ``packed`` (of which
+        "vals", "idx", "vals_r", "col_r" and "gpe" are read; the TPU tables
+        are not needed) and of its ``coo`` ("coo_vals", "coo_rows",
+        "coo_cols"); meta: the packing's static fields {"m", "n", "m_pad",
+        "nc", "eb", "xs", "kb", "ku"}.
+    kind "wwcoo": the same for a JAX ``WWCOOOperator`` (of its packing's
+        arrays "vals", "vals_r", "col_r", "colmap", "gpe" and "rowl" are
+        read; its thirteen static fields).
+    kind "rwcoo": a JAX ``RWCOOOperator``'s hot packing's arrays as
+        "hot_<name>", its cold packing's as "cold_<name>" (none when it has
+        no cold stream), "hotmap" and the "coo_*" triplets; meta {"n", "hot":
+        the hot packing's statics, "cold": the cold's or None}.
     Index arrays become int64 where the port indexes with them.
     """
-    kinds = ("dia_shared", "dia", "coo", "jdia", "ell", "block_ell", "hyb")
+    kinds = ("dia_shared", "dia", "coo", "jdia", "ell", "block_ell", "hyb", "wcoo", "wwcoo",
+             "rwcoo")
     if kind not in kinds:
         raise ValueError(f"unknown operator kind {kind!r} ({', '.join(kinds)})")
     if kind == "dia_shared":
@@ -72,6 +90,8 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
     if kind == "coo":
         return coo_operator(meta["m"], meta["n"], _tensor(arrays["vals"], device),
                             arrays["rows"], arrays["cols"])
+    if kind in ("wcoo", "wwcoo", "rwcoo"):
+        return _chunked(kind, arrays, meta, resolve_device(device))
     m, n = int(meta["m"]), int(meta["n"])
     if kind == "jdia":
         packing = dict(arrays, **{k: meta[k] for k in ("p_lo", "win", "tp_lo", "twin",
@@ -92,6 +112,27 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
         blocks=_tensor(arrays["blocks"], device), bcols=_tensor(arrays["bcols"], device),
         tblocks=_tensor(arrays["tblocks"], device), tbrows=_tensor(arrays["tbrows"], device),
         m=m, n=n)
+
+
+def _chunked(kind, arrays, meta, device):
+    """The WCOO, WWCOO or RWCOO operator over a JAX operator's arrays."""
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+    if kind == "rwcoo":
+        hot = wcoo_packed(part("hot_"), meta["hot"], device)
+        m, n = hot.m, int(meta["n"])
+    else:
+        m, n = int(meta["m"]), int(meta["n"])
+    coo = coo_operator(m, n, _tensor(arrays["coo_vals"], device), arrays["coo_rows"],
+                       arrays["coo_cols"])
+    if kind == "wcoo":
+        return WCOOOperator(packed=wcoo_packed(arrays, meta, device), coo=coo)
+    if kind == "wwcoo":
+        return WWCOOOperator(packed=wwcoo_packed(arrays, meta, device), coo=coo)
+    cold = None if meta["cold"] is None else wwcoo_packed(part("cold_"), meta["cold"], device)
+    return RWCOOOperator(hot=hot, hotmap=_tensor(arrays["hotmap"], device), cold=cold,
+                         coo=coo, n=n)
 
 
 def result_to_numpy(res) -> dict:

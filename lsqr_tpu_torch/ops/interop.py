@@ -10,14 +10,15 @@ the JAX package's steps in its order:
    ``DIAOperator`` for every other real dtype
 2. jitter-bounded diagonals (>= 95% slot fit)   -> JDIA
 3. unstructured f32, tall (m >= 16384), not blocky at (128, 128) (fill
-   ratio > 4x), n <= 262,144                    -> WCOO / RWCOO in JAX: not
-   ported yet, raises ``NotImplementedError`` (ROADMAP Queue 1 item 11b)
+   ratio > 4x):
+   4096 < n <= 262,144                          -> RWCOO (hot/cold routing)
+   n <= 4096                                    -> WCOO
+   where the packer refuses the pattern, on to 4 and 5
 4. blocky at (128, 128) (fill ratio <= 64x)     -> BlockELL
 5. otherwise                                    -> HYB (ELL + COO spill)
 
-Step 3 raises wherever JAX's gate holds: the port cannot tell whether
-JAX's WCOO/RWCOO packer would accept the pattern, and falling through to
-BlockELL or HYB would choose another operator than JAX. Complex matrices
+The WCOO and WWCOO packers keep JAX's refusals (TPU window and VMEM
+bounds), so each pattern lands on the operator JAX picks. Complex matrices
 raise ``NotImplementedError`` (ZDIA/ZJDIA, ROADMAP Queue 1 item 12).
 """
 
@@ -32,18 +33,13 @@ from ..config import as_dtype, resolve_device
 from .coo import coo_operator
 from .jdia import JDIAFixpointError, from_packing, pack_triplets
 from .linop import LinearOperator, placement, to_numpy
+from .rwcoo import rwcoo_operator
 from .structured import (block_ell_operator, dia_operator, dia_shared_operator,
                          ell_operator, hyb_operator)
+from .wcoo import WCOOPackError, wcoo_operator
+from .wwcoo import WWCOOPackError
 
 __all__ = ["auto_operator", "from_scipy", "csr_operator"]
-
-#: the message of step 3 (WCOO/RWCOO), which waits for its own slice
-STEP3_NOT_PORTED = (
-    "unstructured tall f32 patterns (m >= 16384, n <= 262,144, not blocky) take "
-    "JAX's WCOO/RWCOO operators, which are not ported yet (ROADMAP Queue 1 item "
-    "11b, the WCOO/WWCOO/RWCOO slice); build a COO operator with coo_operator "
-    "meanwhile"
-)
 
 
 def auto_operator(m, n, vals, rows, cols, *, dtype=None, device=None,
@@ -84,10 +80,15 @@ def auto_operator(m, n, vals, rows, cols, *, dtype=None, device=None,
     if packing is not None and 1.0 - len(packing["rem_vals"]) / max(nnz, 1) >= 0.95:
         return from_packing(packing, m, n, nnz, device)
 
-    # 3. WCOO / RWCOO in JAX
+    # 3. RWCOO for a wide n, WCOO for n <= 4096; a pattern the packers
+    # refuse goes on to the next steps, as in JAX
     if n <= 262_144 and m >= 16384 and eff == torch.float32 \
             and _block_fill_ratio(rows_np, cols_np, m, n) > 4.0:
-        raise NotImplementedError(STEP3_NOT_PORTED)
+        build = rwcoo_operator if n > 4096 else wcoo_operator
+        try:
+            return build(m, n, vals_np, rows_np, cols_np, dtype=dtype, device=device)
+        except (WCOOPackError, WWCOOPackError):
+            pass
 
     # 4. BlockELL; 5. HYB when the blocks would store more than 64x nnz
     try:

@@ -99,11 +99,8 @@ def plan_general(m, n, vals, rows, cols, *, reorder: Optional[bool] = None, dtyp
     a JDIA whose every entry fits, and otherwise packs both orders and keeps
     the better one, judged as JAX judges it: a JDIA operator by its slot-fit
     fraction, a packed ``DIAOperator`` as 1.5, anything else as 0 (so the
-    shared-stripe layout of an f32 banded pattern scores 0, as in JAX).
-    Where the original order takes JAX's WCOO/RWCOO route (not ported), it
-    scores 0 as it does there; the plan raises that route's
-    ``NotImplementedError`` only when the reordered operator does not win.
-    True/False force the choice."""
+    shared-stripe layout of an f32 banded pattern scores 0, as in JAX, and
+    so do WCOO and RWCOO). True/False force the choice."""
     from ..config import resolve_device
     from .interop import auto_operator
     from .jdia import JDIAOperator
@@ -130,19 +127,12 @@ def plan_general(m, n, vals, rows, cols, *, reorder: Optional[bool] = None, dtyp
             return op.fit_fraction
         return 1.5 if isinstance(op, DIAOperator) else 0.0
 
-    try:
-        plain = build(*ident)
-    except NotImplementedError as exc:
-        # JAX's WCOO/RWCOO (auto_operator step 3) scores 0 there too: the
-        # reordered operator still wins when it scores above 0
-        plain, not_ported = None, exc
-    if plain is not None and fitness(plain) >= 1.0:
+    plain = build(*ident)
+    if fitness(plain) >= 1.0:
         return GeneralPlan(plain, *ident, m, n)
     reordered = build(ro, co)
     if fitness(reordered) > fitness(plain):
         return GeneralPlan(reordered, ro, co, m, n)
-    if plain is None:
-        raise not_ported
     return GeneralPlan(plain, *ident, m, n)
 
 

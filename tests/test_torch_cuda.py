@@ -8,6 +8,8 @@ machine, without the suite's conftest (which imports JAX):
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -541,3 +543,125 @@ def test_cuda_f64_general_operators_take_the_twins(rng, cuda_device):
         assert op.dtype == torch.float64
         assert rel_err(op.matvec(x), op.todense() @ x) < 1e-12
     assert spmv.launch_counts() == _only()
+
+
+from lsqr_tpu_torch.models.synthetic import zipf_column_coo  # noqa: E402
+from lsqr_tpu_torch.ops import spmv_wcoo  # noqa: E402
+
+
+def _ragged_triplets(rng, m, n, nnz):
+    """Zipf columns with duplicates and a band of empty rows."""
+    vals, rows, cols = zipf_column_coo(m, n, nnz, seed=int(rng.integers(1 << 30)))
+    rows = np.where((rows > m // 3) & (rows < m // 3 + 500), rows - 500, rows)
+    rows[-200:], cols[-200:] = rows[:200], cols[:200]  # duplicates
+    return vals, rows, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,n,nnz", [
+    ("wcoo", 40_000, 300, 150_000),         # m not a multiple of CR, n of 128
+    ("wcoo", 16_384, 4096, 60_000),
+    ("rwcoo", 40_000, 30_001, 120_000),     # n not a multiple of 1024
+    ("rwcoo", 100_003, 12_345, 400_000),
+])
+def test_cuda_wcoo_kernels_match_twins(rng, cuda_device, kind, m, n, nnz):
+    vals, rows, cols = _ragged_triplets(rng, m, n, nnz)
+    build = lt.wcoo_operator if kind == "wcoo" else lt.rwcoo_operator
+    A = build(m, n, vals, rows, cols, device=cuda_device)
+    packings = [(A.packed, "wcoo")] if kind == "wcoo" else [(A.hot, "wcoo"), (A.cold, "wwcoo")]
+    c1 = torch.tensor(0.7, device=cuda_device)
+    spmv.reset_launch_counts()
+    for p, name in packings:
+        fwd, adj, pair = (getattr(spmv_wcoo, f"{name}_{s}") for s in ("forward", "adjoint",
+                                                                      "pair"))
+        plain = [getattr(spmv_wcoo, f"{name}_{s}_plain") for s in ("forward", "adjoint",
+                                                                   "pair")]
+        x = torch.randn(p.n, device=cuda_device)
+        y = torch.randn(m, device=cuda_device)
+        for c2 in (0.3, -1.0):
+            got, ref = fwd(p, x, c1, c2, y), plain[0](p, x, c1, c2, y)
+            torch.cuda.synchronize()
+            assert got.shape == (m,) and rel_err(got, ref) < TOL
+        got, ref = adj(p, y), plain[1](p, y)
+        torch.cuda.synchronize()
+        assert got.shape == (p.n,) and rel_err(got, ref) < 1e-4
+        (u, z), (u_ref, z_ref) = pair(p, y, x, c1, 0.3), plain[2](p, y, x, c1, 0.3)
+        torch.cuda.synchronize()
+        assert rel_err(u, u_ref) < TOL and rel_err(z, z_ref) < 1e-4
+    expect = {f"{name}_{s}": (2 if s == "forward" else 1) for _, name in packings
+              for s in ("forward", "adjoint", "pair")}
+    assert spmv.launch_counts() == _only(**expect)
+
+
+def _zero_subtile(p):
+    """A WCOO/WWCOO packing with one 1024-slot subtile's entries zeroed in
+    both copies: a tile the kernels never ran."""
+    t = p.nc // 2
+    vals, vals_r = p.vals.clone(), p.vals_r.clone()
+    vals[t, :1024], vals_r[t, :1024] = 0.0, 0.0
+    return dataclasses.replace(p, vals=vals, vals_r=vals_r)
+
+
+#: the card's solve against the CPU's, the damped objective relative: above
+#: every sound reading, below a zeroed subtile's (PERF.md, Findings)
+WCOO_OBJ_TOL = {"wcoo": 1e-8, "rwcoo": 3e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wcoo", "rwcoo"])
+def test_cuda_wcoo_solves_run_through_kernels(rng, cuda_device, kind, record_property):
+    """The pair path on the card against the separate products on the CPU.
+    On Zipf columns the f32 iterates depend on the summation order once
+    Golub-Kahan loses orthogonality, so x is held to the damped objective,
+    within a limit that three card solves (the adjoint's atomics vary them)
+    keep and the same solve on a planted fault exceeds. The readings go to
+    the test's properties (``--junitxml``)."""
+    import scipy.sparse
+
+    m, n = (40_000, 500) if kind == "wcoo" else (40_000, 8192)
+    vals, rows, cols = zipf_column_coo(m, n, (6 if kind == "wcoo" else 3) * m, seed=5)
+    b = rng.standard_normal(m).astype(np.float32)
+    damp = 0.05
+    kw = dict(atol=1e-6, btol=1e-6)
+    host = lt.lsqr(lt.auto_operator(m, n, vals, rows, cols, device=DEV), torch.from_numpy(b),
+                   damp, **kw)
+    A = lt.auto_operator(m, n, vals, rows, cols, device=cuda_device)
+    assert type(A).__name__ == {"wcoo": "WCOOOperator", "rwcoo": "RWCOOOperator"}[kind]
+    assert A.prefers_pair
+    b_card = torch.from_numpy(b).to(cuda_device)
+    spmv.reset_launch_counts()
+    res = lt.lsqr(A, b_card, damp, **kw)
+    launched = spmv.launch_counts()
+    pair = "wcoo_pair" if kind == "wcoo" else "wwcoo_pair"
+    assert launched[pair] > 0
+    assert int(res.istop) == int(host.istop)
+    assert abs(int(res.itn) - int(host.itn)) <= max(3, int(host.itn) // 5)
+    S = scipy.sparse.coo_matrix((vals.astype(np.float64), (rows, cols)), shape=(m, n))
+
+    def objective(x):
+        x = x.cpu().double().numpy()
+        r = S @ x - b
+        return r @ r + damp ** 2 * x @ x
+
+    ref = objective(host.x)
+    sound = [abs(objective(x) - ref) / ref
+             for x in (res.x, *(lt.lsqr(A, b_card, damp, **kw).x for _ in range(2)))]
+    faulty = (dataclasses.replace(A, packed=_zero_subtile(A.packed)) if kind == "wcoo" else
+              dataclasses.replace(A, hot=_zero_subtile(A.hot), cold=_zero_subtile(A.cold)))
+    fault = abs(objective(lt.lsqr(faulty, b_card, damp, **kw).x) - ref) / ref
+    record_property("objective_rel_sound", repr(sound))
+    record_property("objective_rel_zeroed_subtile", repr(fault))
+    assert max(sound) <= WCOO_OBJ_TOL[kind] < fault
+
+
+@pytest.mark.cuda
+def test_cuda_wcoo_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
+    vals, rows, cols = zipf_column_coo(20_000, 300, 50_000, seed=6)
+    A = lt.wcoo_operator(20_000, 300, vals, rows, cols, device=cuda_device)
+    x = torch.randn(300, device=cuda_device)
+    with pytest.raises(TypeError):
+        spmv_wcoo.wcoo_forward(A.packed, x.double(), 1.0, 0.0, x[:0])
+    with pytest.raises(ValueError, match="entries"):
+        spmv_wcoo.wcoo_forward(A.packed, x[:299], 1.0, 0.0, x[:0])
+    with pytest.raises(ValueError):
+        spmv_wcoo.wcoo_adjoint(A.packed, torch.randn(A.packed.m_pad + 1, device=cuda_device))

@@ -227,10 +227,10 @@ def test_auto_operator_empty_and_unported_patterns(rng):
     # general slice (one 8192-row tile: JDIA's 16 slots take it)
     assert type(lt.auto_operator(200, 200, vals, rows, cols, device=DEV)).__name__ == \
         type(lj.auto_operator(200, 200, vals, rows, cols)).__name__
-    # a tall unstructured f32 one takes JAX's WCOO, not ported yet
+    # a tall unstructured f32 one takes JAX's WCOO in both packages
     rows, cols = rng.integers(0, 16384, 40000), rng.integers(0, 2048, 40000)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        lt.auto_operator(16384, 2048, rng.standard_normal(40000).astype(np.float32), rows,
-                         cols, device=DEV)
+    vals = rng.standard_normal(40000).astype(np.float32)
+    assert type(lt.auto_operator(16384, 2048, vals, rows, cols, device=DEV)).__name__ == \
+        type(lj.auto_operator(16384, 2048, vals, rows, cols)).__name__ == "WCOOOperator"
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         lt.auto_operator(3, 3, np.array([1j]), np.array([0]), np.array([0]), device=DEV)

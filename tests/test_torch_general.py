@@ -262,6 +262,7 @@ def test_auto_operator_raises_device_faults_of_the_jdia_step(monkeypatch):
 
 
 def test_auto_operator_raises_where_jax_picks_wcoo_or_rwcoo(rng):
+    """Step 3 is ported: where JAX picks WCOO or RWCOO, so does the port."""
     from lsqr_tpu.ops.rwcoo import RWCOOOperator
     from lsqr_tpu.ops.wcoo import WCOOOperator
 
@@ -270,8 +271,11 @@ def test_auto_operator_raises_where_jax_picks_wcoo_or_rwcoo(rng):
         vals, rows, cols = _uniform(rng, m, n, nnz, np.float32)
         assert _block_fill_ratio(rows, cols, m, n) > 4.0
         assert isinstance(lj.auto_operator(m, n, vals, rows, cols), expected)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-            lt.auto_operator(m, n, vals, rows, cols, device=DEV)
+        At = lt.auto_operator(m, n, vals, rows, cols, device=DEV)
+        assert type(At).__name__ == expected.__name__
+        x = rng.standard_normal(n).astype(np.float32)
+        assert rel_err(At.matvec(_t(x)), scipy.sparse.coo_matrix(
+            (vals, (rows, cols)), shape=(m, n)) @ x) < 1e-5
     # the same tall pattern in f64 is no step-3 case: HYB in both packages
     vals, rows, cols = _uniform(rng, m, 2048, 40000)
     assert type(lt.auto_operator(m, 2048, vals, rows, cols, device=DEV)).__name__ == \
@@ -305,16 +309,20 @@ def test_plan_general_matches_jax(reorder):
 
 
 def test_plan_general_reorders_past_the_unported_route():
-    """f32 at n <= 262,144: the scrambled order takes JAX's RWCOO route
-    (scored 0 there, not ported here); the reordered JDIA wins in both."""
+    """f32 at n <= 262,144: the scrambled order takes RWCOO in both packages
+    (scored 0 by the planner); the reordered JDIA wins in both."""
     m = n = 16384
     vals, rows, cols, _, _ = _scrambled(m, n, 4, np.float32)
-    with pytest.raises(NotImplementedError, match="11b"):
-        lt.auto_operator(m, n, vals, rows, cols, device=DEV)
+    assert type(lt.auto_operator(m, n, vals, rows, cols, device=DEV)).__name__ == \
+        type(lj.auto_operator(m, n, vals, rows, cols)).__name__ == "RWCOOOperator"
     pj = j_plan_general(m, n, vals, rows, cols)
     pt = lt.plan_general(m, n, vals, rows, cols, device=DEV)
     assert type(pt.op).__name__ == type(pj.op).__name__ == "JDIAOperator"
     np.testing.assert_array_equal(pt.row_order, pj.row_order)
+    # reorder=False keeps the scrambled order's RWCOO, as in JAX
+    pt = lt.plan_general(m, n, vals, rows, cols, reorder=False, device=DEV)
+    assert type(pt.op).__name__ == type(j_plan_general(m, n, vals, rows, cols,
+                                                       reorder=False).op).__name__
 
 
 def test_bandwidth_orders_match_jax():
