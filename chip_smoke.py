@@ -6,8 +6,8 @@
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
 from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
-from lsqr_tpu_torch/native with g++), then runs fifteen phases; each raises
-on failure:
+from lsqr_tpu_torch/native with g++), then runs seventeen phases; each
+raises on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
    the main path's shape (m = n = 2^23, 11 diagonals: f32, and bf16
@@ -79,11 +79,26 @@ on failure:
    (the damped objective, within a limit that solves on planted faults
    exceed; x over the first 2 iterations), fixed 64
    iterations with the launches, kernel time and device idle share per
-   iteration, and 64 with ``pair=False`` (the separate products).
+   iteration, and 64 with ``pair=False`` (the separate products); each
+   operator's products against the f64 triplets at three vectors, a check
+   that sees bf16-rounded values;
+16. the complex pair ``zdia_pair`` against its twin at the JAX package's
+   complex benchmark shape (``bench.py``'s zdia stage: m = n = 2^21, 5
+   diagonals, N(0, 1) planes), a ragged rectangular shape and a +-1500 band
+   at 2^20 (two launches); the ZDIA products against the complex128 COO
+   triplets; ``torch.sparse_csr_tensor`` A @ x plus the CSR of A^H @ u;
+17. complex solves: the benchmark's triplets (+12 on the diagonal) through
+   ``auto_operator`` (ZDIA), damped (DAMP) to 1e-6 through ``zdia_pair``,
+   checked in complex128 and against ``scipy.sparse.linalg.lsqr``; fixed
+   64 iterations with the launches and the device's idle share; ``lsmr``,
+   ``cgls`` (pair=True) and ``craig`` against their pair=False runs;
+   complex128 at 2^16 against scipy; a ZJDIA solve at 2^20.
 
-Every solve of phases 2-5, 7, 8, 10, 12, 13 and 15 runs with the launch counts
-reset just before it and read just after; each path must launch the
-kernels it runs, and every kernel variant must have launched on some path.
+Every solve of phases 2-5, 7, 8, 10, 12, 13, 15 and 17 runs with the launch
+counts reset just before it and read just after, and so does a direct call
+of the kernels no solver calls (the two variants of the fused half-step,
+phase 1); each path must launch the kernels it runs, and every kernel
+variant must have launched on some path.
 The second-to-last line of output is a JSON object describing each kernel
 (its time, its twin's, the least time the card could take for the bytes or
 operations it must handle, and a PyTorch library call's time where one
@@ -108,6 +123,7 @@ JDIA = "lsqr_tpu_torch/csrc/jdia.cu"
 BELL = "lsqr_tpu_torch/csrc/block_ell.cu"
 WCOO = "lsqr_tpu_torch/csrc/wcoo.cu"
 WWCOO = "lsqr_tpu_torch/csrc/wwcoo.cu"
+ZDIA = "lsqr_tpu_torch/csrc/zdia.cu"
 M_JDIA = 2 ** 22  # phase 11-12's jittered-diagonal size
 M_BELL = 2 ** 18  # phase 11-12's BlockELL size
 M_PLAN = 2 ** 18  # phase 13's scrambled pattern
@@ -163,13 +179,33 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "wwcoo_forward": (WWCOO, "lsqr_tpu/ops/pallas_wwcoo.py:402"),
     "wwcoo_adjoint": (WWCOO, "lsqr_tpu/ops/pallas_wwcoo.py:410"),
     "wwcoo_pair": (WWCOO, "lsqr_tpu/ops/pallas_wwcoo.py:418"),
+    "dia_fused_halfstep_v2": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:1124"),
+    "dia_fused_halfstep_v3": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:1070"),
+    "zdia_pair": (ZDIA, "lsqr_tpu/ops/pallas_spmv.py:2363"),
 }
+#: the kernels no solver calls (neither in JAX): their path is the direct call
+DIRECT = ("dia_fused_halfstep_v2", "dia_fused_halfstep_v3")
+#: the kernels whose result has the stripes' dtype (2 bytes for bf16 stripes)
+STRIPE_DTYPE_OUT = ("dia_matvec_axpy", "dia_fused_halfstep", "dia_fused_halfstep_v2",
+                    "dia_fused_halfstep_v3")
+#: phases 16-17: the JAX package's complex benchmark (bench.py:127-129,
+#: :382-419): m = n = 2^21, 5 diagonals (-2..2), N(0, 1) real and imaginary
+#: planes; 12 added on the diagonal for the solves
+M_ZDIA = 2 ** 21
+ZDIA_RAGGED = (300_001, 200_003, (-60, -3, 0, 5))
+M_ZJDIA = 2 ** 20  # phase 17's complex jittered pattern (phase 11's, complex values)
+#: phase 15: each card product of the Zipf operators against the f64
+#: triplets, max |error| / max |product|: 5x above the largest f32 reading
+#: (6.0e-6, the RWCOO adjoint's atomics), 80x below bf16-rounded values'
+#: (2.4e-3; PERF.md, Findings)
+PRODUCT_TOL = 3e-5
 #: grid-wide barriers per iteration of each megakernel (csrc/megakernel.cu)
 BARRIERS = {"lsqr": 3, "lsmr": 3, "craig": 2}
 #: f32 vectors each call reads or writes, in units of (m, n) lengths
 VECTORS = {"dia_product_shared": (1, 1), "dia_matvec": (1, 1),
            "dia_product_shared_axpy": (2, 1), "dia_matvec_axpy": (2, 1),
-           "dia_fused_halfstep": (2, 1), "dia_pair_shared": (2, 2), "dia_pair": (2, 2)}
+           "dia_fused_halfstep": (2, 1), "dia_fused_halfstep_v2": (2, 1),
+           "dia_fused_halfstep_v3": (2, 1), "dia_pair_shared": (2, 2), "dia_pair": (2, 2)}
 
 
 def log(*args):
@@ -185,13 +221,20 @@ def sh(*cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
+def wide(t):
+    """t in f64, or in complex128 when it is complex."""
+    import torch
+
+    return t.to(torch.complex128) if t.is_complex() else t.double()
+
+
 def rel(got, ref):
-    got, ref = got.double(), ref.double()
+    got, ref = wide(got), wide(ref)
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
 
 
 def absdiff(got, ref):
-    return float((got.double() - ref.double()).abs().max())
+    return float((wide(got) - wide(ref)).abs().max())
 
 
 def time_ms(fn, reps=20):
@@ -249,15 +292,20 @@ def csr_of(rows, cols, vals, m, n):
                                        check_invariants=False)
 
 
-def stripes_csr(data, offsets, m, n):
-    """The CSR of row-aligned stripes (nd, m): the same banded matrix."""
+def stripe_triplets(stripes, offsets, m, n):
+    """(rows, cols, vals) on the card of the entries of row-aligned stripes
+    (nd, m) inside the m x n matrix."""
     import torch
 
-    i = torch.arange(m, device=data.device)
-    cols = i[None, :] + torch.tensor(offsets, device=data.device)[:, None]
+    i = torch.arange(m, device=stripes.device)
+    cols = i[None, :] + torch.tensor(offsets, device=stripes.device)[:, None]
     ok = (cols >= 0) & (cols < n)
-    rows = i[None, :].expand_as(cols)
-    return csr_of(rows[ok], cols[ok], data[ok], m, n)
+    return i[None, :].expand_as(cols)[ok], cols[ok], stripes[ok]
+
+
+def stripes_csr(data, offsets, m, n):
+    """The CSR of row-aligned stripes (nd, m): the same banded matrix."""
+    return csr_of(*stripe_triplets(data, offsets, m, n), m, n)
 
 
 def random_stripes(m, n, offsets, device, seed, boost=0.0, dtype=None):
@@ -348,6 +396,17 @@ def kernel_calls(dev, data, v, y, m, n, ks, storage):
              lambda: spmv.dia_fused_halfstep_plain(pd, y, v, c1, c2, **kw)),
             (lambda: spmv.dia_fused_halfstep(pt, v, y, c1, c2, **ptkw),
              lambda: spmv.dia_fused_halfstep_plain(pt, v, y, c1, c2, **tkw))]
+    # the two variants of the fused half-step: v2 with both values of
+    # ssq_out (a TPU memory space; the same kernel here), v3; on both sides
+    calls["dia_fused_halfstep_v2"] = [
+        (lambda s=s, a=a: spmv.dia_fused_halfstep_v2(*a[0], c1, c2, ssq_out=s, **a[1]),
+         lambda s=s, a=a: spmv.dia_fused_halfstep_v2_plain(*a[0], c1, c2, ssq_out=s,
+                                                           **a[2]))
+        for a in (((pd, y, v), pkw, kw), ((pt, v, y), ptkw, tkw)) for s in ("vmem", "smem")]
+    calls["dia_fused_halfstep_v3"] = [
+        (lambda a=a: spmv.dia_fused_halfstep_v3(*a[0], c1, c2, **a[1]),
+         lambda a=a: spmv.dia_fused_halfstep_v3_plain(*a[0], c1, c2, **a[2]))
+        for a in (((pd, y, v), pkw, kw), ((pt, v, y), ptkw, tkw))]
     return {name + sfx: pairs for name, pairs in calls.items()}
 
 
@@ -380,12 +439,14 @@ def library_ms(csr, x, kernel_out):
     return time_ms(lambda: csr @ x)
 
 
-def phase_kernels(dev, shapes, errs):
+def phase_kernels(dev, shapes, errs, paths):
     """Phase 1: every kernel against its twin on the card; returns
     {variant: (kernel ms, twin ms, m, n, nd, stripe bytes per element,
     library ms or None)} of the first call of each, at the first (main-path)
     shape for f32 and bf16 and at the second for f64. The library call is
-    ``torch.sparse_csr_tensor @ x`` of the same matrix, for the products."""
+    ``torch.sparse_csr_tensor @ x`` of the same matrix, for the products.
+    At the main shape the kernels no solver calls (DIRECT) run once more
+    as a counted path of their own, the direct call."""
     import torch
 
     from lsqr_tpu_torch.ops import spmv
@@ -405,6 +466,16 @@ def phase_kernels(dev, shapes, errs):
                         lib = library_ms(csr, v, pairs[0][0]())
                     times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
                                    len(ks), storage.itemsize, lib)
+                direct = [fn for name, pairs in calls.items() if base(name) in DIRECT
+                          for fn, _ in pairs]
+                _, delta = counted(lambda: [fn() for fn in direct])
+                paths.append(delta)
+                log(f"  the direct path ({str(storage)[6:]} stripes): "
+                    f"{({k: v for k, v in delta.items() if v})}")
+                check(sum(delta.values()) == len(direct) and all(
+                    delta[k] > 0 for name in DIRECT
+                    for k in [name + ("" if storage == torch.float32 else "[bf16]")]),
+                      f"the direct path: expected one launch per call: {delta}")
                 del csr
             del calls
         if si == 1:  # the f64 products (f64 solves on the card use them);
@@ -477,8 +548,8 @@ def optimality(forward, adjoint, fro, b, x):
     from f64 products (xcheck's test3, lsqr.f90:1089-1094)."""
     import torch
 
-    x64 = x.double()
-    r = b.double() - forward(x64)
+    x64 = wide(x)
+    r = wide(b) - forward(x64)
     grad = adjoint(r) - DAMP ** 2 * x64
     rho = torch.sqrt(r.norm() ** 2 + (DAMP * x64.norm()) ** 2)
     return float(grad.norm() / (fro * rho))
@@ -1050,15 +1121,15 @@ def coo_optimality(coo, m, n, b, x):
     import torch
 
     r_, c_, v_ = coo
-    v64 = v_.double()
+    v64 = wide(v_)
 
     def forward(x64):
-        return torch.zeros(m, dtype=torch.float64, device=x64.device).index_add_(
+        return torch.zeros(m, dtype=v64.dtype, device=x64.device).index_add_(
             0, r_, v64 * x64[c_])
 
     def adjoint(r64):
-        return torch.zeros(n, dtype=torch.float64, device=r64.device).index_add_(
-            0, c_, v64 * r64[r_])
+        return torch.zeros(n, dtype=v64.dtype, device=r64.device).index_add_(
+            0, c_, v64.conj() * r64[r_])
 
     return optimality(forward, adjoint, v64.norm(), b, x)
 
@@ -1612,6 +1683,37 @@ def planted_faults(A):
     return out
 
 
+def product_precision(A, coo, dev):
+    """A check that sees the values' precision: the operator's matvec and
+    rmatvec at three seeded vectors against the f64 triplets (max |error| /
+    max |product|), within PRODUCT_TOL; the same operator with its values
+    rounded to bf16 (``planted_faults``) must exceed it."""
+    import torch
+
+    r_, c_, v_ = coo
+    v64 = v_.double()
+
+    def worst(op):
+        g = torch.Generator(device=dev).manual_seed(151)
+        errs = []
+        for _ in range(3):
+            x = torch.randn(A.n, generator=g, device=dev)
+            y = torch.randn(A.m, generator=g, device=dev)
+            ref_f = torch.zeros(A.m, dtype=torch.float64, device=dev).index_add_(
+                0, r_, v64 * x.double()[c_])
+            ref_a = torch.zeros(A.n, dtype=torch.float64, device=dev).index_add_(
+                0, c_, v64 * y.double()[r_])
+            errs += [rel(op.matvec(x), ref_f), rel(op.rmatvec(y), ref_a)]
+        return max(errs)
+
+    sound, bf16 = worst(A), worst(planted_faults(A)["bf16"])
+    log(f"  products against the f64 triplets at three vectors: {sound:.3e} (limit "
+        f"{PRODUCT_TOL}); with bf16-rounded values {bf16:.3e}")
+    check(sound <= PRODUCT_TOL, f"the products differ from the f64 triplets by {sound:.3e}")
+    check(bf16 > PRODUCT_TOL, f"bf16-rounded values pass the product check: {bf16:.3e}")
+    return dict(sound=sound, bf16=bf16)
+
+
 def phase_wcoo_solves(dev, ops, card, paths):
     """Phase 15: damped solves on the two benchmark operators through their
     pair kernels, checked in f64 and against the same solve on the COO
@@ -1694,6 +1796,7 @@ def phase_wcoo_solves(dev, ops, card, paths):
         check(all(delta[k] == (64 if k.endswith("forward") else 65) for k in products)
               and delta[pair] == 0, f"{label} pair=False: expected one product each way per "
                                     f"iteration: {delta}")
+        precision = product_precision(A, coo_t, dev)
         log(f"  launch profile of the {label} solve:")
         prof = phase_launches(A, b)
         wall = secs64 * 1e3 / 64
@@ -1707,11 +1810,232 @@ def phase_wcoo_solves(dev, ops, card, paths):
                           device_idle=1 - prof["kernel_ms_per_iteration"] / wall,
                           pack_seconds=pack_s, bytes_per_entry=kernel_b / len(trip[0]),
                           bytes_per_entry_with_coo=total_b / len(trip[0]),
-                          launch_profile=prof)
+                          product_precision=precision, launch_profile=prof)
         log(f"  {label}: {wall:.4f} ms/iteration, device idle {out[label]['device_idle']:.1%}")
         del A, coo_t, b
         ops.pop(label)
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-17: complex problems (ZDIA, ZJDIA)
+# ---------------------------------------------------------------------------
+
+
+def complex_products(A, trip, x, y):
+    """(rel error of A.matvec(x), of A.rmatvec(y)) against the complex128
+    COO triplets (the conjugate for the adjoint), on the card."""
+    import torch
+
+    r_, c_, v_ = trip
+    v128 = v_.to(torch.complex128)
+    ref_f = torch.zeros(A.m, dtype=torch.complex128, device=v_.device).index_add_(
+        0, r_, v128 * wide(x)[c_])
+    ref_a = torch.zeros(A.n, dtype=torch.complex128, device=v_.device).index_add_(
+        0, c_, v128.conj() * wide(y)[r_])
+    return rel(A.matvec(x), ref_f), rel(A.rmatvec(y), ref_a)
+
+
+def phase_complex_kernels(dev, errs, card):
+    """Phase 16: zdia_pair against its twin at the JAX package's complex
+    benchmark shape (2^21, 5 diagonals), a ragged rectangular shape and a
+    +-1500 band at 2^20 (two launches); the ZDIA products (four dia_matvec
+    launches each) against the complex128 COO triplets; beside the pair,
+    torch.sparse_csr_tensor's A @ x plus the CSR of A^H @ u (two calls)."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.models.synthetic import ZDIA_OFFSETS
+    from lsqr_tpu_torch.ops import spmv
+
+    perf = {}
+    g = torch.Generator(device=dev).manual_seed(16)
+    c1 = torch.tensor(0.8, device=dev)
+    c2 = torch.tensor(1.1, device=dev)
+    for si, (m, n, ks) in enumerate(((M_ZDIA, M_ZDIA, ZDIA_OFFSETS), ZDIA_RAGGED, WIDE)):
+        stripes = lt.zdia_stripes(m, n, ks, seed=160 + si, device=dev, generator="torch")
+        A = lt.dia_operator_device(m, n, ks, stripes)
+        check(isinstance(A, lt.ZDIAOperator) and A.prefers_pair,
+              f"complex stripes built {type(A).__name__}")
+        y = torch.randn(m, generator=g, device=dev, dtype=torch.complex64)
+        win = torch.randn(n, generator=g, device=dev, dtype=torch.complex64)
+        kw = dict(offsets=ks, m=m, n=n)
+        pair = (lambda: spmv.zdia_pair(A.dr, A.di, y, win, c1, c2, offsets_t=A.offsets_t,
+                                       **kw),
+                lambda: spmv.zdia_pair_plain(A.dr, A.di, y, win, c1, c2, **kw))
+        (u, z), delta = counted(pair[0])
+        wide_band = max(spmv._halos(ks)) > spmv.PAIR_MAX_HALO
+        check(delta["zdia_pair"] == (2 if wide_band else 1) and sum(delta.values())
+              == delta["zdia_pair"], f"zdia_pair m={m} n={n}: launches {delta}")
+        hold({"zdia_pair": [pair]}, errs, m, n, ks, TOL)
+        trip = stripe_triplets(stripes, ks, m, n)
+        (e_f, e_a), delta = counted(lambda: complex_products(A, trip, win, y))
+        launched = {k: v for k, v in delta.items() if v}
+        log(f"  ZDIA m={m} n={n} nd={len(ks)}: matvec and rmatvec against the complex128 "
+            f"triplets {e_f:.3e}, {e_a:.3e}; launches {launched}")
+        check(max(e_f, e_a) <= TOL and delta["dia_matvec"] == 8,
+              f"ZDIA products m={m} n={n}: {e_f:.3e}, {e_a:.3e}, {delta}")
+        if si == 0:
+            r_, c_, v_ = trip
+            csr, csr_t = csr_of(r_, c_, v_, m, n), csr_of(c_, r_, v_.conj(), n, m)
+            lib = (library_ms(csr, win * c1, u + c2 * y), library_ms(csr_t, u, z))
+            nbytes = 2 * len(ks) * m * 4 + 8 * (2 * m + 2 * n)
+            perf["zdia_pair"] = perf_entry(time_ms(pair[0]), time_ms(pair[1], reps=5), nbytes,
+                                           16 * len(ks) * m, library_ms=sum(lib))
+            report("zdia_pair", perf["zdia_pair"], card)
+            log(f"  library: two calls, complex64 CSR A @ x {lib[0]:.4f} ms plus the CSR of "
+                f"A^H @ u {lib[1]:.4f} ms")
+            del csr, csr_t
+        del A, stripes, trip, y, win, u, z
+        torch.cuda.empty_cache()
+    return perf
+
+
+def phase_complex_solves(dev, card, paths):
+    """Phase 17: complex solves. The complex COO triplets of the benchmark
+    shape (+12 on the diagonal) through auto_operator (ZDIA), a damped
+    solve to 1e-6 through zdia_pair checked in complex128 and against
+    scipy on the host, fixed 64 iterations with the launches and the
+    device's idle share; lsmr, cgls (pair=True) and craig against their
+    pair=False runs; complex128 at 2^16 against scipy; a ZJDIA solve at
+    2^20 (phase 11's jittered pattern with complex values)."""
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.linalg
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.models.synthetic import ZDIA_OFFSETS, jittered_band_coo
+
+    out = {}
+    seg = lt.LSQROptions().loop_segment
+    fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
+    tol = dict(atol=1e-6, btol=1e-6)
+    m, ks = M_ZDIA, ZDIA_OFFSETS
+    stripes = lt.zdia_stripes(m, m, ks, seed=17, diag=12.0, device=dev, generator="torch")
+    trip = stripe_triplets(stripes, ks, m, m)
+    del stripes
+    rows, cols, vals = (t.cpu().numpy() for t in trip)
+    t0 = time.perf_counter()
+    A = lt.auto_operator(m, m, vals, rows, cols, device=dev)
+    torch.cuda.synchronize()
+    t_auto = time.perf_counter() - t0
+    check(isinstance(A, lt.ZDIAOperator) and A.offsets == ks and A.prefers_pair
+          and A.dtype == torch.complex64,
+          f"auto_operator sent the complex banded triplets to {type(A).__name__}")
+    log(f"  auto_operator -> ZDIAOperator ({len(vals)} complex64 entries) in {t_auto:.2f} s")
+    b = torch.randn(m, generator=torch.Generator(device=dev).manual_seed(171), device=dev,
+                    dtype=torch.complex64)
+    res, delta, secs = timed_solve(A, b, f"ZDIA m=n={m} (b) atol=btol=1e-6", card, **tol)
+    paths.append(delta)
+    body = iterations_run(int(res.itn), seg)
+    check(int(res.istop) in (1, 2, 3), f"ZDIA solve istop {int(res.istop)}")
+    check(delta["zdia_pair"] == body and delta["dia_matvec"] == 4,
+          f"ZDIA solve: expected one zdia_pair per iteration run and A^H b: {delta}")
+    check(res.x.dtype == torch.complex64 and res.rnorm.dtype == torch.float32,
+          "the complex solve's x and estimates have the wrong dtypes")
+    ratio = coo_optimality(trip, m, m, b, res.x)
+    S = scipy.sparse.csr_matrix((vals.astype(np.complex128), (rows, cols)), shape=(m, m))
+    rhs = b.cpu().numpy().astype(np.complex128)
+    t0 = time.perf_counter()
+    ref = scipy.sparse.linalg.lsqr(S, rhs, damp=DAMP, atol=1e-10, btol=1e-10,
+                                   iter_lim=2 * m)
+    t_scipy = time.perf_counter() - t0
+    err = float(np.abs(res.x.cpu().numpy() - ref[0]).max() / np.abs(ref[0]).max())
+    log(f"  ZDIA independent check (complex128, COO) {ratio:.3e}; scipy (complex128, host, "
+        f"{t_scipy:.1f} s) istop {ref[1]} itn {ref[2]}: x rel diff {err:.3e}")
+    check(ratio <= 1e-4, f"ZDIA solve: optimality {ratio:.3e} > 1e-4")
+    check(err <= 1e-3, f"ZDIA solve: x differs from scipy's by {err:.3e}")
+    del S
+    timed_solve(A, b, "ZDIA warm-up 64 iterations", card, **fixed)
+    res64, delta, secs64 = timed_solve(A, b, "ZDIA fixed 64 iterations", card, **fixed)
+    paths.append(delta)
+    check(int(res64.itn) == 64 and delta["zdia_pair"] == 64, "ZDIA fixed run: itn != 64")
+    log("  launch profile of the ZDIA solve:")
+    prof = phase_launches(A, b)
+    wall = secs64 * 1e3 / 64
+    out["zdia"] = dict(m=m, nnz=len(vals), auto_operator_s=t_auto, istop=int(res.istop),
+                       itn=int(res.itn), ms=secs * 1e3, optimality=ratio, x_rel_to_scipy=err,
+                       scipy_itn=int(ref[2]), ms_per_iteration_fixed64=wall,
+                       device_idle=1 - prof["kernel_ms_per_iteration"] / wall,
+                       launch_profile=prof)
+    log(f"  ZDIA: {wall:.4f} ms/iteration, device idle {out['zdia']['device_idle']:.1%}")
+
+    # the siblings through the pair kernel against their pair=False runs
+    for name in ("lsmr", "cgls", "craig"):
+        fn = getattr(lt, name)
+        args = (A, b) if name == "craig" else (A, b, DAMP)
+        kw = dict(tol, pair=True) if name == "cgls" else dict(tol)
+        res_p, delta = counted(lambda: fn(*args, **kw))
+        paths.append(delta)
+        res_r = fn(*args, **dict(kw, pair=False))
+        err = rel(res_p.x, res_r.x)
+        log(f"  {name}: pair istop {int(res_p.istop)} itn {int(res_p.itn)} "
+            f"(zdia_pair {delta['zdia_pair']}), pair=False istop {int(res_r.istop)} itn "
+            f"{int(res_r.itn)}; x rel diff {err:.3e}")
+        check(delta["zdia_pair"] > 0 and int(res_p.istop) == int(res_r.istop)
+              and abs(int(res_p.itn) - int(res_r.itn)) <= 2 and err <= 1e-3,
+              f"{name} through zdia_pair differs from its pair=False run")
+        out[name] = dict(istop=int(res_p.istop), itn=int(res_p.itn),
+                         itn_pair_false=int(res_r.itn), x_rel=err)
+    del A, b, trip, rows, cols, vals
+    torch.cuda.empty_cache()
+
+    # complex128 at 2^16 against scipy: f64 planes, four dia_matvec[f64] a product
+    m2 = 2 ** 16
+    st = lt.zdia_stripes(m2, m2, ks, seed=172, diag=12.0, dtype=torch.complex128,
+                         device="cpu").numpy()
+    A2 = lt.dia_operator(m2, m2, ks, st, device=dev)
+    r2, c2_, v2 = (t.cpu().numpy() for t in stripe_triplets(torch.from_numpy(st), ks, m2, m2))
+    S2 = scipy.sparse.csr_matrix((v2, (r2, c2_)), shape=(m2, m2))
+    g2 = np.random.default_rng(172)
+    rhs2 = g2.standard_normal(m2) + 1j * g2.standard_normal(m2)
+    tol2 = dict(atol=1e-10, btol=1e-10, conlim=1e8)
+    ref2 = scipy.sparse.linalg.lsqr(S2, rhs2, damp=DAMP, iter_lim=2 * m2, **tol2)
+    res2, launched = counted(lambda: lt.lsqr(A2, rhs2, DAMP, itnlim=2 * m2, **tol2))
+    paths.append(launched)
+    err2 = float(np.abs(res2.x.cpu().numpy() - ref2[0]).max() / np.abs(ref2[0]).max())
+    istop_ref = scipy_istop(ref2[1], DAMP > 0)
+    log(f"  complex128 ZDIA m=n={m2}: port istop={int(res2.istop)} itn={int(res2.itn)}; "
+        f"scipy istop={ref2[1]} (= {istop_ref}) itn={ref2[2]}; x rel diff {err2:.3e}; "
+        f"launches {({k: v for k, v in launched.items() if v})}")
+    check(isinstance(A2, lt.ZDIAOperator) and res2.x.dtype == torch.complex128,
+          "the complex128 solve left complex128")
+    check(int(res2.istop) == istop_ref and abs(int(res2.itn) - ref2[2]) <= 1,
+          "complex128 ZDIA: istop/itn differ from scipy")
+    check(err2 <= 1e-8, f"complex128 ZDIA: x differs from scipy by {err2:.3e}")
+    check(launched["dia_matvec[f64]"] > 0 and launched["zdia_pair"] == 0,
+          "complex128 solves run unfused through the f64 product kernel")
+    out["zdia_c128"] = dict(istop=int(res2.istop), itn=int(res2.itn), x_rel_to_scipy=err2)
+    del A2, S2
+
+    # ZJDIA at 2^20: phase 11's jittered pattern, complex values
+    m3 = M_ZJDIA
+    v3, r3, c3 = jittered_band_coo(m3, m3, diag=12.0, seed=173)
+    v3 = (v3 + 1j * np.random.default_rng(174).standard_normal(len(v3))).astype(np.complex64)
+    t0 = time.perf_counter()
+    A3 = lt.auto_operator(m3, m3, v3, r3, c3, device=dev)
+    t_auto3 = time.perf_counter() - t0
+    check(isinstance(A3, lt.ZJDIAOperator) and A3.fit_fraction >= 0.95
+          and A3.dtype == torch.complex64,
+          f"the complex jittered pattern went to {type(A3).__name__}")
+    log(f"  auto_operator -> ZJDIAOperator ({len(v3)} entries, fit {A3.fit_fraction:.6f}) "
+        f"in {t_auto3:.2f} s")
+    b3 = torch.randn(m3, generator=torch.Generator(device=dev).manual_seed(175), device=dev,
+                     dtype=torch.complex64)
+    res3, delta, secs3 = timed_solve(A3, b3, f"ZJDIA m=n={m3} (b) atol=btol=1e-6", card,
+                                     **tol)
+    paths.append(delta)
+    body3 = iterations_run(int(res3.itn), seg)
+    check(int(res3.istop) in (1, 2, 3), f"ZJDIA solve istop {int(res3.istop)}")
+    check(delta["jdia_matvec"] == 4 * (2 * body3 + 1),
+          f"ZJDIA solve: expected four jdia_matvec launches per product: {delta}")
+    ratio3 = coo_optimality(coo_on(dev, v3, r3, c3), m3, m3, b3, res3.x)
+    log(f"  ZJDIA independent check (complex128, COO) {ratio3:.3e}")
+    check(ratio3 <= 1e-4, f"ZJDIA solve: optimality {ratio3:.3e} > 1e-4")
+    out["zjdia"] = dict(m=m3, fit=A3.fit_fraction, istop=int(res3.istop),
+                        itn=int(res3.itn), ms=secs3 * 1e3, optimality=ratio3)
     return out
 
 
@@ -1743,18 +2067,20 @@ def main():
 
     phase("phase 1: kernels vs twins")
     errs = {}
+    paths = []  # launches by variant of every path run, the direct one included
     times = phase_kernels(dev, [(M_MAIN, M_MAIN, OFFSETS),
                                 (300_001, 200_003, (-60, -3, 0, 5)),
-                                (200_000, 300_007, (0, 1, 7)), WIDE], errs)
+                                (200_000, 300_007, (0, 1, 7)), WIDE], errs, paths)
     perf = {}
     for name, (ms, plain_ms, m, n, nd, esize, lib) in times.items():
         vm, vn = VECTORS[base(name)]
         moved = nd * m * esize + (vm * m + vn * n) * (8 if esize == 8 else 4)
+        if esize == 2 and base(name) in STRIPE_DTYPE_OUT:
+            moved -= 2 * m  # out is bf16
         flops = 2 * nd * m * (2 if "pair" in name else 1)
         perf[name] = perf_entry(ms, plain_ms, moved, flops, esize, lib)
         report(name, perf[name], card)
 
-    paths = []  # launches by variant of every path run below
     phase("phases 2-3: main-path solves, shared layout")
     A, b, x_shared, solves = phase_main_solve(dev, M_MAIN, card, paths)
     phase("phase 4: auto_operator")
@@ -1800,9 +2126,16 @@ def main():
     perf.update(unstructured)
     phase("phase 15: WCOO and RWCOO solves")
     solves["unstructured"] = phase_wcoo_solves(dev, ops, card, paths)
+    del ops
+    torch.cuda.empty_cache()
+    phase("phase 16: complex kernels and operators")
+    perf.update(phase_complex_kernels(dev, errs, card))
+    phase("phase 17: complex solves")
+    solves["complex"] = phase_complex_solves(dev, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
-    log(f"  launches on the paths of phases 2-5, 7, 8, 10, 12, 13 and 15: {launches}")
+    log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15 "
+        f"and 17: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

@@ -7,16 +7,20 @@ and both DIA operators (shared-stripe and packed, with bf16 stripe
 storage), ``auto_operator`` for banded patterns, ``from_scipy``,
 ``acheck``/``xcheck``, the Paige–Saunders and synthetic problems,
 ``LSQRSolver``, the sibling solvers ``lsmr``, ``craig`` and ``cgls``, the
-three iteration megakernels (``megakernel=True``), and the general-sparsity
+three iteration megakernels (``megakernel=True``), the general-sparsity
 path: JDIA, ELL, HYB, BlockELL, WCOO, WWCOO, RWCOO, ``csr_operator``, all
 five steps of ``auto_operator`` and the reordering planner
-(``plan_general``, ``solve_general``). The DIA products on CUDA run through
-seven kernels written by hand for Hopper (``csrc/dia_shared.cu``,
-``csrc/dia_packed.cu``), the megakernels through three persistent
-cooperative kernels (``csrc/megakernel.cu``), the JDIA and BlockELL
-products through four more (``csrc/jdia.cu``, ``csrc/block_ell.cu``), and
-the WCOO and WWCOO products through three wrappers each (``csrc/wcoo.cu``,
-``csrc/wwcoo.cu``), all built with ``nvcc`` at first use. The host packer (``native/sparse_pack.cpp``) builds with ``g++``.
+(``plan_general``, ``solve_general``), and complex problems: the four
+solvers, ``acheck``/``xcheck``, COO, the plane-split ZDIA and ZJDIA
+operators and ``auto_operator``'s complex branch. The DIA products on CUDA
+run through nine kernels written by hand for Hopper (``csrc/dia_shared.cu``,
+``csrc/dia_packed.cu``), the complex DIA pair through one more
+(``csrc/zdia.cu``), the megakernels through three persistent cooperative
+kernels (``csrc/megakernel.cu``), the JDIA and BlockELL products through
+four more (``csrc/jdia.cu``, ``csrc/block_ell.cu``), and the WCOO and WWCOO
+products through three wrappers each (``csrc/wcoo.cu``, ``csrc/wwcoo.cu``),
+all built with ``nvcc`` at first use. The host packer
+(``native/sparse_pack.cpp``) builds with ``g++``.
 
 Builders put what they build on the card unless given ``device=`` (see
 :func:`~lsqr_tpu_torch.config.resolve_device`).
@@ -26,14 +30,14 @@ Importing this package imports ``torch`` and never ``jax``.
 
 from .api import LSQRSolver
 from .cgls import CGLS_ISTOP_MESSAGES, CGLSResult, cgls
-from .config import LSQROptions, default_dtype, eps_for, resolve_device
+from .config import LSQROptions, default_dtype, eps_for, real_dtype, resolve_device
 from .craig import CRAIG_ISTOP_MESSAGES, CRAIGResult, craig
 from .diagnostics import ACheckResult, XCheckResult, acheck, xcheck
 from .lsmr import LSMR_ISTOP_MESSAGES, LSMRResult, lsmr
 from .models.paige_saunders import PaigeSaundersOperator, lstp, suite_configs
 from .models.synthetic import (banded_dia, banded_problem, block_banded_coo,
                                jittered_band_coo, random_block_coo, random_coo_problem,
-                               zipf_column_coo, zipf_coo)
+                               zdia_stripes, zipf_column_coo, zipf_coo)
 from .ops.compose import SumOperator, add_operators
 from .ops.convert import operator_from_arrays, result_to_numpy
 from .ops.coo import COOOperator, coo_operator
@@ -51,6 +55,8 @@ from .ops.structured import (BlockELLOperator, DIAOperator, DIASharedOperator,
                              hyb_operator)
 from .ops.wcoo import WCOOOperator, wcoo_operator
 from .ops.wwcoo import WWCOOOperator, wwcoo_operator
+from .ops.zdia import (ZDIAOperator, ZJDIAOperator, zdia_operator, zdia_operator_device,
+                       zjdia_operator)
 from .solver import ISTOP_MESSAGES, TRACE_COLUMNS, LSQRResult, lsqr
 
 __version__ = "0.1.0"
@@ -105,6 +111,11 @@ __all__ = [
     "wwcoo_operator",
     "RWCOOOperator",
     "rwcoo_operator",
+    "ZDIAOperator",
+    "zdia_operator",
+    "zdia_operator_device",
+    "ZJDIAOperator",
+    "zjdia_operator",
     "SumOperator",
     "add_operators",
     "auto_operator",
@@ -125,9 +136,11 @@ __all__ = [
     "random_block_coo",
     "zipf_coo",
     "zipf_column_coo",
+    "zdia_stripes",
     "operator_from_arrays",
     "result_to_numpy",
     "default_dtype",
     "eps_for",
+    "real_dtype",
     "resolve_device",
 ]

@@ -9,7 +9,8 @@ guard (istop 6, returning the best iterate). Pair mode is opt-in, as in the
 JAX package: one stripe pass gives ``q = A p`` and ``A'q``, and ``A'r`` is
 kept by the recurrence ``A'r -= alpha A'q``.
 
-The loop is the LSQR core's masked segments. Real dtypes only.
+The loop is the LSQR core's masked segments. Complex problems as in LSQR:
+complex vectors, real scalars.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .lsmr import solve_dtype
+from .config import real_dtype
+from .lsmr import check_complex_pair, solve_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
 from .solver import _run_segments
@@ -83,9 +85,11 @@ def _build(
     :func:`lsqr_tpu.cgls._build`."""
     m, n = A.shape
     dtype = b.dtype
+    rdtype = real_dtype(dtype)
     dev = b.device
-    zero = torch.tensor(0.0, dtype=dtype, device=dev)
-    one = torch.tensor(1.0, dtype=dtype, device=dev)
+    check_complex_pair(A, dtype, pair)
+    zero = torch.tensor(0.0, dtype=rdtype, device=dev)
+    one = torch.tensor(1.0, dtype=rdtype, device=dev)
     izero = torch.tensor(0, dtype=torch.int32, device=dev)
 
     def norm(vec):
@@ -236,8 +240,8 @@ def cgls(
     if pair and not hasattr(A, "fused_pair"):
         raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
 
-    def scalar(v):
-        return as_tensor(v, dtype=dtype, device=b.device)
+    def scalar(v):  # damp and the tolerances are real, also for complex problems
+        return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, scalar(damp), scalar(atol), scalar(btol), itnlim=itnlim,

@@ -16,7 +16,8 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["LSQROptions", "default_dtype", "eps_for", "as_dtype", "resolve_device"]
+__all__ = ["LSQROptions", "default_dtype", "eps_for", "as_dtype", "real_dtype",
+           "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,6 +44,13 @@ def as_dtype(dtype) -> Optional[torch.dtype]:
 
         dtype = np.dtype(dtype).name
     return getattr(torch, dtype)
+
+
+def real_dtype(dtype) -> torch.dtype:
+    """The real dtype of a complex one (complex64 -> float32); a real dtype
+    unchanged. The scalars of a complex solve live in it."""
+    dtype = as_dtype(dtype)
+    return dtype.to_real() if dtype.is_complex else dtype
 
 
 def eps_for(dtype) -> float:

@@ -8,7 +8,8 @@ forward substitution: ``y_1 = beta_1/alpha_1``, ``y_i = -(beta_i/alpha_i)
 y_{i-1}``, ``x_k = x_{k-1} + y_k v_k``, and ``||r_k|| = |beta_{k+1} y_k|``.
 It needs ``b`` in range(A); for least squares use ``lsqr`` or ``lsmr``.
 
-The loop is the LSQR core's masked segments. Real dtypes only.
+The loop is the LSQR core's masked segments. Complex problems as in LSQR:
+complex vectors, real scalars (the bidiagonal entries and y_k).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .lsmr import solve_dtype
+from .config import real_dtype
+from .lsmr import check_complex_pair, solve_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
 from .solver import _run_segments
@@ -77,9 +79,11 @@ def _build(
     :func:`lsqr_tpu.craig._build`."""
     m, n = A.shape
     dtype = b.dtype
+    rdtype = real_dtype(dtype)
     dev = b.device
-    zero = torch.tensor(0.0, dtype=dtype, device=dev)
-    one = torch.tensor(1.0, dtype=dtype, device=dev)
+    check_complex_pair(A, dtype, pair)
+    zero = torch.tensor(0.0, dtype=rdtype, device=dev)
+    one = torch.tensor(1.0, dtype=rdtype, device=dev)
     izero = torch.tensor(0, dtype=torch.int32, device=dev)
 
     def norm(vec):
@@ -216,9 +220,10 @@ def craig(
         pair = bool(getattr(A, "prefers_pair", False))
     if pair and not hasattr(A, "fused_pair"):
         raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
+    rdtype = real_dtype(dtype)  # the tolerances are real, also for complex problems
     carry0, cond_fun, body_fun, finalize = _build(
-        A, b, as_tensor(atol, dtype=dtype, device=b.device),
-        as_tensor(btol, dtype=dtype, device=b.device),
+        A, b, as_tensor(atol, dtype=rdtype, device=b.device),
+        as_tensor(btol, dtype=rdtype, device=b.device),
         itnlim=itnlim, safe_norms=safe_norms, pair=pair)
     final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim, seg_len=loop_segment)
     return finalize(final)

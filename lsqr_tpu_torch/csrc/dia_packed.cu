@@ -32,6 +32,19 @@
 // 4. dia_pair_kernel            <- dia_pair / _dia_pair_kernel_carry,
 //                                  _dia_pair_kernel
 //    u = A(vec * c1) - c2 * y and z = A' u in one pass over data.
+// 5. dia_fused_halfstep_v2_kernel <- dia_fused_halfstep_v2 /
+//                                    _dia_axpy_ssq_kernel
+//    as 3, f32 or bf16 stripes, out in the stripes' dtype; ssq reduced in
+//    the launch as 3 does (the TPU kernel accumulates it across its grid in
+//    one SMEM scalar or one revisited VMEM block).
+// 6. dia_fused_halfstep_v3_kernel <- dia_fused_halfstep_v3 /
+//                                    _dia_axpy_ssq_rows_kernel
+//    as 5, but each block writes its partial sum to a slot of its own and
+//    the wrapper adds the slots (the TPU kernel writes one partial per grid
+//    step to rows of its own): no ticket, no block reads another's slot.
+//
+// Kernels 2, 3, 5 and 6 share one row helper (axpy_row), so they sum each
+// row in the same order.
 //
 // What bounds them on the H100: bytes. ~2 flops per stripe element read
 // (4 bytes, 2 in bf16) is far below the card's ~20 flop/byte ridge, so the
@@ -48,7 +61,9 @@
 //   last block to finish (an integer ticket after __threadfence) sums the
 //   slots in a fixed order and resets the ticket. The result does not
 //   depend on block timing. The grid is capped at kReduceBlocks so that
-//   sum stays short;
+//   sum stays short. v3 leaves that sum to the wrapper (one more small
+//   launch, torch.sum over at most kReduceBlocks floats, also in a fixed
+//   order); the norm is of the f32 sums, before a bf16 out is rounded;
 // * the pair does not copy the TPU's carry scheme (z block t-1 written at
 //   grid step t needs grid steps in order; CUDA blocks run in none). It
 //   recomputes a one-sided halo: with lo = max(0, -k_min) and
@@ -75,6 +90,16 @@ inline unsigned grid_for(long long count) {
   long long g = (count + kThreads - 1) / kThreads;
   const long long cap = 1LL << 20;  // the grid-stride loop covers the rest
   return static_cast<unsigned>(g < cap ? g : cap);
+}
+
+// The grid of the fused half-steps: one block per kThreads rows, at most
+// `slots` and kReduceBlocks blocks (0 when there is nothing to do).
+inline unsigned reduce_grid(long long dim_out, int slots) {
+  if (dim_out <= 0 || slots <= 0) return 0u;
+  long long blocks = (dim_out + kThreads - 1) / kThreads;
+  if (blocks > slots) blocks = slots;
+  if (blocks > kReduceBlocks) blocks = kReduceBlocks;
+  return static_cast<unsigned>(blocks);
 }
 
 // A stripe element in the accumulation type (f32 for bf16 storage).
@@ -112,6 +137,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Row i of A (vec * c1) - c2 * y, in f32, the diagonals in offset order.
+template <typename S>
+__device__ __forceinline__ float axpy_row(
+    const S* __restrict__ data, const float* __restrict__ vec,
+    const float* __restrict__ y, float c1, float c2,
+    const int* __restrict__ offsets, int nd, long long i, long long dim_out,
+    long long dim_in) {
+  float acc = (-c2) * __ldg(y + i);
+  for (int d = 0; d < nd; ++d) {
+    const int k = __ldg(offsets + d);
+    const long long src = i + k;
+    if (src >= 0 && src < dim_in) {
+      acc += widen(data + d * dim_out + i) * (__ldg(vec + src) * c1);
+    }
+  }
+  return acc;
+}
+
 // O: result type (f32, or bf16 for bf16 stripes).
 template <typename S, typename O>
 __global__ void dia_matvec_axpy_kernel(
@@ -125,15 +168,7 @@ __global__ void dia_matvec_axpy_kernel(
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < dim_out; i += stride) {
-    float acc = (-c2) * __ldg(y + i);
-    for (int d = 0; d < nd; ++d) {
-      const int k = __ldg(offsets + d);
-      const long long src = i + k;
-      if (src >= 0 && src < dim_in) {
-        acc += widen(data + d * dim_out + i) * (__ldg(vec + src) * c1);
-      }
-    }
-    store(out + i, acc);
+    store(out + i, axpy_row(data, vec, y, c1, c2, offsets, nd, i, dim_out, dim_in));
   }
 }
 
@@ -149,33 +184,42 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-__global__ void __launch_bounds__(kThreads) dia_fused_halfstep_kernel(
-    const float* __restrict__ data, const float* __restrict__ vec,
+// This block's part of A (vec * c1) - c2 * y into out (grid-stride), and
+// the block's sum of the f32 rows squared (every thread gets it).
+template <typename S, typename O>
+__device__ __forceinline__ float axpy_ssq_block(
+    const S* __restrict__ data, const float* __restrict__ vec,
     const float* __restrict__ y, const float* __restrict__ c1p,
-    const float* __restrict__ c2p, float* __restrict__ out,
-    float* __restrict__ partial, unsigned int* __restrict__ ticket,
-    float* __restrict__ ssq, const int* __restrict__ offsets, int nd,
-    long long dim_out, long long dim_in) {
-  __shared__ float red[kThreads];
-  __shared__ bool last;
+    const float* __restrict__ c2p, O* __restrict__ out,
+    const int* __restrict__ offsets, int nd, long long dim_out,
+    long long dim_in, float* red) {
   const float c1 = __ldg(c1p);
   const float c2 = __ldg(c2p);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   float local = 0.0f;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < dim_out; i += stride) {
-    float acc = (-c2) * __ldg(y + i);
-    for (int d = 0; d < nd; ++d) {
-      const int k = __ldg(offsets + d);
-      const long long src = i + k;
-      if (src >= 0 && src < dim_in) {
-        acc += __ldg(data + d * dim_out + i) * (__ldg(vec + src) * c1);
-      }
-    }
-    out[i] = acc;
+    const float acc = axpy_row(data, vec, y, c1, c2, offsets, nd, i, dim_out, dim_in);
+    store(out + i, acc);
     local += acc * acc;
   }
-  const float block_total = block_sum(local, red);
+  return block_sum(local, red);
+}
+
+// The body of kernels 3 and 5: the partial sums in slots, and the last
+// block (by an integer ticket) sums them in slot order.
+template <typename S, typename O>
+__device__ __forceinline__ void fused_halfstep_ticketed(
+    const S* __restrict__ data, const float* __restrict__ vec,
+    const float* __restrict__ y, const float* __restrict__ c1p,
+    const float* __restrict__ c2p, O* __restrict__ out,
+    float* __restrict__ partial, unsigned int* __restrict__ ticket,
+    float* __restrict__ ssq, const int* __restrict__ offsets, int nd,
+    long long dim_out, long long dim_in) {
+  __shared__ float red[kThreads];
+  __shared__ bool last;
+  const float block_total = axpy_ssq_block(data, vec, y, c1p, c2p, out, offsets,
+                                           nd, dim_out, dim_in, red);
   if (threadIdx.x == 0) {
     partial[blockIdx.x] = block_total;
     __threadfence();  // the slot is visible before the ticket counts it
@@ -192,6 +236,47 @@ __global__ void __launch_bounds__(kThreads) dia_fused_halfstep_kernel(
     *ssq = total;
     *ticket = 0u;  // ready for the next launch
   }
+}
+
+#define LSQR_TICKETED_PARAMS                                                    \
+  const S *__restrict__ data, const float *__restrict__ vec,                    \
+      const float *__restrict__ y, const float *__restrict__ c1p,               \
+      const float *__restrict__ c2p, O *__restrict__ out,                       \
+      float *__restrict__ partial, unsigned int *__restrict__ ticket,           \
+      float *__restrict__ ssq, const int *__restrict__ offsets, int nd,         \
+      long long dim_out, long long dim_in
+#define LSQR_TICKETED_ARGS                                                      \
+  data, vec, y, c1p, c2p, out, partial, ticket, ssq, offsets, nd, dim_out, dim_in
+
+// Kernel 3 (f32 stripes and out).
+template <typename S, typename O>
+__global__ void __launch_bounds__(kThreads) dia_fused_halfstep_kernel(
+    LSQR_TICKETED_PARAMS) {
+  fused_halfstep_ticketed(LSQR_TICKETED_ARGS);
+}
+
+// Kernel 5 (f32 or bf16 stripes, out in the stripes' dtype).
+template <typename S, typename O>
+__global__ void __launch_bounds__(kThreads) dia_fused_halfstep_v2_kernel(
+    LSQR_TICKETED_PARAMS) {
+  fused_halfstep_ticketed(LSQR_TICKETED_ARGS);
+}
+
+#undef LSQR_TICKETED_PARAMS
+#undef LSQR_TICKETED_ARGS
+
+// Kernel 6: each block's partial sum to its own slot, nothing more.
+template <typename S, typename O>
+__global__ void __launch_bounds__(kThreads) dia_fused_halfstep_v3_kernel(
+    const S* __restrict__ data, const float* __restrict__ vec,
+    const float* __restrict__ y, const float* __restrict__ c1p,
+    const float* __restrict__ c2p, O* __restrict__ out,
+    float* __restrict__ partial, const int* __restrict__ offsets, int nd,
+    long long dim_out, long long dim_in) {
+  __shared__ float red[kThreads];
+  const float block_total = axpy_ssq_block(data, vec, y, c1p, c2p, out, offsets,
+                                           nd, dim_out, dim_in, red);
+  if (threadIdx.x == 0) partial[blockIdx.x] = block_total;
 }
 
 // One block owns indices [c0, c0 + kPairTile) of BOTH u (rows) and z
@@ -333,27 +418,55 @@ LSQR_PAIR(bf16, __nv_bfloat16)
 #undef LSQR_MATVEC_AXPY
 #undef LSQR_PAIR
 
-// partial holds at least `slots` floats (the grid is min(blocks needed,
-// slots, kReduceBlocks)); ticket is 0 on entry and the kernel leaves it 0.
-int lsqr_dia_fused_halfstep_f32(const void* data, const void* vec,
-                                const void* y, const void* c1, const void* c2,
-                                void* out, void* partial, void* ticket,
-                                void* ssq, const void* offsets, int nd,
-                                long long dim_out, long long dim_in, int slots,
-                                void* stream) {
-  if (dim_out <= 0 || slots <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks = (dim_out + kThreads - 1) / kThreads;
-  if (blocks > slots) blocks = slots;
-  if (blocks > kReduceBlocks) blocks = kReduceBlocks;
-  dia_fused_halfstep_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const float*>(vec),
-      static_cast<const float*>(y), static_cast<const float*>(c1),
-      static_cast<const float*>(c2), static_cast<float*>(out),
-      static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
-      static_cast<float*>(ssq), static_cast<const int*>(offsets), nd, dim_out,
-      dim_in);
-  return static_cast<int>(cudaGetLastError());
-}
+// partial holds at least `slots` floats; the grid is min(blocks needed,
+// slots, kReduceBlocks). With a ticket (kernels 3 and 5) it is 0 on entry and
+// the kernel leaves it 0; without one (kernel 6) the caller adds partial's
+// first min(blocks needed, slots, kReduceBlocks) slots, which the wrapper
+// sizes to exactly that.
+#define LSQR_FUSED(NAME, KERNEL, S, O)                                          \
+  int NAME(const void* data, const void* vec, const void* y, const void* c1,    \
+           const void* c2, void* out, void* partial, void* ticket, void* ssq,   \
+           const void* offsets, int nd, long long dim_out, long long dim_in,    \
+           int slots, void* stream) {                                           \
+    const unsigned blocks = reduce_grid(dim_out, slots);                        \
+    if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);            \
+    KERNEL<S, O><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(  \
+            static_cast<const S*>(data), static_cast<const float*>(vec),        \
+            static_cast<const float*>(y), static_cast<const float*>(c1),        \
+            static_cast<const float*>(c2), static_cast<O*>(out),                \
+            static_cast<float*>(partial), static_cast<unsigned int*>(ticket),   \
+            static_cast<float*>(ssq), static_cast<const int*>(offsets), nd,     \
+            dim_out, dim_in);                                                   \
+    return static_cast<int>(cudaGetLastError());                                \
+  }
+
+#define LSQR_FUSED_V3(SUFFIX, S, O)                                             \
+  int lsqr_dia_fused_halfstep_v3_##SUFFIX(                                      \
+      const void* data, const void* vec, const void* y, const void* c1,         \
+      const void* c2, void* out, void* partial, const void* offsets, int nd,    \
+      long long dim_out, long long dim_in, int slots, void* stream) {           \
+    const unsigned blocks = reduce_grid(dim_out, slots);                        \
+    if (blocks == 0 || static_cast<long long>(blocks) != slots) {               \
+      return static_cast<int>(cudaErrorInvalidValue);                           \
+    }                                                                           \
+    dia_fused_halfstep_v3_kernel<S, O>                                          \
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(           \
+            static_cast<const S*>(data), static_cast<const float*>(vec),        \
+            static_cast<const float*>(y), static_cast<const float*>(c1),        \
+            static_cast<const float*>(c2), static_cast<O*>(out),                \
+            static_cast<float*>(partial), static_cast<const int*>(offsets), nd, \
+            dim_out, dim_in);                                                   \
+    return static_cast<int>(cudaGetLastError());                                \
+  }
+
+LSQR_FUSED(lsqr_dia_fused_halfstep_f32, dia_fused_halfstep_kernel, float, float)
+LSQR_FUSED(lsqr_dia_fused_halfstep_v2_f32, dia_fused_halfstep_v2_kernel, float, float)
+LSQR_FUSED(lsqr_dia_fused_halfstep_v2_bf16, dia_fused_halfstep_v2_kernel, __nv_bfloat16,
+           __nv_bfloat16)
+LSQR_FUSED_V3(f32, float, float)
+LSQR_FUSED_V3(bf16, __nv_bfloat16, __nv_bfloat16)
+
+#undef LSQR_FUSED
+#undef LSQR_FUSED_V3
 
 }  // extern "C"

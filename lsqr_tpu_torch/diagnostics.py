@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from .config import default_dtype, eps_for
+from .config import default_dtype, eps_for, real_dtype
 from .ops.blas import nrm2
 from .ops.linop import as_operator, as_tensor
 
@@ -36,22 +36,26 @@ class XCheckResult(NamedTuple):
 def acheck(A, *, m=None, n=None, eps=None, power: float = 0.5) -> ACheckResult:
     """Check that matvec and rmatvec describe one matrix, by the dot-product
     test y'(y + Ax) = x'(x + A'y) on the reference's deterministic unit
-    vectors (lsqr.f90:946-992); tol = eps**power."""
+    vectors (lsqr.f90:946-992); tol = eps**power. Over C, A' is the
+    conjugate transpose: an adjoint without the conjugate fails."""
     A = as_operator(A, m=m, n=n)
     m, n = A.shape
     dtype = getattr(A, "dtype", None) or default_dtype()
+    rdtype = real_dtype(dtype)
     dev = A.device
-    tol = float(eps if eps is not None else eps_for(dtype)) ** power
+    tol = float(eps if eps is not None else eps_for(rdtype)) ** power
 
-    x = torch.sqrt(torch.arange(2, n + 2, dtype=dtype, device=dev))
-    y = 1.0 / torch.sqrt(torch.arange(2, m + 2, dtype=dtype, device=dev))
-    x = x / nrm2(x)
-    y = y / nrm2(y)
+    x = torch.sqrt(torch.arange(2, n + 2, dtype=rdtype, device=dev))
+    y = 1.0 / torch.sqrt(torch.arange(2, m + 2, dtype=rdtype, device=dev))
+    x = (x / nrm2(x)).to(dtype)
+    y = (y / nrm2(y)).to(dtype)
 
     w = y + A.matvec(x)
     v = x + A.rmatvec(y)
-    alfa = torch.vdot(y, w)
-    beta = torch.vdot(v, x)
+    # over C: <y, y + Ax> = <x + A^H y, x>, both sides holding y^H A x;
+    # vdot conjugates its first argument, as jnp.vdot does
+    alfa = torch.vdot(y.to(w.dtype), w)
+    beta = torch.vdot(v, x.to(v.dtype))
     error = torch.abs(alfa - beta) / (1.0 + torch.abs(alfa) + torch.abs(beta))
     inform = torch.where(error <= tol, 0, 1).to(torch.int32)
     return ACheckResult(inform=inform, error=error, tol=tol)
@@ -65,10 +69,10 @@ def xcheck(A, *, b, x, damp=0.0, anorm, m=None, n=None, eps=None,
     A = as_operator(A, m=m, n=n)
     b = as_tensor(b, device=A.device)
     x = as_tensor(x, dtype=b.dtype, device=b.device)
-    dtype = b.dtype
-    tol = float(eps if eps is not None else eps_for(dtype)) ** power
-    damp = as_tensor(damp, dtype=dtype, device=b.device)
-    anorm = as_tensor(anorm, dtype=dtype, device=b.device)
+    rdtype = real_dtype(b.dtype)  # the norms and tests are real
+    tol = float(eps if eps is not None else eps_for(rdtype)) ** power
+    damp = as_tensor(damp, dtype=rdtype, device=b.device)
+    anorm = as_tensor(anorm, dtype=rdtype, device=b.device)
     dampsq = damp * damp
 
     u = b - A.matvec(x)              # r   (lsqr.f90:1073-1076)
@@ -84,7 +88,7 @@ def xcheck(A, *, b, x, damp=0.0, anorm, m=None, n=None, eps=None,
     rho2 = torch.where(damped, torch.sqrt(rho1**2 + dampsq * xnorm**2), rho1)
     sigma2 = torch.where(damped, nrm2(w), sigma1)
 
-    one = torch.ones((), dtype=dtype, device=b.device)
+    one = torch.ones((), dtype=rdtype, device=b.device)
     trivial = (bnorm == 0) & (xnorm == 0)
     den1 = bnorm + anorm * xnorm
     test1 = torch.where(den1 > 0, rho1 / torch.where(den1 > 0, den1, one), 0.0)
@@ -96,7 +100,7 @@ def xcheck(A, *, b, x, damp=0.0, anorm, m=None, n=None, eps=None,
     inform = torch.where(test2 <= tol, 2, inform)
     inform = torch.where(test1 <= tol, 1, inform)
     inform = torch.where(trivial, 0, inform)
-    zero = torch.zeros((), dtype=dtype, device=b.device)
+    zero = torch.zeros((), dtype=rdtype, device=b.device)
     return XCheckResult(
         inform=inform,
         test1=torch.where(trivial, zero, test1),

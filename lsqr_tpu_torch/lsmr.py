@@ -10,8 +10,8 @@ implements.
 
 The loop is the LSQR core's (:func:`lsqr_tpu_torch.solver._run_segments`):
 segments of masked iterations with one host read of istop/itn per segment,
-so ``itn`` and ``istop`` are those of JAX's ``while_loop``. Real dtypes only
-(complex solves are ROADMAP Queue 1 item 12).
+so ``itn`` and ``istop`` are those of JAX's ``while_loop``. Complex problems
+as in LSQR: complex vectors, real scalars.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .config import default_dtype
+from .config import default_dtype, real_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
 from .solver import _run_segments
@@ -145,9 +145,11 @@ def _build(
     row in place where ``active`` holds."""
     m, n = A.shape
     dtype = b.dtype
+    rdtype = real_dtype(dtype)
     dev = b.device
+    check_complex_pair(A, dtype, pair)
 
-    def const(v, dt=dtype):
+    def const(v, dt=rdtype):
         return torch.tensor(v, dtype=dt, device=dev)
 
     zero = const(0.0)
@@ -170,7 +172,7 @@ def _build(
     normar0 = alpha0 * beta0
 
     trace_rows = itnlim + 1 if record_trace else 1
-    trace0 = torch.zeros((trace_rows, len(LSMR_TRACE_COLUMNS)), dtype=dtype, device=dev)
+    trace0 = torch.zeros((trace_rows, len(LSMR_TRACE_COLUMNS)), dtype=rdtype, device=dev)
     if record_trace:
         trace0[0] = torch.stack(
             [zero, zero, beta0, normar0, one,
@@ -185,7 +187,7 @@ def _build(
         cbar=one, sbar=zero, zeta=zero, zetabar=alpha0 * beta0,
         betadd=beta0, betad=zero, rhodold=one, tautildeold=zero,
         thetatilde=zero, d=zero, norma2=alpha0 * alpha0, maxrbar=zero,
-        minrbar=const(min(1e100, torch.finfo(dtype).max / 2)),
+        minrbar=const(min(1e100, torch.finfo(rdtype).max / 2)),
         normr=beta0, normar=normar0, norma=torch.sqrt(alpha0 * alpha0),
         conda=one, normx=zero, trace=trace0,
     )
@@ -289,7 +291,7 @@ def _build(
 
         if record_trace:
             row = torch.stack([
-                itn.to(dtype), x[0], normr, normar, test1,
+                itn.to(rdtype), x[0].real if dtype.is_complex else x[0], normr, normar, test1,
                 torch.where(torch.isinf(test2), zero, test2), norma, conda])
             idx = torch.clamp(itn, max=trace_rows - 1).long().view(1)
             old = c.trace.index_select(0, idx)
@@ -318,13 +320,19 @@ def _build(
 
 def solve_dtype(b: torch.Tensor, A: LinearOperator) -> torch.dtype:
     """The working dtype of a sibling solve: b's, ints -> the default float
-    (the JAX siblings' rule); complex raises (Queue 1 item 12)."""
-    if b.dtype.is_complex:
-        raise NotImplementedError("complex solves are ROADMAP Queue 1 item 12")
+    (the JAX siblings' rule)."""
     if b.ndim != 1 or b.shape[0] != A.m:
         raise ValueError(f"b must be a vector of length m = {A.m}; got shape "
                          f"{tuple(b.shape)}")
-    return b.dtype if b.dtype.is_floating_point else default_dtype()
+    return b.dtype if b.dtype.is_floating_point or b.dtype.is_complex else default_dtype()
+
+
+def check_complex_pair(A: LinearOperator, dtype: torch.dtype, pair: bool) -> None:
+    """The siblings' guard: with complex vectors the pair path needs an
+    operator whose pair kernel takes them (``supports_complex_pair``)."""
+    if dtype.is_complex and pair and not getattr(A, "supports_complex_pair", False):
+        raise ValueError("fused pair kernels are real-f32 only; set pair=False for "
+                         "complex operators")
 
 
 def lsmr(
@@ -396,8 +404,8 @@ def lsmr(
     if pair and not hasattr(A, "fused_pair"):
         raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
 
-    def scalar(v):
-        return as_tensor(v, dtype=dtype, device=b.device)
+    def scalar(v):  # damp and the tolerances are real, also for complex problems
+        return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, scalar(damp), scalar(atol), scalar(btol), scalar(conlim),

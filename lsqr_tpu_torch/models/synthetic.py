@@ -18,7 +18,11 @@ from ..ops.coo import COOOperator, coo_operator
 from ..ops.structured import DIAOperator, dia_operator
 
 __all__ = ["banded_problem", "random_coo_problem", "banded_dia", "block_banded_coo",
-           "jittered_band_coo", "random_block_coo", "zipf_coo", "zipf_column_coo"]
+           "jittered_band_coo", "random_block_coo", "zipf_coo", "zipf_column_coo",
+           "zdia_stripes", "ZDIA_OFFSETS"]
+
+#: the diagonals of the JAX package's complex benchmark (bench.py:127-129)
+ZDIA_OFFSETS = tuple(range(-2, 3))
 
 
 def banded_dia(m, n, offsets: Sequence[int], *, seed=0, dtype=np.float32,
@@ -180,3 +184,33 @@ def zipf_column_coo(m, n, nnz, *, exponent=1.1, seed=0):
     rows = np.sort(rng.integers(0, m, nnz).astype(np.int64))
     vals = rng.standard_normal(nnz).astype(np.float32)
     return vals[:cols.size], rows[:cols.size], cols
+
+
+def zdia_stripes(m, n, offsets: Sequence[int] = ZDIA_OFFSETS, *, seed=0, diag=0.0,
+                 dtype=torch.complex64, device=None, generator="numpy") -> torch.Tensor:
+    """Complex row-aligned stripes (len(offsets), m) of the JAX package's
+    complex benchmark pattern (``bench.py``'s zdia stage: 5 diagonals at
+    m = n = 2^21): N(0, 1) real and imaginary planes, ``diag`` added to
+    the real part of the main diagonal, zero outside the matrix; on
+    ``device`` (the card when None). ``generator="numpy"`` draws the real
+    plane, then the imaginary one, from ``numpy.random.default_rng(seed)``
+    (the values a test hands to both packages); ``"torch"`` draws them from
+    a ``torch.Generator`` on the device, so that large planes never cross
+    from the host."""
+    device = resolve_device(device)
+    shape = (len(offsets), m)
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    if generator == "numpy":
+        rng = np.random.default_rng(seed)
+        planes = [torch.from_numpy(rng.standard_normal(shape)).to(device, rdt)
+                  for _ in range(2)]
+    elif generator == "torch":
+        g = torch.Generator(device=device).manual_seed(seed)
+        planes = [torch.randn(shape, generator=g, device=device, dtype=rdt) for _ in range(2)]
+    else:
+        raise ValueError(f"generator {generator!r}: 'numpy' or 'torch'")
+    if 0 in offsets:
+        planes[0][list(offsets).index(0)] += diag
+    i = torch.arange(m, device=device)
+    mask = torch.stack([(i + k >= 0) & (i + k < n) for k in offsets])
+    return torch.complex(planes[0], planes[1]) * mask

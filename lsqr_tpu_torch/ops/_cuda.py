@@ -51,11 +51,20 @@ _SIGNATURES = {
        for s in ("f32", "bf16", "bf16_f32out")},
     # data, vec, y, c1, c2, out, partial, ticket, ssq, offsets, nd, dim_out,
     # dim_in, slots, stream
-    "lsqr_dia_fused_halfstep_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
-                                    _I, _P),
+    **{f"lsqr_dia_fused_halfstep_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
+                                        _I, _P)
+       for s in ("f32", "v2_f32", "v2_bf16")},
+    # data, vec, y, c1, c2, out, partial, offsets, nd, dim_out, dim_in, slots,
+    # stream
+    **{f"lsqr_dia_fused_halfstep_v3_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
+                                           _P)
+       for s in ("f32", "bf16")},
     # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, stream
     **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _P)
        for s in ("f32", "bf16")},
+    # csrc/zdia.cu
+    # dr, di, win, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, mode, stream
+    "lsqr_zdia_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P),
     # csrc/jdia.cu
     # data, eoff, base, x, out, ns, m_pad, nt_p, m, n, tm, p_lo, stream
     "lsqr_jdia_matvec_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _P),

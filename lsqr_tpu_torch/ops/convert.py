@@ -24,6 +24,7 @@ from .wcoo import WCOOOperator
 from .wcoo import packed_from_arrays as wcoo_packed
 from .wwcoo import WWCOOOperator
 from .wwcoo import packed_from_arrays as wwcoo_packed
+from .zdia import ZDIAOperator, ZJDIAOperator
 
 __all__ = ["operator_from_arrays", "result_to_numpy"]
 
@@ -70,10 +71,15 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
         "hot_<name>", its cold packing's as "cold_<name>" (none when it has
         no cold stream), "hotmap" and the "coo_*" triplets; meta {"n", "hot":
         the hot packing's statics, "cold": the cold's or None}.
+    kind "zdia": arrays {"dr", "di", "tdr", "tdi"}, meta {"m", "n", "offsets"}
+        of a JAX ``ZDIAOperator``; the four planes are used as they are.
+    kind "zjdia": the "jdia" arrays of a JAX ``ZJDIAOperator``'s real plane
+        prefixed "re_" and of its imaginary plane prefixed "im_"; meta: the
+        "jdia" meta, which the two planes share (one pattern).
     Index arrays become int64 where the port indexes with them.
     """
     kinds = ("dia_shared", "dia", "coo", "jdia", "ell", "block_ell", "hyb", "wcoo", "wwcoo",
-             "rwcoo")
+             "rwcoo", "zdia", "zjdia")
     if kind not in kinds:
         raise ValueError(f"unknown operator kind {kind!r} ({', '.join(kinds)})")
     if kind == "dia_shared":
@@ -87,6 +93,17 @@ def operator_from_arrays(kind: str, arrays: Mapping[str, np.ndarray],
             m=int(meta["m"]), n=int(meta["n"]),
             offsets=tuple(int(k) for k in meta["offsets"]),
         )
+    if kind == "zdia":
+        return ZDIAOperator(
+            **{k: _tensor(arrays[k], device) for k in ("dr", "di", "tdr", "tdi")},
+            m=int(meta["m"]), n=int(meta["n"]),
+            offsets=tuple(int(k) for k in meta["offsets"]),
+        )
+    if kind == "zjdia":
+        planes = [operator_from_arrays(
+            "jdia", {k[3:]: v for k, v in arrays.items() if k.startswith(pre)}, meta, device)
+            for pre in ("re_", "im_")]
+        return ZJDIAOperator(re=planes[0], im=planes[1])
     if kind == "coo":
         return coo_operator(meta["m"], meta["n"], _tensor(arrays["vals"], device),
                             arrays["rows"], arrays["cols"])

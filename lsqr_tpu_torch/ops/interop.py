@@ -17,9 +17,12 @@ the JAX package's steps in its order:
 4. blocky at (128, 128) (fill ratio <= 64x)     -> BlockELL
 5. otherwise                                    -> HYB (ELL + COO spill)
 
+Complex matrices take JAX's complex branch before these steps: banded
+patterns the plane-split ZDIA operator, jittered ones with a slot fit of at
+least 0.95 ZJDIA, the rest COO.
+
 The WCOO and WWCOO packers keep JAX's refusals (TPU window and VMEM
-bounds), so each pattern lands on the operator JAX picks. Complex matrices
-raise ``NotImplementedError`` (ZDIA/ZJDIA, ROADMAP Queue 1 item 12).
+bounds), so each pattern lands on the operator JAX picks.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .structured import (block_ell_operator, dia_operator, dia_shared_operator,
                          ell_operator, hyb_operator)
 from .wcoo import WCOOPackError, wcoo_operator
 from .wwcoo import WWCOOPackError
+from .zdia import zdia_operator, zjdia_from_packings, zjdia_pack
 
 __all__ = ["auto_operator", "from_scipy", "csr_operator"]
 
@@ -54,18 +58,18 @@ def auto_operator(m, n, vals, rows, cols, *, dtype=None, device=None,
     rows_np, cols_np, vals_np = to_numpy(rows), to_numpy(cols), to_numpy(vals)
     if len(vals_np) == 0:
         return coo_operator(m, n, vals_np, rows_np, cols_np, dtype=dtype, device=device)
-    if np.iscomplexobj(vals_np):
-        raise NotImplementedError(
-            "complex operators (ZDIA/ZJDIA/COO) are not ported yet "
-            "(ROADMAP Queue 1 item 12)"
-        )
     diags = np.unique(cols_np.astype(np.int64) - rows_np)
-    eff = as_dtype(dtype) or as_dtype(vals_np.dtype)
-    if len(diags) * m <= 4 * len(vals_np) and len(diags) <= 1024:
+    banded = len(diags) * m <= 4 * len(vals_np) and len(diags) <= 1024
+    if banded:
         stripes = np.zeros((len(diags), m), vals_np.dtype)
         idx = np.searchsorted(diags, cols_np.astype(np.int64) - rows_np)
         np.add.at(stripes, (idx, rows_np), vals_np)
         offsets = tuple(int(k) for k in diags)
+    if np.iscomplexobj(vals_np):
+        return _complex_operator(m, n, vals_np, rows_np, cols_np, dtype, device,
+                                 (offsets, stripes) if banded else None)
+    eff = as_dtype(dtype) or as_dtype(vals_np.dtype)
+    if banded:
         build = dia_shared_operator if compact or eff == torch.float32 else dia_operator
         return build(m, n, offsets, stripes, dtype=dtype, device=device)
 
@@ -96,6 +100,21 @@ def auto_operator(m, n, vals, rows, cols, *, dtype=None, device=None,
                                   dtype=dtype, device=device)
     except ValueError:
         return hyb_operator(m, n, vals_np, rows_np, cols_np, dtype=dtype, device=device)
+
+
+def _complex_operator(m, n, vals, rows, cols, dtype, device, banded):
+    """JAX's complex branch: the banded pattern's (offsets, stripes) ->
+    ZDIA; else ZJDIA when the host packer fits at least 95% of the entries
+    into slots (only its refusal is caught); else COO."""
+    if banded is not None:
+        return zdia_operator(m, n, *banded, dtype=dtype, device=device)
+    try:
+        re, im, nnz = zjdia_pack(m, n, vals, rows, cols, dtype=dtype)
+    except (ValueError, JDIAFixpointError):
+        re = None
+    if re is not None and 1.0 - len(re["rem_vals"]) / max(nnz, 1) >= 0.95:
+        return zjdia_from_packings(re, im, m, n, nnz, device)
+    return coo_operator(m, n, vals, rows, cols, dtype=dtype, device=device)
 
 
 def _block_fill_ratio(rows, cols, m, n, bh=128, bw=128):
@@ -137,8 +156,9 @@ def from_scipy(sp_matrix, *, dtype=None, format: Optional[str] = None,
     ``device`` (the card when None).
 
     format: None (:func:`auto_operator`), 'dia' (the packed DIAOperator of
-    the matrix's diagonals), 'ell', 'coo' or 'block' (BlockELL at
-    (128, 128)).
+    the matrix's diagonals; ZDIA for a complex matrix), 'ell', 'coo' or
+    'block' (BlockELL at (128, 128)); a complex matrix takes None, 'coo' or
+    'dia'.
     """
     import scipy.sparse
 

@@ -84,9 +84,17 @@ class LinearOperator:
         return torch.stack([self.matvec(e) for e in eye], dim=1)
 
 
+def _matmul(a, x):
+    """a @ x in the promoted dtype (a real matrix takes complex vectors, as
+    in JAX); no copy when the dtypes agree."""
+    dt = torch.promote_types(a.dtype, x.dtype)
+    return a.to(dt) @ x.to(dt)
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseOperator(LinearOperator):
-    """Dense A; the products are ``torch.matmul``."""
+    """Dense A; the products are ``torch.matmul`` (``rmatvec`` with the
+    conjugate transpose ``A.mH``)."""
 
     a: torch.Tensor
 
@@ -107,10 +115,10 @@ class DenseOperator(LinearOperator):
         return self.a.device
 
     def matvec(self, x):
-        return self.a @ x
+        return _matmul(self.a, x)
 
     def rmatvec(self, y):
-        return self.a.mH @ y
+        return _matmul(self.a.mH, y)
 
     def todense(self):
         return self.a

@@ -1,4 +1,4 @@
-"""DIA products: the seven kernels of the banded paths.
+"""DIA products: the ten kernels of the banded paths.
 
 PyTorch counterpart of the DIA part of :mod:`lsqr_tpu.ops.pallas_spmv`.
 Each kernel is written by hand in CUDA C++ and has a plain PyTorch twin
@@ -13,7 +13,14 @@ dia_pair_shared            u = A(vec*c1) - c2*y, z = A' u     csrc/dia_shared.cu
 dia_matvec                 A x, packed (f32, f64, bf16)       csrc/dia_packed.cu
 dia_matvec_axpy            A(win*c1) - c2*y, packed           csrc/dia_packed.cu
 dia_fused_halfstep         as dia_matvec_axpy, and sum(out^2) csrc/dia_packed.cu
+dia_fused_halfstep_v2      the same in f32 or bf16, the sum   csrc/dia_packed.cu
+                           reduced in the launch
+dia_fused_halfstep_v3      the same, one partial sum per      csrc/dia_packed.cu
+                           block, added by the wrapper
 dia_pair                   the pair on packed stripes         csrc/dia_packed.cu
+zdia_pair                  the complex pair on two stripe     csrc/zdia.cu
+                           planes: u = A(win*c1) - c2*y,
+                           z = A^H u
 =========================  =================================  ==================
 
 Each replaces the Pallas kernel of the same name. A wrapper given CPU
@@ -27,7 +34,9 @@ format, so vectors, c1, c2 and the accumulation are f32, and so are the
 results, except that ``dia_matvec_axpy`` and ``dia_fused_halfstep`` return
 the stripes' dtype as the JAX kernels do (their ``ssq`` stays f32;
 ``dia_matvec_axpy(out_dtype=torch.float32)`` keeps an f32 result, which the
-operators' half-steps and the wide-halo pair take).
+operators' half-steps and the wide-halo pair take), and so do the two
+variants of the fused half-step. ``zdia_pair`` takes f32 planes and
+complex64 vectors (read and written as interleaved float2) with real c1, c2.
 
 Shared layout: ``dp`` is the flat ``(nd * Lp,)`` stripe array of
 :func:`dia_shared_geometry` with ``dp[d * Lp + H + i] = A[i, i + offsets[d]]``
@@ -59,6 +68,13 @@ __all__ = [
     "dia_matvec_axpy_plain",
     "dia_fused_halfstep_plain",
     "dia_pair_plain",
+    "dia_fused_halfstep_v2",
+    "dia_fused_halfstep_v3",
+    "dia_fused_halfstep_v2_plain",
+    "dia_fused_halfstep_v3_plain",
+    "zdia_pair",
+    "zdia_pair_plain",
+    "ZPAIR_BLOCK",
     "launch_counts",
     "reset_launch_counts",
     "register",
@@ -206,10 +222,75 @@ def dia_fused_halfstep_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
     return acc.to(data.dtype), torch.sum(acc * acc)
 
 
+def dia_fused_halfstep_v2_plain(data, y, win_vec, c1, c2, *, offsets, m, n,
+                                ssq_out="vmem"):
+    """Plain twin of :func:`dia_fused_halfstep_v2`: ``ssq_out`` names a TPU
+    memory space and changes nothing here."""
+    return dia_fused_halfstep_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
+
+
+def dia_fused_halfstep_v3_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
+    """Plain twin of :func:`dia_fused_halfstep_v3`."""
+    return dia_fused_halfstep_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
+
+
 def dia_pair_plain(data, y, win_vec, c1, c2, *, offsets, m, n):
     """Plain twin of :func:`dia_pair`."""
     u = _axpy_acc(data, y, win_vec, c1, c2, offsets, m)
     return u, dia_matvec_plain(data, u, offsets=offsets, m=m, n=n, adjoint=True)
+
+
+#: rows per block of :func:`zdia_pair_plain` (the JAX package's _ZPAIR_BLOCK)
+ZPAIR_BLOCK = 256 * 1024
+
+
+def zdia_pair_plain(dr, di, y, win, c1, c2, *, offsets, m, n, block=ZPAIR_BLOCK):
+    """Plain twin of :func:`zdia_pair`, written from the JAX package's
+    blocked ``zdia_pair_xla`` in its operation order: per block of rows, u
+    over the diagonals in offset order on the real and imaginary parts,
+    then the conjugate-transpose partials of the block (the planes read
+    once for both products), overlap-added into z. f32 planes give
+    complex64, f64 planes complex128; c1 and c2 are real."""
+    ks = tuple(offsets)
+    kmin, kmax = min(ks), max(ks)
+    lo = max(0, -kmin)
+    dt, dev = dr.dtype, dr.device
+    c1, c2 = _scalar(c1, dt, dev), _scalar(c2, dt, dev)
+    nb = -(-m // block)
+    mp = nb * block
+    xp_len = lo + max(n, mp + max(0, kmax))
+    xpr, xpi = dr.new_zeros(xp_len), dr.new_zeros(xp_len)
+    xpr[lo:lo + n], xpi[lo:lo + n] = win.real.to(dt) * c1, win.imag.to(dt) * c1
+    ypr, ypi = dr.new_zeros(mp), dr.new_zeros(mp)
+    ypr[:m], ypi[:m] = y.real.to(dt), y.imag.to(dt)
+    drp, dip = dr.new_zeros((len(ks), mp)), dr.new_zeros((len(ks), mp))
+    drp[:, :m], dip[:, :m] = dr, di
+    span = kmax - kmin
+    zpr, zpi = dr.new_zeros(xp_len + span), dr.new_zeros(xp_len + span)
+    ur, ui = [], []
+    for b in range(nb):
+        st = b * block
+        ubr, ubi = (-c2) * ypr[st:st + block], (-c2) * ypi[st:st + block]
+        for d, k in enumerate(ks):
+            rj, qj = drp[d, st:st + block], dip[d, st:st + block]
+            sr, si = xpr[lo + k + st:lo + k + st + block], xpi[lo + k + st:lo + k + st + block]
+            ubr = ubr + rj * sr - qj * si
+            ubi = ubi + rj * si + qj * sr
+        ur.append(ubr)
+        ui.append(ubi)
+        # the adjoint's partials while the block's planes are at hand:
+        # z[i + k] += conj(A[i, i + k]) u[i]
+        zbr, zbi = dr.new_zeros(block + span), dr.new_zeros(block + span)
+        for d, k in enumerate(ks):
+            rj, qj = drp[d, st:st + block], dip[d, st:st + block]
+            zbr[k - kmin:k - kmin + block] += rj * ubr + qj * ubi
+            zbi[k - kmin:k - kmin + block] += rj * ubi - qj * ubr
+        s0 = st + kmin + lo
+        zpr[s0:s0 + block + span] += zbr
+        zpi[s0:s0 + block + span] += zbi
+    u = torch.complex(torch.cat(ur)[:m], torch.cat(ui)[:m])
+    z = torch.complex(zpr[lo:lo + n], zpi[lo:lo + n])
+    return u, z
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +508,21 @@ def dia_matvec_axpy(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
     return out
 
 
-#: per (device, stream): the fused half-step's int32 ticket, 0 between launches
+#: per (device, stream): the fused half-steps' int32 ticket, 0 between launches
 _TICKETS: dict = {}
-#: the fused half-step kernel's grid cap (kReduceBlocks in csrc/dia_packed.cu)
+#: the fused half-step kernels' grid cap (kReduceBlocks in csrc/dia_packed.cu)
 _REDUCE_BLOCKS = 1024
+
+
+def _ticket(device):
+    """The int32 ticket of the current stream: launches on one stream run
+    in order, and each kernel that takes a ticket leaves it at 0."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ticket = _TICKETS.get((device, stream))
+    if ticket is None:
+        ticket = _TICKETS[(device, stream)] = torch.zeros(1, dtype=torch.int32,
+                                                          device=device)
+    return ticket
 
 
 def dia_fused_halfstep(data, y, win_vec, c1, c2, *, offsets: Sequence[int],
@@ -445,25 +537,73 @@ def dia_fused_halfstep(data, y, win_vec, c1, c2, *, offsets: Sequence[int],
     if not data.is_cuda:
         return dia_fused_halfstep_plain(data, y, win_vec, c1, c2, offsets=offsets,
                                         m=m, n=n)
-    fn = _kernel("dia_fused_halfstep", data, (torch.float32,), offsets)
+    return _ssq_in_launch(dia_fused_halfstep, (torch.float32,), data, y, win_vec, c1,
+                          c2, offsets, m, n, offsets_t)
+
+
+def _reduce_args(wrapper, dtypes, data, y, win_vec, c1, c2, offsets, m, n, offsets_t):
+    """The launcher, the checked arguments, ``out`` (the stripes' dtype)
+    and the partial-sum slots of a fused half-step kernel."""
+    fn = _kernel(wrapper.kernel_name, data, dtypes, offsets)
     offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
                                           offsets_t)
-    out = torch.empty(m, dtype=torch.float32, device=data.device)
-    if m == 0:
-        return out, torch.zeros((), dtype=torch.float32, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    ticket = _TICKETS.get((data.device, stream))
-    if ticket is None:
-        ticket = _TICKETS[(data.device, stream)] = torch.zeros(
-            1, dtype=torch.int32, device=data.device)
+    out = torch.empty(m, dtype=data.dtype, device=data.device)
     slots = min(-(-m // 256), _REDUCE_BLOCKS)
     partial = torch.empty(slots, dtype=torch.float32, device=data.device)
+    return fn, offsets_t, c1, c2, out, partial
+
+
+def _ssq_in_launch(wrapper, dtypes, data, y, win_vec, c1, c2, offsets, m, n, offsets_t):
+    """Launch a fused half-step kernel whose last block adds the blocks'
+    partial sums in slot order (rows 7 and 8): (out, ssq)."""
+    fn, offsets_t, c1, c2, out, partial = _reduce_args(
+        wrapper, dtypes, data, y, win_vec, c1, c2, offsets, m, n, offsets_t)
+    if m == 0:
+        return out, torch.zeros((), dtype=torch.float32, device=data.device)
     ssq = torch.empty((), dtype=torch.float32, device=data.device)
-    _launch(dia_fused_halfstep, fn, data, data.data_ptr(), win_vec.data_ptr(),
-            y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), ticket.data_ptr(), ssq.data_ptr(),
-            offsets_t.data_ptr(), len(offsets), m, n, slots)
+    _launch(wrapper, fn, data, data.data_ptr(), win_vec.data_ptr(), y.data_ptr(),
+            c1.data_ptr(), c2.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            _ticket(data.device).data_ptr(), ssq.data_ptr(), offsets_t.data_ptr(),
+            len(offsets), m, n, partial.shape[0])
     return out, ssq
+
+
+def dia_fused_halfstep_v2(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
+                          n: int, ssq_out: str = "vmem",
+                          offsets_t: Optional[torch.Tensor] = None):
+    """As :func:`dia_fused_halfstep` (out = A (win_vec*c1) - c2*y and
+    ssq = sum of the unrounded out squared), for f32 or bf16 stripes: out
+    in the stripes' dtype, ssq an f32 0-d tensor reduced in the same
+    launch. ``ssq_out`` picks a TPU memory space in the JAX kernel; any
+    value computes the same here. On CUDA: f32 vectors."""
+    offsets = tuple(int(k) for k in offsets)
+    if not data.is_cuda:
+        return dia_fused_halfstep_v2_plain(data, y, win_vec, c1, c2, offsets=offsets,
+                                           m=m, n=n, ssq_out=ssq_out)
+    return _ssq_in_launch(dia_fused_halfstep_v2, (torch.float32, torch.bfloat16), data, y,
+                          win_vec, c1, c2, offsets, m, n, offsets_t)
+
+
+def dia_fused_halfstep_v3(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
+                          n: int, offsets_t: Optional[torch.Tensor] = None):
+    """As :func:`dia_fused_halfstep_v2`, but each block of the launch writes
+    its own partial sum of squares to a slot of its own (no ticket, no
+    block reads another's slot), and the wrapper adds the slots, as the JAX
+    wrapper adds its per-tile partials."""
+    offsets = tuple(int(k) for k in offsets)
+    if not data.is_cuda:
+        return dia_fused_halfstep_v3_plain(data, y, win_vec, c1, c2, offsets=offsets,
+                                           m=m, n=n)
+    fn, offsets_t, c1, c2, out, partial = _reduce_args(
+        dia_fused_halfstep_v3, (torch.float32, torch.bfloat16), data, y, win_vec, c1, c2,
+        offsets, m, n, offsets_t)
+    if m == 0:
+        return out, torch.zeros((), dtype=torch.float32, device=data.device)
+    _launch(dia_fused_halfstep_v3, fn, data, data.data_ptr(), win_vec.data_ptr(),
+            y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), offsets_t.data_ptr(), len(offsets), m, n,
+            partial.shape[0])
+    return out, torch.sum(partial)
 
 
 def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int,
@@ -498,6 +638,48 @@ def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int
     return u, z
 
 
+#: the modes of the zdia_pair kernel (csrc/zdia.cu): the one-pass pair with
+#: its halo recomputed; u alone; z = A^H u from u
+ZPAIR_FUSED, ZPAIR_FORWARD, ZPAIR_ADJOINT = 0, 1, 2
+
+
+def zdia_pair(dr, di, y, win, c1, c2, *, offsets: Sequence[int], m: int, n: int,
+              offsets_t: Optional[torch.Tensor] = None):
+    """The complex pair in one pass over the two stripe planes
+    ``dr``, ``di`` (nd, m), A[i, i + k_d] = dr[d, i] + i di[d, i]:
+        u = A (win*c1) - c2*y,     z = A^H u
+    with y (m,) and win (n,) complex64 and REAL scalars c1, c2 (numbers or
+    0-d tensors, read on the device). Returns (u (m,), z (n,)) complex64.
+    On CUDA: f32 planes. When lo = max(0, -min k) or hi = max(0, max k)
+    exceeds PAIR_MAX_HALO, the pair is two launches of the kernel (u, then
+    z from u), each counted."""
+    offsets = tuple(int(k) for k in offsets)
+    if not dr.is_cuda:
+        return zdia_pair_plain(dr, di, y, win, c1, c2, offsets=offsets, m=m, n=n)
+    fn = _kernel("zdia_pair", dr, (torch.float32,), offsets)
+    _check("dr", dr, torch.float32, dr.device, (len(offsets), m))
+    _check("di", di, torch.float32, dr.device, (len(offsets), m))
+    _check("y", y, torch.complex64, dr.device, m)
+    _check("win", win, torch.complex64, dr.device, n)
+    offsets_t = _offsets_on(dr, offsets, offsets_t)
+    c1, c2 = _device_scalar(c1, dr.device), _device_scalar(c2, dr.device)
+    u = torch.empty(m, dtype=torch.complex64, device=dr.device)
+    z = torch.empty(n, dtype=torch.complex64, device=dr.device)
+    if max(m, n) == 0:
+        return u, z
+    lo, hi = _halos(offsets)
+    # the kernel reads and writes the complex vectors as interleaved float2
+    ptrs = [torch.view_as_real(t).data_ptr() for t in (y, win, u, z)]
+    args = (dr.data_ptr(), di.data_ptr(), ptrs[1], ptrs[0], c1.data_ptr(), c2.data_ptr(),
+            ptrs[2], ptrs[3], offsets_t.data_ptr(), len(offsets), m, n, lo, hi)
+    if max(lo, hi) <= PAIR_MAX_HALO:
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_FUSED)
+    else:
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_FORWARD)
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_ADJOINT)
+    return u, z
+
+
 #: every kernel wrapper and the stripe dtypes its kernel takes
 KERNELS = {
     dia_pair_shared: ("f32", "bf16"),
@@ -507,6 +689,9 @@ KERNELS = {
     dia_matvec: ("f32", "f64", "bf16"),
     dia_matvec_axpy: ("f32", "bf16"),
     dia_fused_halfstep: ("f32",),
+    dia_fused_halfstep_v2: ("f32", "bf16"),
+    dia_fused_halfstep_v3: ("f32", "bf16"),
+    zdia_pair: ("f32",),
 }
 
 

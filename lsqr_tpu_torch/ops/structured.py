@@ -91,10 +91,22 @@ def _todense(data, offsets, m, n, dtype):
     return dense
 
 
-def _no_complex(data):
-    if data.is_complex():
-        raise NotImplementedError(
-            "complex stripes (ZDIA) are not ported yet (ROADMAP Queue 1 item 12)")
+def _transpose_stripes(data, offsets, m, n):
+    """The packed transpose of row-aligned stripes (nd, m): (nd, n) with
+    ``t[d, c] = A[c - k, c] = data[d, c - k]``, on data's device."""
+    t = data.new_zeros((len(offsets), n))
+    for j, k in enumerate(offsets):
+        lo, hi = max(0, -k), min(m, n - k)
+        if hi > lo:
+            t[j, lo + k:hi + k] = data[j, lo:hi]
+    return t
+
+
+def _real_only(storage_dtype):
+    """Complex stripes go to the plane-split ZDIA operator, which stores
+    them as they are: bf16 storage applies to real stripes only."""
+    if storage_dtype is not None:
+        raise ValueError("storage_dtype applies to real stripes only")
 
 
 # ---------------------------------------------------------------------------
@@ -215,19 +227,20 @@ def dia_operator_device(m, n, offsets: Sequence[int], data: torch.Tensor, *,
     already on their device; the masking and the transpose packing run on
     that device, so the stripes never cross to the host.
     ``storage_dtype=torch.bfloat16`` stores both stripe arrays in bf16
-    (rounded after masking and packing, as in the JAX package)."""
+    (rounded after masking and packing, as in the JAX package). Complex
+    stripes give the plane-split
+    :class:`~lsqr_tpu_torch.ops.zdia.ZDIAOperator`."""
     offsets = tuple(int(k) for k in offsets)
     nd = len(offsets)
-    _no_complex(data)
+    if data.is_complex():
+        from .zdia import zdia_operator_device
+
+        _real_only(storage_dtype)
+        return zdia_operator_device(m, n, offsets, data)
     if tuple(data.shape) != (nd, m):
         raise ValueError(f"data must have shape ({nd}, {m}), got {tuple(data.shape)}")
     data = _masked(data, offsets, m, n)
-    # tdata[j, c] = A[c - k, c] = data[j, c - k] on an n-long axis
-    tdata = data.new_zeros((nd, n))
-    for j, k in enumerate(offsets):
-        lo, hi = max(0, -k), min(m, n - k)
-        if hi > lo:
-            tdata[j, lo + k:hi + k] = data[j, lo:hi]
+    tdata = _transpose_stripes(data, offsets, m, n)
     storage_dtype = as_dtype(storage_dtype)
     if storage_dtype is not None:
         data, tdata = data.to(storage_dtype), tdata.to(storage_dtype)
@@ -243,10 +256,16 @@ def dia_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
     the host; the two stripe arrays then move to ``device`` once (when None:
     the device of a tensor ``data``, else the card).
     ``storage_dtype=torch.bfloat16`` keeps bf16 stripes (f32 products).
-    Complex stripes raise ``NotImplementedError`` (ZDIA, ROADMAP Queue 1
-    item 12)."""
+    Complex stripes give the plane-split
+    :class:`~lsqr_tpu_torch.ops.zdia.ZDIAOperator` (``storage_dtype`` then
+    raises ValueError)."""
     device = placement(data, device)
     data = as_tensor(data, dtype=dtype, device="cpu")
+    if data.is_complex():
+        from .zdia import zdia_operator
+
+        _real_only(storage_dtype)
+        return zdia_operator(m, n, offsets, data, device=device)
     op = dia_operator_device(m, n, offsets, data, storage_dtype=storage_dtype)
     if op.device == device:
         return op

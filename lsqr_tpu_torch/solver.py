@@ -14,7 +14,11 @@ tensors on the device, and the host reads ``istop``/``itn`` once per
 segment, never once per iteration. The masking makes ``itn`` and ``istop``
 those of JAX's ``while_loop``.
 
-Real dtypes only in this slice: complex solves are ROADMAP Queue 1 item 12.
+Complex problems, as in the JAX package: the vectors u, v, w and x are
+complex, ``rmatvec`` is the conjugate-transpose product, and every scalar
+of the recurrence (alpha, beta, the rotations, the norm estimates, damp and
+the tolerances) is real, in the matching real dtype; ``se`` and the trace
+are real, the trace recording Re x[0].
 """
 
 from __future__ import annotations
@@ -23,8 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .config import LSQROptions, as_dtype, default_dtype
-from .ops.blas import d2norm, nrm2
+from .config import LSQROptions, as_dtype, default_dtype, real_dtype
+from .ops.blas import abs2, d2norm, nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
 
 __all__ = ["LSQRResult", "lsqr", "ISTOP_MESSAGES", "TRACE_COLUMNS"]
@@ -122,20 +126,30 @@ def _build(
     ``active`` holds; every other field is a new tensor."""
     m, n = A.shape
     dtype = b.dtype
+    rdtype = real_dtype(dtype)
+    is_complex = dtype.is_complex
     dev = b.device
-    sdtype = scalar_dtype if scalar_dtype is not None else dtype
-    mixed = sdtype != dtype
+    sdtype = scalar_dtype if scalar_dtype is not None else rdtype
+    mixed = sdtype != rdtype
     if fused and mixed:
         raise ValueError(
             "fused half-steps compute in f32 and cannot carry a wider "
             "scalar_dtype; set fused=False for the mixed-precision mode"
         )
+    if is_complex and (fused or pair) and not (
+            pair and getattr(A, "supports_complex_pair", False)):
+        # ZDIAOperator's pair kernel takes complex vectors; the real kernels
+        # do not
+        raise ValueError(
+            "fused/pair half-step kernels are real-f32 only; "
+            "set fused=False, pair=False for complex operators"
+        )
 
     def sc(s):  # scalar -> recurrence precision
         return s.to(sdtype) if mixed else s
 
-    def vc(s):  # scalar -> vector-op precision
-        return s.to(dtype) if mixed else s
+    def vc(s):  # scalar -> vector-op precision; real scalars stay real
+        return s.to(rdtype) if mixed else s
 
     def const(v, dt=sdtype):
         return torch.tensor(v, dtype=dt, device=dev)
@@ -170,21 +184,21 @@ def _build(
     bnorm = beta0
 
     trace_rows = itnlim + 1 if record_trace else 1
-    trace0 = torch.zeros((trace_rows, len(TRACE_COLUMNS)), dtype=dtype, device=dev)
+    trace0 = torch.zeros((trace_rows, len(TRACE_COLUMNS)), dtype=rdtype, device=dev)
     if record_trace:
         # itn-0 header line (lsqr.f90:663-669): test1 = 1, test2 = alpha/beta
         trace0[0] = torch.stack(
             [zero, zero, beta0, one,
              torch.where(beta0 > zero, alpha0 / safe_beta0, zero),
              zero, zero, zero, zero, zero, zero]
-        ).to(dtype)
+        ).to(rdtype)
 
     izero = const(0, torch.int32)
     carry0 = _Carry(
         itn=izero, istop=izero, nstop=izero,
         u=u0, v=v0, w=w0,
         x=torch.zeros(n, dtype=dtype, device=dev),
-        se=torch.zeros(n if wantse else 1, dtype=dtype, device=dev),
+        se=torch.zeros(n if wantse else 1, dtype=rdtype, device=dev),
         alpha=alpha0, beta=beta0, rhobar=alpha0, phibar=beta0,
         anorm=zero, dnorm=zero, dxmax=zero, maxdx=izero,
         res2=zero, psi=zero, xnorm=zero, xnorm1=zero,
@@ -210,12 +224,12 @@ def _build(
                 # raw adjoint z = A' u_new (1/beta is applied below)
                 u, z_adj = A.fused_pair(
                     y=c.u, win=c.v, c1=inv_alpha_prev, c2=c.alpha * inv_beta_prev)
-                ssq_u = torch.sum(u * u)
+                ssq_u = torch.sum(abs2(u))
             else:
                 u, ssq_u = A.fused_halfstep(
                     forward=True, y=c.u, win=c.v,
                     c1=inv_alpha_prev, c2=c.alpha * inv_beta_prev)
-            beta = torch.sqrt(ssq_u).to(dtype)
+            beta = torch.sqrt(ssq_u).to(rdtype)
             temp = d2norm(c.alpha, beta)
             temp = d2norm(temp, damp)
             anorm = d2norm(c.anorm, temp)
@@ -223,12 +237,12 @@ def _build(
             inv_beta = torch.where(beta_pos, one / torch.where(beta_pos, beta, one), zero)
             if pair:
                 v_cand = z_adj * vc(inv_beta) - vc(beta * inv_alpha_prev) * c.v
-                ssq_v = torch.sum(v_cand * v_cand)
+                ssq_v = torch.sum(abs2(v_cand))
             else:
                 v_cand, ssq_v = A.fused_halfstep(
                     forward=False, y=c.v, win=u,
                     c1=inv_beta, c2=beta * inv_alpha_prev)
-            alpha_cand = torch.sqrt(ssq_v).to(dtype)
+            alpha_cand = torch.sqrt(ssq_v).to(rdtype)
             v = torch.where(beta_pos, v_cand, c.v)
             alpha = torch.where(beta_pos, alpha_cand, c.alpha)
             inv_alpha_new = torch.where(
@@ -280,8 +294,7 @@ def _build(
         t = c.w
         x = vc(t1) * t + c.x
         w = vc(t2) * t + v_for_w
-        dk = vc(t3) * t
-        dk2 = dk * dk
+        dk2 = abs2(vc(t3) * t)
         dknorm = torch.sqrt(sc(torch.sum(dk2)))
         se = c.se + dk2 if wantse else c.se
 
@@ -340,10 +353,11 @@ def _build(
 
         # --- iteration log (lsqr.f90:813-837), written in place ----------
         if record_trace:
+            x0_val = x[0].real if is_complex else x[0]
             row = torch.stack([
                 s.to(sdtype) for s in
-                (itn, x[0], rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, alfopt)
-            ]).to(dtype)
+                (itn, x0_val, rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, alfopt)
+            ]).to(rdtype)
             idx = torch.clamp(itn, max=trace_rows - 1).long().view(1)
             old = c.trace.index_select(0, idx)
             c.trace.index_copy_(0, idx, torch.where(active, row.view(1, -1), old))
@@ -435,9 +449,7 @@ def lsqr(
     A = as_operator(A, m=m, n=n)
     b = as_tensor(b, device=A.device)
     dtype = as_dtype(opts.dtype) or torch.promote_types(b.dtype, A.dtype or b.dtype)
-    if dtype.is_complex:
-        raise NotImplementedError("complex solves are ROADMAP Queue 1 item 12")
-    if not dtype.is_floating_point:
+    if not (dtype.is_floating_point or dtype.is_complex):
         dtype = default_dtype()
     b = b.to(dtype)
     if b.ndim != 1 or b.shape[0] != A.m:
@@ -489,8 +501,8 @@ def lsqr(
     if pair:
         fused = True  # the pair needs the unnormalized carry
 
-    def scalar(v):
-        return as_tensor(v, dtype=dtype, device=b.device)
+    def scalar(v):  # damp and the tolerances are real, also for complex problems
+        return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, scalar(damp), scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),

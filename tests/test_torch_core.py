@@ -146,7 +146,7 @@ def test_operator_from_arrays_round_trips_shared(rng):
         lt.operator_from_arrays("dia_shared", {"dp": np.asarray(Aj.dp)[:-1]},
                                 {"m": m, "n": n, "offsets": ks, "H": Aj.H}, device=DEV)
     with pytest.raises(ValueError, match="unknown"):
-        lt.operator_from_arrays("zdia", {}, {}, device=DEV)
+        lt.operator_from_arrays("csr", {}, {}, device=DEV)
 
 
 def test_operator_from_arrays_bf16_stripes(rng):

@@ -665,3 +665,158 @@ def test_cuda_wcoo_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device
         spmv_wcoo.wcoo_forward(A.packed, x[:299], 1.0, 0.0, x[:0])
     with pytest.raises(ValueError):
         spmv_wcoo.wcoo_adjoint(A.packed, torch.randn(A.packed.m_pad + 1, device=cuda_device))
+
+
+#: first-order precision of the card's WCOO/RWCOO products against the f64
+#: triplets, max |error| / max |product|: above the f32 products' summation
+#: error at this size, far below bf16-rounded values' (~2.4e-3; PERF.md,
+#: Findings)
+PRODUCT_TOL = 1e-5
+
+
+def _bf16_values(p):
+    return dataclasses.replace(p, vals=p.vals.bfloat16().float(),
+                               vals_r=p.vals_r.bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wcoo", "rwcoo"])
+def test_cuda_wcoo_products_hold_f64_precision(rng, cuda_device, kind, record_property):
+    """A check that sees the values' precision: each card product against
+    the f64 triplets at three seeded vectors, and the same operator with
+    its values rounded to bf16 outside the limit."""
+    import scipy.sparse
+
+    m, n = (40_000, 500) if kind == "wcoo" else (40_000, 8192)
+    vals, rows, cols = zipf_column_coo(m, n, (6 if kind == "wcoo" else 3) * m, seed=5)
+    S = scipy.sparse.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=(m, n))
+    A = lt.auto_operator(m, n, vals, rows, cols, device=cuda_device)
+    fault = (dataclasses.replace(A, packed=_bf16_values(A.packed)) if kind == "wcoo" else
+             dataclasses.replace(A, hot=_bf16_values(A.hot), cold=_bf16_values(A.cold)))
+
+    def worst(op):
+        g = np.random.default_rng(7)
+        errs = []
+        for _ in range(3):
+            x, y = g.standard_normal(n), g.standard_normal(m)
+            for prod, vec, ref in ((op.matvec, x, S @ x), (op.rmatvec, y, S.T @ y)):
+                got = prod(torch.from_numpy(vec.astype(np.float32)).to(cuda_device))
+                errs.append(np.abs(got.cpu().double().numpy() - ref).max()
+                            / np.abs(ref).max())
+        return max(errs)
+
+    sound, bf16 = worst(A), worst(fault)
+    record_property("product_rel_sound", repr(sound))
+    record_property("product_rel_bf16", repr(bf16))
+    assert sound <= PRODUCT_TOL < bf16
+
+
+ZCASES = [
+    (300, 300, (-2, -1, 0, 1, 2)),
+    (330, 200, (-60, -3, 0, 5)),
+    (200, 330, (0, 1, 7)),
+    (257, 129, (0,)),
+    (70_001, 50_003, (-2, -1, 0, 1, 2)),
+] + WIDE
+
+
+def _crel(got, ref):
+    """rel_err of complex tensors, over their (re, im) pairs."""
+    return rel_err(torch.view_as_real(got), torch.view_as_real(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,ks", ZCASES)
+def test_cuda_zdia_kernels_match_twins(rng, cuda_device, m, n, ks):
+    """zdia_pair (one launch, or two for a halo above 1024) and the ZDIA
+    products (four dia_matvec launches each) against their twins."""
+    stripes = lt.zdia_stripes(m, n, ks, seed=int(rng.integers(1 << 30)), device=DEV)
+    Ah = lt.dia_operator_device(m, n, ks, stripes)
+    A = lt.dia_operator_device(m, n, ks, stripes.to(cuda_device))
+    assert isinstance(A, lt.ZDIAOperator) and A.prefers_pair and not Ah.prefers_pair
+    win = torch.randn(n, dtype=torch.complex64)
+    y = torch.randn(m, dtype=torch.complex64)
+    c1 = torch.tensor(0.8, device=cuda_device)  # a device scalar, as in the solver
+    spmv.reset_launch_counts()
+    u, z = A.fused_pair(y=y.to(cuda_device), win=win.to(cuda_device), c1=c1, c2=1.1)
+    ur, zr = spmv.zdia_pair_plain(Ah.dr, Ah.di, y, win, 0.8, 1.1, offsets=ks, m=m, n=n)
+    fwd, adj = A.matvec(win.to(cuda_device)), A.rmatvec(y.to(cuda_device))
+    torch.cuda.synchronize()
+    assert u.dtype == z.dtype == fwd.dtype == torch.complex64
+    assert _crel(u, ur) < TOL and _crel(z, zr) < TOL
+    assert _crel(fwd, Ah.matvec(win)) < TOL and _crel(adj, Ah.rmatvec(y)) < TOL
+    wide = max(spmv._halos(ks)) > spmv.PAIR_MAX_HALO
+    assert spmv.launch_counts() == _only(zdia_pair=2 if wide else 1, dia_matvec=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,ks", CASES + WIDE)
+def test_cuda_fused_halfstep_variants_match_twins(rng, cuda_device, m, n, ks, storage):
+    """v2 (both ssq_out values) and v3 on both stripe arrays: out in the
+    stripes' dtype, ssq of the unrounded sum, the same from run to run."""
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
+    A = lt.DIAOperator(data=Ah.data.to(cuda_device), tdata=Ah.tdata.to(cuda_device),
+                       m=m, n=n, offsets=ks)
+    v, y = _vectors(rng, m, n)
+    c1 = torch.tensor(0.8, device=cuda_device)
+    spmv.reset_launch_counts()
+    for stripes, hs, kw, vec, yy in (
+            (A.data, Ah.data, dict(offsets=ks, m=m, n=n), v, y),
+            (A.tdata, Ah.tdata, dict(offsets=Ah.toffsets, m=n, n=m), y, v)):
+        ref_out, ref_ssq = spmv.dia_fused_halfstep_plain(hs, yy, vec, 0.8, 1.3, **kw)
+        for fn, extra in ((spmv.dia_fused_halfstep_v2, dict(ssq_out="vmem")),
+                          (spmv.dia_fused_halfstep_v2, dict(ssq_out="smem")),
+                          (spmv.dia_fused_halfstep_v3, {})):
+            out, ssq = fn(stripes, yy.to(cuda_device), vec.to(cuda_device), c1, 1.3, **kw,
+                          **extra)
+            again = fn(stripes, yy.to(cuda_device), vec.to(cuda_device), c1, 1.3, **kw,
+                       **extra)[1]
+            torch.cuda.synchronize()
+            assert out.dtype == ref_out.dtype == stripes.dtype and ssq.shape == ()
+            assert rel_err(out, ref_out) < (1e-2 if storage == "bfloat16" else TOL)
+            np.testing.assert_allclose(float(ssq), float(ref_ssq), rtol=1e-5)
+            assert torch.equal(ssq, again)  # a fixed summation order
+    suffix = "" if storage == "float32" else "[bf16]"
+    counts = spmv.launch_counts(by_variant=True)
+    assert counts["dia_fused_halfstep_v2" + suffix] == 8
+    assert counts["dia_fused_halfstep_v3" + suffix] == 4
+
+
+@pytest.mark.cuda
+def test_cuda_complex_solves_run_through_zdia_pair(rng, cuda_device):
+    """A complex f32 solve on the card: auto_operator routes the complex
+    banded triplets to ZDIA, lsqr takes zdia_pair once per iteration run,
+    and the answer agrees with the same solve on the CPU; lsmr, cgls
+    (pair=True) and craig take the kernel too."""
+    m = n = 100_000
+    ks = (-2, -1, 0, 1, 2)
+    stripes = lt.zdia_stripes(m, n, ks, seed=11, diag=12.0, device=DEV).numpy()
+    i = np.arange(m)
+    ok = [(i + k >= 0) & (i + k < n) for k in ks]
+    vals = np.concatenate([stripes[d][ok[d]] for d in range(len(ks))])
+    rows = np.concatenate([i[ok[d]] for d in range(len(ks))])
+    cols = np.concatenate([i[ok[d]] + k for d, k in enumerate(ks)])
+    A = lt.auto_operator(m, n, vals, rows, cols, device=cuda_device)
+    Ah = lt.auto_operator(m, n, vals, rows, cols, device=DEV)
+    assert isinstance(A, lt.ZDIAOperator) and A.prefers_pair and A.offsets == ks
+    b = (rng.standard_normal(m) + 1j * rng.standard_normal(m)).astype(np.complex64)
+    kw = dict(atol=1e-6, btol=1e-6)
+    ref = lt.lsqr(Ah, b, 0.01, **kw)
+    spmv.reset_launch_counts()
+    res = lt.lsqr(A, torch.from_numpy(b).to(cuda_device), 0.01, **kw)
+    seg = lt.LSQROptions().loop_segment
+    assert spmv.launch_counts() == _only(zdia_pair=-(-int(res.itn) // seg) * seg,
+                                         dia_matvec=4)
+    assert res.x.dtype == torch.complex64 and res.rnorm.dtype == torch.float32
+    assert int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 2
+    assert _crel(res.x.cpu(), ref.x) < 1e-4
+    bc = torch.from_numpy(b).to(cuda_device)
+    for solve in (lambda: lt.lsmr(A, bc, 0.01, **kw),
+                  lambda: lt.cgls(A, bc, 0.01, pair=True, **kw),
+                  lambda: lt.craig(A, A.matvec(res.x), **kw)):
+        spmv.reset_launch_counts()
+        out = solve()
+        assert spmv.launch_counts()["zdia_pair"] > 0 and int(out.istop) in (1, 2, 3)
+        assert bool(torch.isfinite(torch.view_as_real(out.x)).all())

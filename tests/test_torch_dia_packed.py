@@ -350,8 +350,12 @@ def test_from_scipy_unported_formats_raise(rng):
         lt.from_scipy(S, format="csr", device=DEV)
     with pytest.raises(TypeError):
         lt.from_scipy(S.toarray(), device=DEV)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        lt.from_scipy(S.astype(np.complex128), format="dia", device=DEV)
+    # complex "dia" is ported (item 12): the plane-split ZDIA operator of JAX
+    Sc = S.astype(np.complex128) * (1 - 2j)
+    Z = lt.from_scipy(Sc, format="dia", device=DEV)
+    assert type(Z).__name__ == type(lj.from_scipy(Sc, format="dia")).__name__ == "ZDIAOperator"
+    xc = rng.standard_normal(Sc.shape[1]) + 1j * rng.standard_normal(Sc.shape[1])
+    np.testing.assert_allclose(Z.matvec(torch.from_numpy(xc)).numpy(), Sc @ xc, rtol=1e-12)
 
 
 @pytest.mark.parametrize("gen", ["banded_dia", "banded_problem", "random_coo_problem",

@@ -232,5 +232,7 @@ def test_auto_operator_empty_and_unported_patterns(rng):
     vals = rng.standard_normal(40000).astype(np.float32)
     assert type(lt.auto_operator(16384, 2048, vals, rows, cols, device=DEV)).__name__ == \
         type(lj.auto_operator(16384, 2048, vals, rows, cols)).__name__ == "WCOOOperator"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        lt.auto_operator(3, 3, np.array([1j]), np.array([0]), np.array([0]), device=DEV)
+    # complex patterns are ported (item 12): JAX's ZDIA for this banded one
+    one = (np.array([1j]), np.array([0]), np.array([0]))
+    assert type(lt.auto_operator(3, 3, *one, device=DEV)).__name__ == \
+        type(lj.auto_operator(3, 3, *one)).__name__ == "ZDIAOperator"

@@ -176,8 +176,10 @@ def test_siblings_refuse_what_they_do_not_take(rng):
     for fn in (lt.lsmr, lt.craig, lt.cgls):
         with pytest.raises(ValueError, match="fused_pair"):
             fn(A, b, pair=True)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(A, b.astype(np.complex64))
+        # complex solves are ported (item 12): the identity's solution is b
+        xc = fn(A, ((1 + 1j) * b).astype(np.complex64)).x
+        assert xc.dtype == torch.complex64 and np.allclose(xc.numpy(), (1 + 1j) * b,
+                                                           atol=1e-5)
         with pytest.raises(ValueError, match="length m"):
             fn(A, b[:2])
     for pkg_msgs, port_msgs in ((lj.CRAIG_ISTOP_MESSAGES, lt.CRAIG_ISTOP_MESSAGES),

@@ -258,7 +258,8 @@ def test_deferred_options_raise():
         lt.lsqr(A, b, megakernel=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         lt.lsqr(A, b, 0.1, x0=np.zeros(3))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        lt.lsqr(A, b.astype(np.complex128))
+    # complex solves are ported (item 12): b = (1+1j) * ones solves the identity
+    xc = lt.lsqr(A, (1 + 1j) * b).x
+    assert xc.dtype == torch.complex128 and np.allclose(xc.numpy(), (1 + 1j) * b)
     with pytest.raises(ValueError, match="fused_pair"):
         lt.lsqr(lt.coo_operator(3, 3, *_diag([1.0, 2.0, 3.0]), device=DEV), b, pair=True)
