@@ -6,7 +6,7 @@
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
 from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
-from lsqr_tpu_torch/native with g++), then runs seventeen phases; each
+from lsqr_tpu_torch/native with g++), then runs eighteen phases; each
 raises on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
@@ -73,7 +73,9 @@ raises on failure:
    pattern, m = 2^21, 10,485,760 entries: WCOO at n = 2048, RWCOO at
    n = 65,536, built by ``auto_operator``) and at ragged shapes with
    duplicates and empty rows; kernel, twin and ``torch.sparse_csr_tensor``
-   times (A and A'), the bytes each must move, the routed RWCOO pair;
+   times (A and A'), the bytes each must move, the routed RWCOO pair; the
+   WCOO adjoint and pair (RWCOO's hot panel too) called twice on the same
+   inputs must give the same bits;
 15. solves on the two benchmark operators: damped (DAMP) to 1e-6 through
    the pair kernels, checked in f64 and against the COO operator's solve
    (the damped objective, within a limit that solves on planted faults
@@ -81,7 +83,8 @@ raises on failure:
    iterations with the launches, kernel time and device idle share per
    iteration, and 64 with ``pair=False`` (the separate products); each
    operator's products against the f64 triplets at three vectors, a check
-   that sees bf16-rounded values;
+   that sees bf16-rounded values; a second WCOO solve must give bit-equal x
+   (RWCOO's cold adjoint adds with atomics: logged only);
 16. the complex pair ``zdia_pair`` against its twin at the JAX package's
    complex benchmark shape (``bench.py``'s zdia stage: m = n = 2^21, 5
    diagonals, N(0, 1) planes), a ragged rectangular shape and a +-1500 band
@@ -92,13 +95,18 @@ raises on failure:
    checked in complex128 and against ``scipy.sparse.linalg.lsqr``; fixed
    64 iterations with the launches and the device's idle share; ``lsmr``,
    ``cgls`` (pair=True) and ``craig`` against their pair=False runs;
-   complex128 at 2^16 against scipy; a ZJDIA solve at 2^20.
+   complex128 at 2^16 against scipy; a ZJDIA solve at 2^20;
+18. the streaming ceiling: ``stream_copy`` against its twin and ``x.mul_``
+   bit for bit at the ceiling's shape and at a ragged length;
+   ``stream_ceiling`` at ``bench.py``'s roofline shape (1024 x 2^18 f32,
+   1 GiB, 20 chained in-place copies after a warm-up) in GB/s beside the
+   data sheet's 3.35 TB/s; kernel, twin and ``x.mul_`` times at that shape.
 
 Every solve of phases 2-5, 7, 8, 10, 12, 13, 15 and 17 runs with the launch
 counts reset just before it and read just after, and so does a direct call
 of the kernels no solver calls (the two variants of the fused half-step,
-phase 1); each path must launch the kernels it runs, and every kernel
-variant must have launched on some path.
+phase 1) and the ceiling's chain (phase 18); each path must launch the
+kernels it runs, and every kernel variant must have launched on some path.
 The second-to-last line of output is a JSON object describing each kernel
 (its time, its twin's, the least time the card could take for the bytes or
 operations it must handle, and a PyTorch library call's time where one
@@ -124,6 +132,7 @@ BELL = "lsqr_tpu_torch/csrc/block_ell.cu"
 WCOO = "lsqr_tpu_torch/csrc/wcoo.cu"
 WWCOO = "lsqr_tpu_torch/csrc/wwcoo.cu"
 ZDIA = "lsqr_tpu_torch/csrc/zdia.cu"
+STREAM = "lsqr_tpu_torch/csrc/stream_copy.cu"
 M_JDIA = 2 ** 22  # phase 11-12's jittered-diagonal size
 M_BELL = 2 ** 18  # phase 11-12's BlockELL size
 M_PLAN = 2 ** 18  # phase 13's scrambled pattern
@@ -141,7 +150,7 @@ BELL_TALL = (76_763, 1_485)
 ZIPF_M, ZIPF_N, ZIPF_WIDE_N, ZIPF_NNZ = 2 ** 21, 2048, 65536, 10 * 2 ** 20
 WCOO_RAGGED = (100_003, 3_001)
 RWCOO_RAGGED = (100_003, 12_345)
-COO_TOL = 1e-4  # WCOO/WWCOO kernels vs twins: summation order, and atomics in z
+COO_TOL = 1e-4  # WCOO/WWCOO kernels vs twins: summation order (WWCOO's z: atomics)
 #: phase 15: the damped objective of each solve against the COO operator's
 #: solve, relative; set between the largest sound reading (3.2e-9, 2.4e-6)
 #: and the least reading of a planted fault that it must catch (one subtile
@@ -182,6 +191,7 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "dia_fused_halfstep_v2": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:1124"),
     "dia_fused_halfstep_v3": (PACKED, "lsqr_tpu/ops/pallas_spmv.py:1070"),
     "zdia_pair": (ZDIA, "lsqr_tpu/ops/pallas_spmv.py:2363"),
+    "stream_copy": (STREAM, "bench.py:211"),
 }
 #: the kernels no solver calls (neither in JAX): their path is the direct call
 DIRECT = ("dia_fused_halfstep_v2", "dia_fused_halfstep_v3")
@@ -238,13 +248,22 @@ def absdiff(got, ref):
 
 
 def time_ms(fn, reps=20):
-    """Mean time of one call on the card (CUDA events around ``reps`` calls
-    after a warm-up call)."""
+    """Mean device time of one call (CUDA events around ``reps`` calls after
+    a warm-up call). The card first spins (``torch.cuda._sleep``, counted in
+    cycles of at most 2 GHz) for 1.5 times as long as the host took to
+    queue one call, times ``reps``, plus 1 ms (at most 0.2 s), so the events
+    see the calls' kernels back to back and not the host's Python between
+    them; a call that waits for the card itself is timed as before."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * host + 1e-3, 0.2) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -1491,8 +1510,14 @@ def phase_routes(dev, card, paths):
 def coo_calls(p, wide, x, y, c1):
     """{wrapper: [(kernel call, twin call)]} of one packing's three kernels:
     the forward with c2 = 0.3 and with c2 = -1 (RWCOO's fold of the hot
-    part), the adjoint of y, the pair."""
+    part), the adjoint of y, the pair. The scalars are device tensors, as
+    the solvers pass them (a Python number costs a copy to the card that
+    waits, which would show in the kernels' times)."""
+    import torch
+
     from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+    c2s = [torch.tensor(c, device=x.device) for c in (0.3, -1.0)]
 
     pre = "wwcoo" if wide else "wcoo"
     fwd, adj, pair = (getattr(sw, f"{pre}_{s}") for s in ("forward", "adjoint", "pair"))
@@ -1500,9 +1525,10 @@ def coo_calls(p, wide, x, y, c1):
                             for s in ("forward", "adjoint", "pair"))
     return {
         f"{pre}_forward": [(lambda c2=c2: fwd(p, x, c1, c2, y),
-                            lambda c2=c2: fwd_p(p, x, c1, c2, y)) for c2 in (0.3, -1.0)],
+                            lambda c2=c2: fwd_p(p, x, c1, c2, y)) for c2 in c2s],
         f"{pre}_adjoint": [(lambda: adj(p, y), lambda: adj_p(p, y))],
-        f"{pre}_pair": [(lambda: pair(p, y, x, c1, 0.3), lambda: pair_p(p, y, x, c1, 0.3))],
+        f"{pre}_pair": [(lambda: pair(p, y, x, c1, c2s[0]),
+                         lambda: pair_p(p, y, x, c1, c2s[0]))],
     }
 
 
@@ -1530,6 +1556,21 @@ def coo_perf(calls, p, wide, library, card):
             library_ms=library.get(name.split("_")[1]))
         report(name, perf[name], card)
     return perf
+
+
+def bit_stable(label, p, x, y, c1):
+    """The WCOO adjoint and pair twice on the same inputs: z and u must be
+    the same bits (the adjoint sums fixed partials in a fixed order)."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+    z1, z2 = sw.wcoo_adjoint(p, y), sw.wcoo_adjoint(p, y)
+    (u1, w1), (u2, w2) = (sw.wcoo_pair(p, y, x, c1, 0.3) for _ in range(2))
+    torch.cuda.synchronize()
+    same = [torch.equal(z1, z2), torch.equal(w1, w2), torch.equal(u1, u2)]
+    log(f"  {label}: wcoo_adjoint z, wcoo_pair z and u over two calls bit-equal: {same}")
+    check(all(same), f"{label}: the WCOO adjoint or pair differs between two calls: {same}")
 
 
 def stored_bytes(A):
@@ -1614,8 +1655,16 @@ def phase_wcoo_kernels(dev, errs, card):
             y = torch.randn(m, generator=g, device=dev)
             calls = coo_calls(p, wide, x, y, c1)
             hold(calls, errs, m, p.n, range(p.eb), COO_TOL)
+            if not wide:
+                bit_stable(f"{label} {k}", p, x, y, c1)
             if label in ("wcoo", "rwcoo") and k != "hot":
                 perf.update(coo_perf(calls, p, wide, library, card))
+            if label == "rwcoo" and k == "hot":
+                from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+                ms = time_ms(lambda: sw.wcoo_adjoint(p, y))
+                log(f"  rwcoo hot adjoint (wcoo_adjoint, n = {p.n}) {ms:.4f} ms  [{card}]")
+                perf["rwcoo_hot_adjoint_ms"] = ms
             del calls, x, y
         if "ragged" not in label:
             t3 = time.perf_counter()  # the packer alone, on the host
@@ -1631,10 +1680,11 @@ def phase_wcoo_kernels(dev, errs, card):
     coo = lt.coo_operator(A.m, A.n, *trip, device=dev)
     x = torch.randn(A.n, generator=g, device=dev)
     y = torch.randn(A.m, generator=g, device=dev)
-    u, z = A.fused_pair(y=y, win=x, c1=c1, c2=0.3)
+    c2 = torch.tensor(0.3, device=dev)
+    u, z = A.fused_pair(y=y, win=x, c1=c1, c2=c2)
     u_ref = coo.matvec(x) * c1 - 0.3 * y
     err = max(rel(u, u_ref), rel(z, coo.rmatvec(u_ref)))
-    ms = time_ms(lambda: A.fused_pair(y=y, win=x, c1=c1, c2=0.3))
+    ms = time_ms(lambda: A.fused_pair(y=y, win=x, c1=c1, c2=c2))
     log(f"  RWCOO fused_pair (hot forward, cold pair, hot adjoint, hotmap gather and "
         f"scatter) {ms:.4f} ms, against the COO products {err:.3e}  [{card}]")
     check(err <= COO_TOL, f"the RWCOO pair disagrees with the COO products: {err:.3e}")
@@ -1742,6 +1792,15 @@ def phase_wcoo_solves(dev, ops, card, paths):
         check(delta[pair] == body, f"{label}: expected one {pair} per iteration run: {delta}")
         ratio = coo_optimality(coo_t, A.m, A.n, b, res.x)
         check(ratio <= 1e-4, f"{label} solve: optimality {ratio:.3e} > 1e-4")
+        # the same solve again: bit-equal x where every kernel of the path
+        # sums in a fixed order (WCOO); RWCOO's cold adjoint adds with atomics
+        again = lt.lsqr(A, b, DAMP, **tol)
+        rerun_equal = bool(torch.equal(again.x, res.x)) and int(again.itn) == int(res.itn)
+        log(f"  {label}: a second solve gives {'bit-equal' if rerun_equal else 'different'} "
+            f"x (itn {int(again.itn)})")
+        if label == "wcoo":
+            check(rerun_equal, "wcoo: two solves on the same inputs give different x")
+        del again
         # the same solve on the COO operator: both are answers to atol, and
         # their damped objectives agree. Their x do not, to 1e-3: the Zipf
         # columns' top singular value stands far from the rest, Golub-Kahan
@@ -1803,7 +1862,7 @@ def phase_wcoo_solves(dev, ops, card, paths):
         kernel_b, total_b = stored_bytes(A)
         out[label] = dict(m=A.m, n=A.n, nnz=len(trip[0]), istop=int(res.istop),
                           itn=int(res.itn), ms=secs * 1e3, optimality=ratio,
-                          x_rel_to_coo=err, coo_itn=coo_itn,
+                          x_rel_to_coo=err, coo_itn=coo_itn, x_bit_equal_rerun=rerun_equal,
                           objective_rel_to_coo=phi_err, planted_faults=faults,
                           x_rel_to_coo_fixed={str(k): e for k, e in errs_k.items()},
                           ms_per_iteration_fixed64=wall,
@@ -2039,6 +2098,55 @@ def phase_complex_solves(dev, card, paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the streaming ceiling
+# ---------------------------------------------------------------------------
+
+
+def phase_roofline(dev, errs, card, paths):
+    """Phase 18: ``stream_copy`` against its twin and ``x.mul_``, bit for
+    bit, at ``bench.py``'s roofline shape (the one ``stream_ceiling`` gives
+    it) and at a ragged length (the tail launch); ``stream_ceiling`` as a
+    counted path; the kernel, its twin and ``x.mul_`` timed at that shape.
+    Returns (perf entry, GB/s)."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.ops import roofline
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    for shape in ((roofline.ROWS, roofline.COLS), (1_000_003,)):
+        x = torch.randn(shape, generator=g, device=dev)
+        ref, lib = x.clone(), x.clone()
+        for _ in range(3):
+            lt.stream_copy(x)
+            roofline.stream_copy_plain(ref)
+            lib.mul_(roofline.SCALE)
+        torch.cuda.synchronize()
+        errs["stream_copy"] = max(errs.get("stream_copy", 0.0), absdiff(x, ref))
+        same = torch.equal(x, ref) and torch.equal(x, lib)
+        log(f"  stream_copy at {tuple(shape)}, 3 calls: bit-equal to its twin "
+            f"{torch.equal(x, ref)}, to x.mul_ {torch.equal(x, lib)}")
+        check(same, f"stream_copy disagrees with its twin or x.mul_ at {tuple(shape)}")
+        del x, ref, lib
+        torch.cuda.empty_cache()
+    gbs, delta = counted(lambda: lt.stream_ceiling(dev))
+    paths.append(delta)
+    check(delta["stream_copy"] == roofline.K + 1 and sum(delta.values()) == roofline.K + 1,
+          f"the ceiling's chain: expected {roofline.K + 1} stream_copy launches: {delta}")
+    log(f"  streaming ceiling ({roofline.ROWS} x {roofline.COLS} f32, {roofline.K} chained "
+        f"in-place copies): {gbs:.1f} GB/s, {gbs / (HBM_BYTES_PER_S / 1e9):.1%} of the data "
+        f"sheet's {HBM_BYTES_PER_S / 1e9:.0f} GB/s  [{card}]")
+    x = torch.randn((roofline.ROWS, roofline.COLS), generator=g, device=dev)
+    entry = perf_entry(time_ms(lambda: lt.stream_copy(x)),
+                       time_ms(lambda: roofline.stream_copy_plain(x)), 2 * x.numel() * 4,
+                       x.numel(), library_ms=time_ms(lambda: x.mul_(roofline.SCALE)))
+    report("stream_copy", entry, card)
+    del x
+    torch.cuda.empty_cache()
+    return entry, gbs
+
+
 def main():
     import torch
 
@@ -2123,6 +2231,7 @@ def main():
     phase("phase 14: WCOO and WWCOO kernels vs twins")
     unstructured, ops = phase_wcoo_kernels(dev, errs, card)
     solves["rwcoo_fused_pair_ms"] = unstructured.pop("rwcoo_fused_pair_ms")
+    solves["rwcoo_hot_adjoint_ms"] = unstructured.pop("rwcoo_hot_adjoint_ms")
     perf.update(unstructured)
     phase("phase 15: WCOO and RWCOO solves")
     solves["unstructured"] = phase_wcoo_solves(dev, ops, card, paths)
@@ -2132,10 +2241,12 @@ def main():
     perf.update(phase_complex_kernels(dev, errs, card))
     phase("phase 17: complex solves")
     solves["complex"] = phase_complex_solves(dev, card, paths)
+    phase("phase 18: the streaming ceiling")
+    perf["stream_copy"], solves["stream_ceiling_gbs"] = phase_roofline(dev, errs, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
-    log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15 "
-        f"and 17: {launches}")
+    log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15, "
+        f"17 and 18: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

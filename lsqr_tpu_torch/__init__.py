@@ -19,7 +19,8 @@ run through nine kernels written by hand for Hopper (``csrc/dia_shared.cu``,
 kernels (``csrc/megakernel.cu``), the JDIA and BlockELL products through
 four more (``csrc/jdia.cu``, ``csrc/block_ell.cu``), and the WCOO and WWCOO
 products through three wrappers each (``csrc/wcoo.cu``, ``csrc/wwcoo.cu``),
-all built with ``nvcc`` at first use. The host packer
+and the streaming-ceiling probe ``stream_ceiling`` through ``stream_copy``
+(``csrc/stream_copy.cu``), all built with ``nvcc`` at first use. The host packer
 (``native/sparse_pack.cpp``) builds with ``g++``.
 
 Builders put what they build on the card unless given ``device=`` (see
@@ -47,6 +48,7 @@ from .ops.linop import CallbackOperator, DenseOperator, LinearOperator, as_opera
 from .ops.megakernel import lsqr_megakernel, megakernel_supported
 from .ops.megakernel_craig import craig_megakernel, craig_megakernel_supported
 from .ops.megakernel_lsmr import lsmr_megakernel, lsmr_megakernel_supported
+from .ops.roofline import stream_ceiling, stream_copy
 from .ops.reorder import GeneralPlan, bandwidth_orders, plan_general, solve_general
 from .ops.rwcoo import RWCOOOperator, rwcoo_operator
 from .ops.structured import (BlockELLOperator, DIAOperator, DIASharedOperator,
@@ -125,6 +127,8 @@ __all__ = [
     "GeneralPlan",
     "plan_general",
     "solve_general",
+    "stream_ceiling",
+    "stream_copy",
     "PaigeSaundersOperator",
     "lstp",
     "suite_configs",

@@ -13,18 +13,41 @@
 //   column-sorted: vals (f32) and idx = col | rowlocal << kShift, sorted by
 //                  column within each 1024-slot subtile (WCOO: the column,
 //                  kShift = 12; WWCOO: the colmap position, kShift = 18,
-//                  unsigned). Padding slots hold 0.
+//                  unsigned). Padding slots hold 0 (value 0, column 0) and
+//                  are sorted in with the rest, so every subtile is sorted.
 //
 // forward (the row-sorted copy): u[t*CR + r] = c1 * sum vals_r[e] x[col(e)]
-//   over the row's slots - c2 * y[t*CR + r] (y read as 0 past y_len). This is
-//   plain CSR: one thread per padded row, slots in order.
+//   over the row's slots - c2 * y[t*CR + r] (y read as 0 past y_len). One
+//   warp per 32 rows, one row per lane. Where the warp's rows own fewer
+//   than kScanSlots = 64 slots (a WWCOO cold stream, under one slot a row),
+//   the warp walks them in steps of 32, lane l taking a step's slot l, so
+//   the loads coalesce and the colmap and x gathers are in flight together;
+//   the first slots of the rows that start in the step become a bit mask (an
+//   OR-reduction), a segmented shuffle scan sums each row's slots, and each
+//   row's lane adds the sum at its last slot. Longer runs (WCOO, ~5 slots a
+//   row): each lane walks its own row's slots in order. That split measured
+//   faster on both layouts than a threshold of 32 or 128, or than four slots
+//   a lane from 16-byte loads with the same scan (PERF.md). Either way each
+//   row's sum has a fixed order: u needs no atomics.
 // adjoint (the column-sorted copy): z[col(e)] += vals[e] * u[t*CR + row(e)]
 //   over every slot. One warp per 128-slot tile, four slots per lane (one
 //   16-byte load of each plane). Equal columns sit next to each other, so
 //   each lane sums its runs, a segmented shuffle scan joins the runs that
-//   cross lanes, and one float atomic per (tile, column) run adds the sum to
-//   z. The order of the atomics varies from run to run, so the last bits of
-//   z do too.
+//   cross lanes, and each (tile, column) run is emitted once.
+//   WCOO (n <= 4096, deterministic): a block of 8 warps takes the 8 tiles of
+//   one subtile at a time, over a fixed contiguous range of subtiles, and
+//   adds into its own z in shared memory (n floats, at most 16 KB). Within
+//   a subtile a column is one run, so the runs of different warps hit
+//   different columns, except that a warp's first run may continue the
+//   previous warp's last: each warp sets its first run aside, and after a
+//   barrier one thread adds the eight in warp order. The block writes its z
+//   to partials[block]; a second kernel adds the partials of each column in
+//   block order. The grid depends on the shape and the card's SM count only,
+//   so every sum has the same order in every run: z is bit-identical from
+//   run to run, with no float atomic and no memset.
+//   WWCOO (colmap positions up to 2^18, too many for shared memory): one
+//   float atomic per run into z, zeroed first. The order of the atomics
+//   varies from run to run, so the last bits of z do too.
 //
 // What the TPU kernels did and these do not (ops/pallas_wcoo.py,
 // ops/pallas_wwcoo.py): Mosaic gathers only within a 128-lane row, so there
@@ -32,14 +55,15 @@
 // boundary differences of MXU prefix sums at the gpe/bnb windows, and the
 // adjoint gathered u through ku window rows and emitted z densely through the
 // per-subtile column table ep (WWCOO: through compaction, emission and
-// expansion work lists). The card gathers from any address and adds with
-// atomics, so those tables (ep, ugb, bnb, zexp, the work lists) are not read
-// here; the host keeps them.
+// expansion work lists), adding each chunk's z in grid order. The card
+// gathers from any address, so those tables (ep, ugb, bnb, zexp, the work
+// lists) are not read here; the host keeps them.
 //
 // What bounds both on the H100: bytes. Each slot costs 8 bytes per copy and
 // 2 flops; the vectors add 4 bytes per row and per column. The forward reads
 // only the real slots of the row-sorted copy and gpe; the adjoint streams
-// the column-sorted copy and its atomics land in L2 (z is at most 1 MB).
+// the column-sorted copy. The WCOO partials (blocks x n floats) are scratch
+// that stays mostly in the 50 MB L2.
 
 #pragma once
 
@@ -51,8 +75,49 @@ namespace lsqr_chunked_coo {
 
 constexpr int kChunkRows = 16384;  // CR
 constexpr int kThreads = 256;
-constexpr int kTile = 128;  // slots per warp in the adjoint: 32 lanes x 4
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 128;  // slots a warp takes at once: 32 lanes x 4
+constexpr int kSubtile = kWarps * kTile;  // 1024: a block's step in the WCOO adjoint
+constexpr int kSumSegments = 32;  // the partials' sum: 32 columns x 32 block ranges
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kScanSlots = 64;  // the forward: warps of fewer slots take scan_rows
+
+// The rows of a warp whose slots [w_lo, w_hi] are few, in steps of 32: lane
+// l takes slot s0 + l, the first slots of the rows that start in the step
+// become a bit mask (an OR-reduction), a segmented shuffle scan sums each
+// row's slots in the step, and each row's lane adds the sum at its last slot
+// in the step. Returns this lane's row sum, slots [lo, hi].
+template <bool kColmap>
+__device__ __forceinline__ float scan_rows(const float* __restrict__ v,
+                                           const int* __restrict__ c,
+                                           const int* __restrict__ cm,
+                                           const float* __restrict__ x, int n, int lo, int hi,
+                                           int w_lo, int w_hi, int lane) {
+  float acc = 0.0f;
+  for (int s0 = w_lo; s0 <= w_hi; s0 += 32) {
+    const int sl = s0 + lane;
+    float p = 0.0f;
+    if (sl <= w_hi) {
+      int col = __ldg(c + sl);
+      if (kColmap) col = __ldg(cm + col);
+      p = (col >= 0 && col < n) ? __ldg(v + sl) * __ldg(x + col) : 0.0f;
+    }
+    const bool has = lo <= hi && lo < s0 + 32 && hi >= s0;
+    // a lane with a row's first slot starts a segment, as lane 0 does
+    const unsigned heads =
+        __reduce_or_sync(kFull, has && lo >= s0 ? 1u << (lo - s0) : 0u) | 1u;
+    const int first = 31 - __clz(heads & (kFull >> (31 - lane)));
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float o = __shfl_up_sync(kFull, p, d);
+      if (lane - d >= first) p += o;
+    }
+    const int last = (hi < s0 + 31 ? hi : s0 + 31) - s0;
+    const float part = __shfl_sync(kFull, p, has ? last : 0);
+    if (has) acc += part;
+  }
+  return acc;
+}
 
 template <bool kColmap>
 __global__ void __launch_bounds__(kThreads) rows_forward(
@@ -63,104 +128,203 @@ __global__ void __launch_bounds__(kThreads) rows_forward(
     long long m_pad, int emax) {
   const float c1 = __ldg(c1p);
   const float c2 = __ldg(c2p);
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long gr = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       gr < m_pad; gr += stride) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = m_pad / 32;  // 32 | CR: a warp's rows lie in one chunk
+  const long long nwarps = (static_cast<long long>(gridDim.x) * kThreads) >> 5;
+  // w is the same in every lane of a warp, so the shuffles below see all 32
+  for (long long w = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+       w < warps; w += nwarps) {
+    const long long gr = w * 32 + lane;
     const long long t = gr / kChunkRows;
     const int r = static_cast<int>(gr - t * kChunkRows);
     const int* g = gpe + t * kChunkRows;
     const int hi = __ldg(g + r);
-    const int lo = r ? __ldg(g + r - 1) + 1 : 0;
+    int before = __shfl_up_sync(kFull, hi, 1);
+    if (lane == 0) before = r ? __ldg(g + r - 1) : -1;
+    const int lo = before + 1;  // the row's slots: [lo, hi], none when lo > hi
+    // the warp's slots [w_lo, w_hi]; w_lo is the first non-empty row's first
+    const int w_lo = __shfl_sync(kFull, lo, 0);
+    const int w_hi = __shfl_sync(kFull, hi, 31);
     const float* v = vals_r + t * emax;
     const int* c = col_r + t * emax;
     const int* cm = colmap + t * d_pad;
+    // few slots (a WWCOO cold stream): one slot a lane; more: each lane
+    // walks its row's slots in order
     float acc = 0.0f;
-    for (int e = lo; e <= hi; ++e) {
-      int col = __ldg(c + e);
-      if (kColmap) col = __ldg(cm + col);
-      const float xv = (col >= 0 && col < n) ? __ldg(x + col) : 0.0f;
-      acc = fmaf(__ldg(v + e), xv, acc);
+    if (w_hi - w_lo < kScanSlots) {
+      acc = scan_rows<kColmap>(v, c, cm, x, n, lo, hi, w_lo, w_hi, lane);
+    } else {
+      for (int e = lo; e <= hi; ++e) {
+        int col = __ldg(c + e);
+        if (kColmap) col = __ldg(cm + col);
+        const float xv = (col >= 0 && col < n) ? __ldg(x + col) : 0.0f;
+        acc = fmaf(__ldg(v + e), xv, acc);
+      }
     }
     const float yv = gr < y_len ? __ldg(y + gr) : 0.0f;
     u[gr] = c1 * acc - c2 * yv;
   }
 }
 
-template <bool kColmap>
-__device__ __forceinline__ void emit(float* __restrict__ z, const int* __restrict__ cm,
-                                     int col, float s, int n) {
-  if (kColmap) col = __ldg(cm + col);
-  if (s != 0.0f && col >= 0 && col < n) atomicAdd(z + col, s);
+// The runs of one warp's 128-slot tile (s0 its first slot, ut the chunk's
+// u): emit(col, sum) once per (tile, column) run, col the stored column
+// (WWCOO: the colmap position).
+template <int kShift, class Emit>
+__device__ __forceinline__ void tile_runs(float4 v4, uint4 i4, const float* __restrict__ ut,
+                                          long long rows_left, int lane, Emit emit) {
+  constexpr unsigned kMask = (1u << kShift) - 1u;
+  const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+  const unsigned ii[4] = {i4.x, i4.y, i4.z, i4.w};
+  int col[4];
+  float p[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    col[k] = static_cast<int>(ii[k] & kMask);
+    const long long row = ii[k] >> kShift;
+    p[k] = row < rows_left ? vv[k] * __ldg(ut + row) : 0.0f;
+  }
+  // the lane's runs: the first (head), the middle ones (emitted here: their
+  // column occurs in no other lane of a sorted tile) and the last (tail)
+  float head = 0.0f, cur = p[0];
+  int runs = 1;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (col[k] == col[k - 1]) {
+      cur += p[k];
+    } else {
+      if (runs == 1) {
+        head = cur;
+      } else {
+        emit(col[k - 1], cur);
+      }
+      ++runs;
+      cur = p[k];
+    }
+  }
+  const bool single = runs == 1;
+  const float tail = cur;
+  // a lane whose head continues its left neighbour's tail joins it: a
+  // segmented inclusive scan of the tails, where a lane that is one run
+  // continuing the neighbour's run does not start a segment
+  const int prev_cl = __shfl_up_sync(kFull, col[3], 1);
+  const bool cont = lane > 0 && col[0] == prev_cl;
+  float carry = tail;
+  int start = !(single && cont);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float oc = __shfl_up_sync(kFull, carry, d);
+    const int os = __shfl_up_sync(kFull, start, d);
+    if (lane >= d) {
+      if (!start) carry += oc;
+      start |= os;
+    }
+  }
+  const float carry_prev = __shfl_up_sync(kFull, carry, 1);
+  const int next_cont = __shfl_down_sync(kFull, static_cast<int>(cont), 1);
+  if (!single) emit(col[0], head + (cont ? carry_prev : 0.0f));
+  if (lane == 31 || !next_cont) emit(col[3], carry);
 }
 
-template <bool kColmap, int kShift>
-__global__ void __launch_bounds__(kThreads) cols_adjoint(
+// WWCOO: one warp per tile in a grid-stride loop, one float atomic per run
+template <int kShift>
+__global__ void __launch_bounds__(kThreads) cols_adjoint_atomic(
     const float* __restrict__ vals, const unsigned* __restrict__ idx,
     const int* __restrict__ colmap, int d_pad, const float* __restrict__ u,
     long long u_len, float* __restrict__ z, int n, long long tiles, int emax) {
-  constexpr unsigned kMask = (1u << kShift) - 1u;
   const int lane = threadIdx.x & 31;
   const long long nwarps = (static_cast<long long>(gridDim.x) * kThreads) >> 5;
-  // w is the same in every lane of a warp, so the shuffles below see all 32
   for (long long w = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
        w < tiles; w += nwarps) {
     const long long s0 = w * kTile;
     const long long t = s0 / emax;  // a tile lies in one chunk: 128 | emax
     const float4 v4 = __ldcs(reinterpret_cast<const float4*>(vals + s0) + lane);
     const uint4 i4 = __ldcs(reinterpret_cast<const uint4*>(idx + s0) + lane);
-    const float* ut = u + t * kChunkRows;
-    const long long rows_left = u_len - t * kChunkRows;
     const int* cm = colmap + t * d_pad;
-    const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-    const unsigned ii[4] = {i4.x, i4.y, i4.z, i4.w};
-    int col[4];
-    float p[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      col[k] = static_cast<int>(ii[k] & kMask);
-      const long long row = ii[k] >> kShift;
-      p[k] = row < rows_left ? vv[k] * __ldg(ut + row) : 0.0f;
+    tile_runs<kShift>(v4, i4, u + t * kChunkRows, u_len - t * kChunkRows, lane,
+                      [&](int pos, float s) {
+                        const int col = __ldg(cm + pos);
+                        if (s != 0.0f && col >= 0 && col < n) atomicAdd(z + col, s);
+                      });
+  }
+}
+
+// WCOO: block b adds the subtiles [b * S / G, (b + 1) * S / G) into its z in
+// shared memory and writes it to partials[b * n, (b + 1) * n)
+template <int kShift>
+__global__ void __launch_bounds__(kThreads) cols_adjoint_partial(
+    const float* __restrict__ vals, const unsigned* __restrict__ idx,
+    const float* __restrict__ u, long long u_len, float* __restrict__ partials, int n,
+    long long subtiles, int emax) {
+  extern __shared__ float zs[];
+  __shared__ int first_col[kWarps];
+  __shared__ float first_sum[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int c = threadIdx.x; c < n; c += kThreads) zs[c] = 0.0f;
+  const long long j0 = subtiles * blockIdx.x / gridDim.x;
+  const long long j1 = subtiles * (blockIdx.x + 1) / gridDim.x;
+  const float4* v4p = reinterpret_cast<const float4*>(vals + warp * kTile) + lane;
+  const uint4* i4p = reinterpret_cast<const uint4*>(idx + warp * kTile) + lane;
+  constexpr int kStep = kSubtile / 4;  // float4s per subtile
+  float4 v4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  uint4 i4 = make_uint4(0u, 0u, 0u, 0u);
+  if (j0 < j1) {
+    v4 = __ldcs(v4p + j0 * kStep);
+    i4 = __ldcs(i4p + j0 * kStep);
+  }
+  __syncthreads();
+  for (long long j = j0; j < j1; ++j) {
+    const float4 cv = v4;
+    const uint4 ci = i4;
+    if (j + 1 < j1) {  // the next subtile's loads in flight during this one
+      v4 = __ldcs(v4p + (j + 1) * kStep);
+      i4 = __ldcs(i4p + (j + 1) * kStep);
     }
-    // the lane's runs: the first (head), the middle ones (added here: their
-    // column occurs in no other lane of a sorted tile) and the last (tail)
-    float head = 0.0f, cur = p[0];
-    int runs = 1;
-#pragma unroll
-    for (int k = 1; k < 4; ++k) {
-      if (col[k] == col[k - 1]) {
-        cur += p[k];
-      } else {
-        if (runs == 1) {
-          head = cur;
-        } else {
-          emit<kColmap>(z, cm, col[k - 1], cur, n);
-        }
-        ++runs;
-        cur = p[k];
+    const long long t = j * kSubtile / emax;  // a subtile lies in one chunk
+    const int c0 = __shfl_sync(kFull, static_cast<int>(ci.x & ((1u << kShift) - 1u)), 0);
+    tile_runs<kShift>(cv, ci, u + t * kChunkRows, u_len - t * kChunkRows, lane,
+                      [&](int col, float s) {
+                        if (col == c0) {  // the tile's first run
+                          first_col[warp] = col;
+                          first_sum[warp] = s;
+                        } else if (col < n) {
+                          zs[col] += s;
+                        }
+                      });
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kWarps; ++k) {
+        if (first_col[k] < n) zs[first_col[k]] += first_sum[k];
       }
     }
-    const bool single = runs == 1;
-    const float tail = cur;
-    // a lane whose head continues its left neighbour's tail joins it: a
-    // segmented inclusive scan of the tails, where a lane that is one run
-    // continuing the neighbour's run does not start a segment
-    const int prev_cl = __shfl_up_sync(kFull, col[3], 1);
-    const bool cont = lane > 0 && col[0] == prev_cl;
-    float carry = tail;
-    int start = !(single && cont);
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float oc = __shfl_up_sync(kFull, carry, d);
-      const int os = __shfl_up_sync(kFull, start, d);
-      if (lane >= d) {
-        if (!start) carry += oc;
-        start |= os;
-      }
-    }
-    const float carry_prev = __shfl_up_sync(kFull, carry, 1);
-    const int next_cont = __shfl_down_sync(kFull, static_cast<int>(cont), 1);
-    if (!single) emit<kColmap>(z, cm, col[0], head + (cont ? carry_prev : 0.0f), n);
-    if (lane == 31 || !next_cont) emit<kColmap>(z, cm, col[3], carry, n);
+    __syncthreads();
+  }
+  float* out = partials + static_cast<long long>(blockIdx.x) * n;
+  for (int c = threadIdx.x; c < n; c += kThreads) out[c] = zs[c];
+}
+
+// z[c] = the sum of partials[b * n + c] over the blocks b: 32 columns per
+// block, kSegments ranges of blocks each summed in order, then the ranges
+// in order (a template only so that the header defines it in each source)
+template <int kSegments>
+__global__ void __launch_bounds__(32 * kSegments) sum_partials(
+    const float* __restrict__ partials, int blocks, float* __restrict__ z, int n) {
+  __shared__ float seg[kSegments][33];
+  const int cx = threadIdx.x & 31;
+  const int sy = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + cx;
+  const int b0 = blocks * sy / kSegments;
+  const int b1 = blocks * (sy + 1) / kSegments;
+  float acc = 0.0f;
+  if (c < n) {
+    for (int b = b0; b < b1; ++b) acc += __ldcs(partials + static_cast<long long>(b) * n + c);
+  }
+  seg[sy][cx] = acc;
+  __syncthreads();
+  if (sy == 0 && c < n) {
+    float s = seg[0][cx];
+    for (int k = 1; k < kSegments; ++k) s += seg[k][cx];
+    z[c] = s;
   }
 }
 
@@ -185,18 +349,37 @@ cudaError_t launch_forward(const void* vals_r, const void* col_r, const void* gp
   return cudaGetLastError();
 }
 
-// z is zeroed here, on the stream, before the atomics add into it
-template <bool kColmap, int kShift>
-cudaError_t launch_adjoint(const void* vals, const void* idx, const void* colmap, int d_pad,
-                           const void* u, long long u_len, void* z, int n, long long slots,
-                           int emax, cudaStream_t stream) {
+// WWCOO: z is zeroed here, on the stream, before the atomics add into it
+template <int kShift>
+cudaError_t launch_adjoint_atomic(const void* vals, const void* idx, const void* colmap,
+                                  int d_pad, const void* u, long long u_len, void* z, int n,
+                                  long long slots, int emax, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(z, 0, static_cast<size_t>(n) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
   const long long tiles = slots / kTile;
-  cols_adjoint<kColmap, kShift><<<grid_for(tiles, kThreads / 32), kThreads, 0, stream>>>(
+  cols_adjoint_atomic<kShift><<<grid_for(tiles, kWarps), kThreads, 0, stream>>>(
       static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
       static_cast<const int*>(colmap), d_pad, static_cast<const float*>(u), u_len,
       static_cast<float*>(z), n, tiles, emax);
+  return cudaGetLastError();
+}
+
+// WCOO: blocks (at least 1, at most slots / 1024) each write n partials,
+// then the partials' sum writes z; every entry of z is written
+template <int kShift>
+cudaError_t launch_adjoint_partial(const void* vals, const void* idx, const void* u,
+                                   long long u_len, void* partials, int blocks, void* z,
+                                   int n, long long slots, int emax, cudaStream_t stream) {
+  const long long subtiles = slots / kSubtile;
+  if (n <= 0) return cudaSuccess;
+  if (blocks < 1 || blocks > subtiles || n > (1 << kShift)) return cudaErrorInvalidValue;
+  cols_adjoint_partial<kShift><<<blocks, kThreads, n * sizeof(float), stream>>>(
+      static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
+      static_cast<const float*>(u), u_len, static_cast<float*>(partials), n, subtiles, emax);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials<kSumSegments><<<(n + 31) / 32, 32 * kSumSegments, 0, stream>>>(
+      static_cast<const float*>(partials), blocks, static_cast<float*>(z), n);
   return cudaGetLastError();
 }
 

@@ -37,7 +37,7 @@ int lsqr_wwcoo_forward_f32(const void* vals_r, const void* col_r, const void* gp
 int lsqr_wwcoo_adjoint_f32(const void* vals, const void* cidx, const void* colmap, int d_pad,
                            const void* u, long long u_len, void* z, int n, long long slots,
                            int emax, void* stream) {
-  return static_cast<int>(cc::launch_adjoint<true, 18>(
+  return static_cast<int>(cc::launch_adjoint_atomic<18>(
       vals, cidx, colmap, d_pad, u, u_len, z, n, slots, emax,
       static_cast<cudaStream_t>(stream)));
 }
@@ -52,8 +52,8 @@ int lsqr_wwcoo_pair_f32(const void* vals_r, const void* col_r, const void* gpe,
                                                    y, y_len, c1, c2, u, m_pad, emax, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long slots = m_pad / cc::kChunkRows * emax;
-  return static_cast<int>(cc::launch_adjoint<true, 18>(vals, cidx, colmap, d_pad, u, m_pad,
-                                                       z, n, slots, emax, s));
+  return static_cast<int>(cc::launch_adjoint_atomic<18>(vals, cidx, colmap, d_pad, u, m_pad, z,
+                                                          n, slots, emax, s));
 }
 
 }  // extern "C"

@@ -79,16 +79,21 @@ _SIGNATURES = {
     # csrc/wcoo.cu
     # vals_r, col_r, gpe, x, n, y, y_len, c1, c2, u, m_pad, emax, stream
     "lsqr_wcoo_forward_f32": (_P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _L, _I, _P),
-    # vals, idx, u, u_len, z, n, slots, emax, stream
-    "lsqr_wcoo_adjoint_f32": (_P, _P, _P, _L, _P, _I, _L, _I, _P),
-    # vals_r, col_r, gpe, vals, idx, x, n, y, y_len, c1, c2, u, z, m_pad, emax,
-    # stream
-    "lsqr_wcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _P, _L, _I, _P),
-    # csrc/wwcoo.cu: as csrc/wcoo.cu with (colmap, d_pad) after the index plane
+    # vals, idx, u, u_len, partials, blocks, z, n, slots, emax, stream
+    "lsqr_wcoo_adjoint_f32": (_P, _P, _P, _L, _P, _I, _P, _I, _L, _I, _P),
+    # vals_r, col_r, gpe, vals, idx, x, n, y, y_len, c1, c2, u, partials,
+    # blocks, z, m_pad, emax, stream
+    "lsqr_wcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _L,
+                           _I, _P),
+    # csrc/wwcoo.cu: as csrc/wcoo.cu with (colmap, d_pad) after the index
+    # plane, and no partials (the adjoint adds into z with atomics)
     "lsqr_wwcoo_forward_f32": (_P, _P, _P, _P, _I, _P, _I, _P, _L, _P, _P, _P, _L, _I, _P),
     "lsqr_wwcoo_adjoint_f32": (_P, _P, _P, _I, _P, _L, _P, _I, _L, _I, _P),
     "lsqr_wwcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _L, _P, _P, _P, _P, _L,
                             _I, _P),
+    # csrc/stream_copy.cu
+    # x, len, stream
+    "lsqr_stream_copy_f32": (_P, _L, _P),
     # csrc/megakernel.cu
     # solver, bf16, dim, blocks (out)
     "lsqr_mk_grid": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),

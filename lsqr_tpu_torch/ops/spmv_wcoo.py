@@ -25,13 +25,17 @@ compute from the same packed arrays as the kernels (the row-sorted copy
 and gpe for the forward, the column-sorted copy for the adjoint), so a
 layout mistake shows on the CPU too. f32 only, as in JAX.
 
-The pair is two kernels on the card, the forward and then the adjoint of
-its padded u (csrc/wcoo.cu says why), and counts one launch per call. The
-adjoint adds with float atomics, so the last bits of z vary from run to
-run; u does not.
+The pair is the forward and then the adjoint of its padded u on the card
+(csrc/wcoo.cu says why), and counts one launch per call, as does each
+product. The WCOO adjoint sums per-block partial z (scratch the wrapper
+allocates, ``ADJOINT_BLOCKS_PER_SM`` blocks per SM) in a fixed order, so z
+is bit-identical from run to run, as u is. The WWCOO adjoint adds with
+float atomics, so the last bits of its z vary from run to run.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -58,6 +62,12 @@ CR = 16384
 #: bits of the column in the column-sorted index plane: WCOO's idx
 #: (col | rowl << 12) and WWCOO's cidx (colc | rowl << 18)
 SHIFT = {False: 12, True: 18}
+#: blocks of the WCOO adjoint per SM (each adds a range of 1024-slot
+#: subtiles into its own z and writes it out as one partial): 8 blocks of
+#: 256 threads fill an SM (32 registers a thread, at most 16 KB of shared
+#: memory a block); fewer left the H100's memory idle, more only added
+#: partials to sum
+ADJOINT_BLOCKS_PER_SM = 8
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +201,23 @@ def _wide_args(packed, wide):
     return (packed.colmap.data_ptr(), packed.js * 128) if wide else ()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(packed, dev, wide):
+    """The adjoint's arguments before z: for WCOO its partial z (scratch of
+    (blocks, n) f32) and the block count, a function of the shape and the
+    card only, so z is summed in the same order in every run; none for
+    WWCOO. Returns (arguments, the scratch to keep alive over the launch)."""
+    if wide:
+        return (), None
+    blocks = min(packed.nc * packed.eb, ADJOINT_BLOCKS_PER_SM * _sm_count(dev.index))
+    partials = torch.empty((blocks, packed.n), dtype=torch.float32, device=dev)
+    return (partials.data_ptr(), blocks), partials
+
+
 def _forward(wrapper, packed, win, c1, c2, y, wide):
     dev = _check_packed(packed, wide)
     _vector("win", win, dev, packed.n, exact=True)
@@ -212,8 +239,9 @@ def _adjoint(wrapper, packed, u, wide):
     z = torch.empty(packed.n, dtype=torch.float32, device=dev)
     name = "lsqr_wwcoo_adjoint_f32" if wide else "lsqr_wcoo_adjoint_f32"
     index = packed.cidx if wide else packed.idx
+    scratch, _keep = _scratch(packed, dev, wide)
     spmv._launch(wrapper, _fn(name), packed.vals, packed.vals.data_ptr(), index.data_ptr(),
-                 *_wide_args(packed, wide), u.data_ptr(), u.shape[0], z.data_ptr(),
+                 *_wide_args(packed, wide), u.data_ptr(), u.shape[0], *scratch, z.data_ptr(),
                  packed.n, packed.vals.numel(), packed.eb * 1024)
     return z
 
@@ -228,11 +256,12 @@ def _pair(wrapper, packed, y, win, c1, c2, wide):
     z = torch.empty(packed.n, dtype=torch.float32, device=dev)
     name = "lsqr_wwcoo_pair_f32" if wide else "lsqr_wcoo_pair_f32"
     index = packed.cidx if wide else packed.idx
+    scratch, _keep = _scratch(packed, dev, wide)
     spmv._launch(wrapper, _fn(name), packed.vals_r, packed.vals_r.data_ptr(),
                  packed.col_r.data_ptr(), packed.gpe.data_ptr(), packed.vals.data_ptr(),
                  index.data_ptr(), *_wide_args(packed, wide), win.data_ptr(), packed.n,
                  y.data_ptr(), y.shape[0], c1.data_ptr(), c2.data_ptr(), u.data_ptr(),
-                 z.data_ptr(), packed.m_pad, packed.eb * 1024)
+                 *scratch, z.data_ptr(), packed.m_pad, packed.eb * 1024)
     return u[:packed.m], z
 
 

@@ -711,6 +711,91 @@ def test_cuda_wcoo_products_hold_f64_precision(rng, cuda_device, kind, record_pr
     assert sound <= PRODUCT_TOL < bf16
 
 
+def _long_row_triplets(rng, m, n, nnz):
+    """Zipf columns with duplicates, empty rows, 40 rows of 150 more
+    entries and 3 of 1500: rows longer than the forward's 32-slot step."""
+    vals, rows, cols = _ragged_triplets(rng, m, n, nnz)
+    extra = np.concatenate([np.repeat(rng.choice(m, 40, replace=False), 150),
+                            np.repeat(rng.choice(m, 3, replace=False), 1500)])
+    return (np.concatenate([vals, rng.standard_normal(extra.size).astype(np.float32)]),
+            np.concatenate([rows, extra]), np.concatenate([cols, rng.integers(0, n, extra.size)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,n,nnz", [
+    ("wcoo", 40_000, 1000, 120_000),
+    ("rwcoo", 50_001, 20_000, 150_000),
+])
+def test_cuda_chunked_coo_forwards_match_twins_on_long_rows(rng, cuda_device, kind, m, n,
+                                                            nnz):
+    vals, rows, cols = _long_row_triplets(rng, m, n, nnz)
+    build = lt.wcoo_operator if kind == "wcoo" else lt.rwcoo_operator
+    A = build(m, n, vals, rows, cols, device=cuda_device)
+    packings = [(A.packed, "wcoo")] if kind == "wcoo" else [(A.hot, "wcoo"), (A.cold, "wwcoo")]
+    for p, name in packings:
+        fwd = getattr(spmv_wcoo, f"{name}_forward")
+        plain = getattr(spmv_wcoo, f"{name}_forward_plain")
+        x = torch.randn(p.n, device=cuda_device)
+        for y in (torch.randn(m, device=cuda_device), torch.randn(p.m_pad, device=cuda_device)):
+            got, ref = fwd(p, x, 0.7, 0.3, y), plain(p, x, 0.7, 0.3, y)
+            torch.cuda.synchronize()
+            assert got.shape == (m,) and rel_err(got, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,n,nnz", [
+    ("wcoo", 40_000, 300, 150_000),
+    ("wcoo", 16_384, 4096, 60_000),
+    ("rwcoo", 100_003, 12_345, 400_000),
+])
+def test_cuda_wcoo_adjoint_and_pair_are_bit_stable(rng, cuda_device, kind, m, n, nnz):
+    """The WCOO adjoint sums fixed per-block partials in a fixed order: two
+    calls on the same inputs give the same bits (the RWCOO hot panel's
+    too), as the forward does."""
+    vals, rows, cols = _ragged_triplets(rng, m, n, nnz)
+    build = lt.wcoo_operator if kind == "wcoo" else lt.rwcoo_operator
+    A = build(m, n, vals, rows, cols, device=cuda_device)
+    p = A.packed if kind == "wcoo" else A.hot
+    x = torch.randn(p.n, device=cuda_device)
+    y = torch.randn(m, device=cuda_device)
+    c1 = torch.tensor(0.7, device=cuda_device)
+    spmv.reset_launch_counts()
+    z1, z2 = spmv_wcoo.wcoo_adjoint(p, y), spmv_wcoo.wcoo_adjoint(p, y)
+    (u1, w1), (u2, w2) = (spmv_wcoo.wcoo_pair(p, y, x, c1, 0.3) for _ in range(2))
+    f1, f2 = (spmv_wcoo.wcoo_forward(p, x, c1, 0.3, y) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(z1, z2) and torch.equal(w1, w2)
+    assert torch.equal(u1, u2) and torch.equal(f1, f2) and torch.equal(u1, f1)
+    assert rel_err(z1, spmv_wcoo.wcoo_adjoint_plain(p, y)) < 1e-4
+    assert spmv.launch_counts() == _only(wcoo_adjoint=2, wcoo_pair=2, wcoo_forward=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 2 ** 18), (1_000_003,), (64, 4096), (3,)])
+def test_cuda_stream_copy_matches_twin_bit_for_bit(cuda_device, shape):
+    from lsqr_tpu_torch.ops import roofline
+
+    x = torch.randn(shape, device=cuda_device)
+    ref = x.clone()
+    spmv.reset_launch_counts()
+    for _ in range(3):
+        assert lt.stream_copy(x) is x
+        roofline.stream_copy_plain(ref)
+    torch.cuda.synchronize()
+    assert torch.equal(x, ref)
+    assert spmv.launch_counts() == _only(stream_copy=3)
+    with pytest.raises(TypeError):
+        lt.stream_copy(x.double())
+
+
+@pytest.mark.cuda
+def test_cuda_stream_ceiling_runs_through_the_kernel(cuda_device):
+    spmv.reset_launch_counts()
+    gbs = lt.stream_ceiling(cuda_device, rows=256, cols=1 << 16, k=3)
+    assert spmv.launch_counts() == _only(stream_copy=4)  # a warm-up and k
+    assert 0 < gbs < 1e5
+
+
 ZCASES = [
     (300, 300, (-2, -1, 0, 1, 2)),
     (330, 200, (-60, -3, 0, 5)),

@@ -85,7 +85,18 @@ def _ragged(rng, m, n, nnz):
     return vals, rows, cols
 
 
+def _long_rows(rng, m, n, nnz):
+    """:func:`_ragged` with 40 rows of 150 more entries and 3 of 1500: rows
+    longer than the card forward's 32-slot step and its 32-row warp."""
+    vals, rows, cols = _ragged(rng, m, n, nnz)
+    extra = np.concatenate([np.repeat(rng.choice(m, 40, replace=False), 150),
+                            np.repeat(rng.choice(m, 3, replace=False), 1500)])
+    return (np.concatenate([vals, rng.standard_normal(extra.size).astype(np.float32)]),
+            np.concatenate([rows, extra]), np.concatenate([cols, rng.integers(0, n, extra.size)]))
+
+
 PATTERNS = {
+    "long_rows_40000x1000": lambda rng: (40000, 1000, *_long_rows(rng, 40000, 1000, 100000)),
     "uniform_20000x300": lambda rng: (20000, 300, *_uniform(rng, 20000, 300, 60000)),
     "zipf_16384x1024": lambda rng: (16384, 1024, *zipf_column_coo(16384, 1024, 50000, seed=3)),
     "ragged_40000x513": lambda rng: (40000, 513, *_ragged(rng, 40000, 513, 100000)),

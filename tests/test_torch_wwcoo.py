@@ -52,6 +52,17 @@ def _zipf(rng, m, n, nnz, a):
             rng.integers(0, m, cols.size), cols)
 
 
+def _long_rows(rng, m, n, nnz):
+    """Uniform entries with duplicates, a band of empty rows, 40 rows of 150
+    more entries and 3 of 1500."""
+    rows = rng.integers(0, m, nnz)
+    rows = np.where((rows > m // 3) & (rows < m // 3 + 300), rows - 300, rows)
+    rows = np.concatenate([rows, np.repeat(rng.choice(m, 40, replace=False), 150),
+                           np.repeat(rng.choice(m, 3, replace=False), 1500)])
+    cols = rng.integers(0, n, rows.size)
+    return _with_duplicates((rng.standard_normal(rows.size).astype(np.float32), rows, cols))
+
+
 def _with_duplicates(trip):
     vals, rows, cols = trip
     rows[-100:], cols[-100:] = rows[:100], cols[:100]
@@ -65,6 +76,9 @@ PATTERNS = {  # tests/test_wwcoo.py's shapes
                                           *_with_duplicates(_zipf(rng, 20001, 12345, 50000,
                                                                   1.2))),
     "zipf_16384x9000": lambda rng: (16384, 9000, *_zipf(rng, 16384, 9000, 50000, 1.3)),
+    # rows longer than the card forward's 32-slot step and its 32-row warp
+    "long_rows_33000x20000": lambda rng: (33000, 20000, *_long_rows(rng, 33000, 20000,
+                                                                    40000)),
 }
 RW_PATTERNS = {
     "zipf_40000x30000": lambda rng: (40000, 30000, *_zipf(rng, 40000, 30000, 120000, 1.1)),
