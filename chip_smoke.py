@@ -73,9 +73,11 @@ raises on failure:
    pattern, m = 2^21, 10,485,760 entries: WCOO at n = 2048, RWCOO at
    n = 65,536, built by ``auto_operator``) and at ragged shapes with
    duplicates and empty rows; kernel, twin and ``torch.sparse_csr_tensor``
-   times (A and A'), the bytes each must move, the routed RWCOO pair; the
-   WCOO adjoint and pair (RWCOO's hot panel too) called twice on the same
-   inputs must give the same bits;
+   times (A and A'), the bytes each must move, the routed RWCOO pair; a
+   WWCOO packing whose 98,304 column positions a chunk exceed one block's
+   shared memory (a band at 2^15 x 262,144: the adjoint's windows); every
+   adjoint and pair (WCOO, RWCOO's hot panel and cold stream, WWCOO) called
+   twice on the same inputs must give the same bits;
 15. solves on the two benchmark operators: damped (DAMP) to 1e-6 through
    the pair kernels, checked in f64 and against the COO operator's solve
    (the damped objective, within a limit that solves on planted faults
@@ -83,8 +85,8 @@ raises on failure:
    iterations with the launches, kernel time and device idle share per
    iteration, and 64 with ``pair=False`` (the separate products); each
    operator's products against the f64 triplets at three vectors, a check
-   that sees bf16-rounded values; a second WCOO solve must give bit-equal x
-   (RWCOO's cold adjoint adds with atomics: logged only);
+   that sees bf16-rounded values; a second solve of each must stop at the
+   same itn with bit-equal x (no kernel of either path adds with atomics);
 16. the complex pair ``zdia_pair`` against its twin at the JAX package's
    complex benchmark shape (``bench.py``'s zdia stage: m = n = 2^21, 5
    diagonals, N(0, 1) planes), a ragged rectangular shape and a +-1500 band
@@ -150,7 +152,7 @@ BELL_TALL = (76_763, 1_485)
 ZIPF_M, ZIPF_N, ZIPF_WIDE_N, ZIPF_NNZ = 2 ** 21, 2048, 65536, 10 * 2 ** 20
 WCOO_RAGGED = (100_003, 3_001)
 RWCOO_RAGGED = (100_003, 12_345)
-COO_TOL = 1e-4  # WCOO/WWCOO kernels vs twins: summation order (WWCOO's z: atomics)
+COO_TOL = 1e-4  # WCOO/WWCOO kernels vs twins: summation order
 #: phase 15: the damped objective of each solve against the COO operator's
 #: solve, relative; set between the largest sound reading (3.2e-9, 2.4e-6)
 #: and the least reading of a planted fault that it must catch (one subtile
@@ -159,6 +161,9 @@ OBJ_TOL = {"wcoo": 3e-8, "rwcoo": 1.5e-5}
 #: the planted faults each limit must catch (bf16 values are logged: the
 #: solve checks do not see them)
 CAUGHT = {"wcoo": ("chunk", "subtile"), "rwcoo": ("chunk", "subtile", "cold dropped")}
+#: phase 14's WWCOO band (one chunk's 98,304 positions exceed one block's
+#: shared memory): m, n, entries a row on as many of each row's 8 columns
+WWCOO_BAND = (2 ** 15, 262_144, 6, 8)
 #: the H100 SXM's device-memory rate and non-tensor-core peaks (NVIDIA's data
 #: sheet), for the least time a kernel could take
 HBM_BYTES_PER_S = 3.35e12
@@ -166,6 +171,7 @@ PEAK_FLOPS = {4: 67e12, 2: 67e12, 8: 34e12}  # by stripe bytes: f32, bf16 (f32 m
 MK_K = 8  # iterations per megakernel call in phase 9
 MK_SIDE = 2 ** 20  # phase 9's one-sided and ragged shapes
 M_SMALL = 2 ** 19  # phase 10's second timing size, the JAX megakernel's size class
+PROFILE_ATTEMPTS = 3  # phase_launches: profiled pairs of runs before its check fails
 MK_TOL = 1e-4  # megakernel vs twin after MK_K iterations, relative
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "dia_pair_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1969"),
@@ -477,6 +483,9 @@ def phase_kernels(dev, shapes, errs, paths):
         for storage in (torch.float32, torch.bfloat16)[:2 if si == 0 else 1]:
             calls = kernel_calls(dev, data, v, y, m, n, ks, storage)
             hold(calls, errs, m, n, ks, TOL)
+            tile = spmv.pair_tile(data.device, storage, len(ks), *spmv._halos(ks))
+            log(f"  dia_pair m={m} n={n} nd={len(ks)} {str(storage)[6:]} stripes: "
+                + (f"staged tiles of {tile}" if tile else "the two-launch route"))
             if si == 0:
                 csr = stripes_csr(data, ks, m, n) if storage == torch.float32 else None
                 for name, pairs in calls.items():
@@ -760,43 +769,64 @@ def phase_f64(dev, m, paths):
                                                rtol=1e-5), "README 3x3")
 
 
-def phase_launches(A, b, **extra):
-    """Phase 6 (and 7, 8, 10): CUDA launches per iteration of a solve (the
-    pair solve, or ``extra``'s), from the profiler: (launches of a
-    128-iteration run - a 64-iteration run) / 64."""
+def profile_run(A, b, itnlim, **extra):
+    """One fixed ``itnlim``-iteration LSQR solve under the profiler, after
+    an unprofiled one: (device events, runtime launch calls, device ms,
+    {kernel name: (events, device ms)})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import lsqr_tpu_torch as lt
 
-    counts = {}
-    for itnlim in (64, 128):
-        kw = dict(itnlim=itnlim, atol=0.0, btol=0.0, conlim=0.0, nconv=itnlim + 1, **extra)
+    kw = dict(itnlim=itnlim, atol=0.0, btol=0.0, conlim=0.0, nconv=itnlim + 1, **extra)
+    lt.lsqr(A, b, DAMP, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         lt.lsqr(A, b, DAMP, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            lt.lsqr(A, b, DAMP, **kw)
-            torch.cuda.synchronize()
-        events = prof.events()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-        launch_calls = [e for e in events if "LaunchKernel" in e.name]
-        by_name = {}
-        for e in kernels:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.device_time / 1e3)
-        counts[itnlim] = (len(kernels), len(launch_calls),
-                          sum(t for _, t in by_name.values()), by_name)
-    per_iter = (counts[128][0] - counts[64][0]) / 64
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    launch_calls = [e for e in events if "LaunchKernel" in e.name]
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time / 1e3)
+    return len(kernels), len(launch_calls), sum(t for _, t in by_name.values()), by_name
+
+
+def phase_launches(A, b, **extra):
+    """Phase 6 (and 7, 8, 10): CUDA launches per iteration of a solve (the
+    pair solve, or ``extra``'s), from the profiler: (launches of a
+    128-iteration run - a 64-iteration run) / 64.
+
+    A megakernel solve launches once per K iterations, so its two runs
+    differ by four device events only; twice the profiler's counts left
+    the difference <= 0 (``tools/launch_profile_counts.py`` repeats these
+    profiles). Such a pair of runs is profiled again, up to
+    ``PROFILE_ATTEMPTS`` times, each attempt logged; the check holds the
+    last one."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        counts = {itnlim: profile_run(A, b, itnlim, **extra) for itnlim in (64, 128)}
+        per_iter = (counts[128][0] - counts[64][0]) / 64
+        if per_iter > 0:
+            break
+        log(f"  profile attempt {attempt}: {counts[64][0]} / {counts[128][0]} device "
+            f"events in the 64- / 128-iteration runs, by kernel:")
+        for name in sorted(set(counts[64][3]) | set(counts[128][3])):
+            log(f"    {counts[64][3].get(name, (0, 0.0))[0]:6d} / "
+                f"{counts[128][3].get(name, (0, 0.0))[0]:6d} launches  {name[:90]}")
     calls = (counts[128][1] - counts[64][1]) / 64
     busy = (counts[128][2] - counts[64][2]) / 64
     log(f"  device kernels per iteration: {per_iter:.2f} (runtime launch calls seen: "
         f"{calls:.2f}); kernel time per iteration {busy:.4f} ms")
-    check(per_iter > 0, "the profiler saw no CUDA kernels")
+    check(per_iter > 0, f"the profiler saw no more CUDA kernels in 128 iterations than in "
+          f"64, in {PROFILE_ATTEMPTS} attempts")
     top = sorted(counts[128][3].items(), key=lambda kv: -kv[1][1])[:10]
     for name, (n, t) in top:  # the 128-iteration run, setup included
         log(f"    {t / 128:9.4f} ms/it  {n / 128:6.2f} launches/it  {name[:90]}")
-    return dict(kernels_per_iteration=per_iter, kernel_ms_per_iteration=busy)
+    return dict(kernels_per_iteration=per_iter, kernel_ms_per_iteration=busy,
+                profile_attempts=attempt)
 
 
 def phase_packed_solve(dev, m, x_shared, card, paths):
@@ -1558,19 +1588,36 @@ def coo_perf(calls, p, wide, library, card):
     return perf
 
 
-def bit_stable(label, p, x, y, c1):
-    """The WCOO adjoint and pair twice on the same inputs: z and u must be
-    the same bits (the adjoint sums fixed partials in a fixed order)."""
+def bit_stable(label, p, wide, x, y, c1):
+    """The adjoint and pair twice on the same inputs: z and u must be the
+    same bits (neither adjoint adds with atomics: WCOO sums fixed partials
+    in a fixed order, WWCOO expands each chunk's compacted z in chunk
+    order)."""
     import torch
 
     from lsqr_tpu_torch.ops import spmv_wcoo as sw
 
-    z1, z2 = sw.wcoo_adjoint(p, y), sw.wcoo_adjoint(p, y)
-    (u1, w1), (u2, w2) = (sw.wcoo_pair(p, y, x, c1, 0.3) for _ in range(2))
+    pre = "wwcoo" if wide else "wcoo"
+    adj, pair = getattr(sw, f"{pre}_adjoint"), getattr(sw, f"{pre}_pair")
+    z1, z2 = adj(p, y), adj(p, y)
+    (u1, w1), (u2, w2) = (pair(p, y, x, c1, 0.3) for _ in range(2))
     torch.cuda.synchronize()
     same = [torch.equal(z1, z2), torch.equal(w1, w2), torch.equal(u1, u2)]
-    log(f"  {label}: wcoo_adjoint z, wcoo_pair z and u over two calls bit-equal: {same}")
-    check(all(same), f"{label}: the WCOO adjoint or pair differs between two calls: {same}")
+    log(f"  {label}: {pre}_adjoint z, {pre}_pair z and u over two calls bit-equal: {same}")
+    check(all(same), f"{label}: the {pre} adjoint or pair differs between two calls: {same}")
+
+
+def wwcoo_design_bytes(p):
+    """(the WWCOO adjoint's plan, the bytes its design moves): the column-
+    sorted copy (8 per slot), u, the partials written and the listed ones
+    read back (one float per split a list entry), the inverse lists, z."""
+    from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+    plan = sw.wwcoo_adjoint_plan(p.vals.device.index, p.js * 128, p.eb, p.nc)
+    splits, pairs = plan[3], p.zsrc.numel()
+    moved = (8 * p.nc * p.eb * 1024 + 4 * p.m + 4 * p.nc * splits * p.js * 128
+             + 4 * pairs * splits + 4 * (pairs + p.n + 1) + 4 * p.n)
+    return plan, moved
 
 
 def stored_bytes(A):
@@ -1578,7 +1625,10 @@ def stored_bytes(A):
     it with the COO triplets)."""
     packs = [A.packed] if hasattr(A, "packed") else [A.hot] + ([A.cold] if A.cold else [])
     kernels = sum(p.device_bytes() for p in packs)
-    coo = sum(t.numel() * t.element_size() for t in (A.coo.vals, A.coo.rows, A.coo.cols))
+    c = A.coo  # the triplets and their fixed-order sums by row and by column
+    coo = sum(t.numel() * t.element_size() for t in (
+        c.vals, c.rows, c.cols, *(getattr(g, f) for g in (c.by_row, c.by_col)
+                                  for f in ("vals", "src", "offsets"))))
     return kernels, kernels + coo
 
 
@@ -1655,10 +1705,15 @@ def phase_wcoo_kernels(dev, errs, card):
             y = torch.randn(m, generator=g, device=dev)
             calls = coo_calls(p, wide, x, y, c1)
             hold(calls, errs, m, p.n, range(p.eb), COO_TOL)
-            if not wide:
-                bit_stable(f"{label} {k}", p, x, y, c1)
+            bit_stable(f"{label} {k}", p, wide, x, y, c1)
             if label in ("wcoo", "rwcoo") and k != "hot":
                 perf.update(coo_perf(calls, p, wide, library, card))
+            if wide and "ragged" not in label:
+                plan, moved = wwcoo_design_bytes(p)
+                ms = perf["wwcoo_adjoint"]["ms"]
+                log(f"  wwcoo_adjoint plan (groups, window, windows, splits) {plan}, D_pad "
+                    f"{p.js * 128}, {p.zsrc.numel()} (chunk, column) pairs: the design moves "
+                    f"{moved / 1e6:.1f} MB ({moved / (ms * 1e6):.1f} GB/s)  [{card}]")
             if label == "rwcoo" and k == "hot":
                 from lsqr_tpu_torch.ops import spmv_wcoo as sw
 
@@ -1675,6 +1730,30 @@ def phase_wcoo_kernels(dev, errs, card):
             ops[label] = (A, trip, pack_s)
         del A
         torch.cuda.empty_cache()
+    # a WWCOO packing whose D_pad exceeds one block's shared memory: the
+    # adjoint's position windows
+    m, n, per_row, stride = WWCOO_BAND
+    gen = np.random.default_rng(14)
+    rows = np.repeat(np.arange(m), per_row)
+    cols = rows * stride + np.argsort(gen.random((m, stride)), axis=1)[:, :per_row].ravel()
+    A = lt.wwcoo_operator(m, n, gen.standard_normal(rows.size).astype(np.float32), rows, cols,
+                          device=dev)
+    p = A.packed
+    plan, _ = wwcoo_design_bytes(p)
+    log(f"  wwcoo band m={m} n={n}: D_pad {p.js * 128} ({p.js * 128 * 4} bytes a chunk), "
+        f"adjoint plan (groups, window, windows, splits) {plan}")
+    check(plan[2] > 1, f"the WWCOO band must need position windows: {plan}")
+    x = torch.randn(n, generator=g, device=dev)
+    y = torch.randn(m, generator=g, device=dev)
+    hold(coo_calls(p, True, x, y, c1), errs, m, n, range(p.eb), COO_TOL)
+    bit_stable("wwcoo band", p, True, x, y, c1)
+    from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+    ms = time_ms(lambda: sw.wwcoo_adjoint(p, y))
+    log(f"  wwcoo band adjoint {ms:.4f} ms  [{card}]")
+    perf["wwcoo_band_adjoint_ms"] = ms
+    del A, p, x, y
+    torch.cuda.empty_cache()
     # the RWCOO pipeline end to end: one routed pair against the COO products
     A, trip, _ = ops["rwcoo"]
     coo = lt.coo_operator(A.m, A.n, *trip, device=dev)
@@ -1792,14 +1871,13 @@ def phase_wcoo_solves(dev, ops, card, paths):
         check(delta[pair] == body, f"{label}: expected one {pair} per iteration run: {delta}")
         ratio = coo_optimality(coo_t, A.m, A.n, b, res.x)
         check(ratio <= 1e-4, f"{label} solve: optimality {ratio:.3e} > 1e-4")
-        # the same solve again: bit-equal x where every kernel of the path
-        # sums in a fixed order (WCOO); RWCOO's cold adjoint adds with atomics
+        # the same solve again: every kernel of both paths sums in a fixed
+        # order, so it stops at the same itn with bit-equal x
         again = lt.lsqr(A, b, DAMP, **tol)
         rerun_equal = bool(torch.equal(again.x, res.x)) and int(again.itn) == int(res.itn)
         log(f"  {label}: a second solve gives {'bit-equal' if rerun_equal else 'different'} "
-            f"x (itn {int(again.itn)})")
-        if label == "wcoo":
-            check(rerun_equal, "wcoo: two solves on the same inputs give different x")
+            f"x (itn {int(again.itn)} and {int(res.itn)})")
+        check(rerun_equal, f"{label}: two solves on the same inputs give different x")
         del again
         # the same solve on the COO operator: both are answers to atol, and
         # their damped objectives agree. Their x do not, to 1e-3: the Zipf
@@ -2232,6 +2310,7 @@ def main():
     unstructured, ops = phase_wcoo_kernels(dev, errs, card)
     solves["rwcoo_fused_pair_ms"] = unstructured.pop("rwcoo_fused_pair_ms")
     solves["rwcoo_hot_adjoint_ms"] = unstructured.pop("rwcoo_hot_adjoint_ms")
+    solves["wwcoo_band_adjoint_ms"] = unstructured.pop("wwcoo_band_adjoint_ms")
     perf.update(unstructured)
     phase("phase 15: WCOO and RWCOO solves")
     solves["unstructured"] = phase_wcoo_solves(dev, ops, card, paths)

@@ -45,9 +45,23 @@
 //   block order. The grid depends on the shape and the card's SM count only,
 //   so every sum has the same order in every run: z is bit-identical from
 //   run to run, with no float atomic and no memset.
-//   WWCOO (colmap positions up to 2^18, too many for shared memory): one
-//   float atomic per run into z, zeroed first. The order of the atomics
-//   varies from run to run, so the last bits of z do too.
+//   WWCOO (colmap positions up to 2^18; deterministic): the TPU kernel's
+//   order, compaction then expansion. Compaction: block (t, w, s) takes
+//   chunk t's subtiles [s * eb / S, (s + 1) * eb / S) and adds the runs
+//   whose position lies in window w into a zc of its own in shared memory,
+//   with the same hand-off of each warp's first run; G groups of 8 warps
+//   take G subtiles at once into G zc, added in group order at the end,
+//   and the block writes its window to partials[(t * S + s) * d_pad + pos].
+//   While a step adds one subtile's runs, the next subtile's u gathers and
+//   the loads of the one after are in flight. Where d_pad floats fit one
+//   block's shared memory there is one window (G = up to 4); else windows
+//   of what fits, G = 1, and a warp loads only the tiles whose sorted
+//   positions meet its window. Expansion: 8 lanes add the partials of
+//   column c, read through the host-built inverse of colmap (zptr, zsrc:
+//   the (t, pos) of each column, t ascending), lane l the entries l, l + 8,
+//   ... in order, joined in a fixed tree, and write z[c]. The plan (G,
+//   windows, S) depends on the shape and the card only, so z is
+//   bit-identical from run to run, with no float atomic and no memset.
 //
 // What the TPU kernels did and these do not (ops/pallas_wcoo.py,
 // ops/pallas_wwcoo.py): Mosaic gathers only within a 128-lane row, so there
@@ -57,16 +71,20 @@
 // per-subtile column table ep (WWCOO: through compaction, emission and
 // expansion work lists), adding each chunk's z in grid order. The card
 // gathers from any address, so those tables (ep, ugb, bnb, zexp, the work
-// lists) are not read here; the host keeps them.
+// lists) are not read here; the host keeps them, and WWCOO's zexp only as
+// the per-column lists zptr/zsrc.
 //
 // What bounds both on the H100: bytes. Each slot costs 8 bytes per copy and
 // 2 flops; the vectors add 4 bytes per row and per column. The forward reads
 // only the real slots of the row-sorted copy and gpe; the adjoint streams
-// the column-sorted copy. The WCOO partials (blocks x n floats) are scratch
-// that stays mostly in the 50 MB L2.
+// the column-sorted copy. The WCOO partials (blocks x n floats) and the
+// WWCOO ones (nc x S x d_pad floats) are scratch that stays mostly in the
+// 50 MB L2; WWCOO's expansion gathers one partial per (chunk, column) pair
+// of each split through the inverse list (4 bytes a pair).
 
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -81,6 +99,8 @@ constexpr int kSubtile = kWarps * kTile;  // 1024: a block's step in the WCOO ad
 constexpr int kSumSegments = 32;  // the partials' sum: 32 columns x 32 block ranges
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScanSlots = 64;  // the forward: warps of fewer slots take scan_rows
+constexpr int kMaxGroups = 4;  // WWCOO compaction: at most 4 groups of 8 warps a block
+constexpr int kExpandThreads = 256;  // WWCOO expansion: a block of 32 columns x 8 lanes
 
 // The rows of a warp whose slots [w_lo, w_hi] are few, in steps of 32: lane
 // l takes slot s0 + l, the first slots of the rows that start in the step
@@ -166,23 +186,33 @@ __global__ void __launch_bounds__(kThreads) rows_forward(
   }
 }
 
-// The runs of one warp's 128-slot tile (s0 its first slot, ut the chunk's
-// u): emit(col, sum) once per (tile, column) run, col the stored column
-// (WWCOO: the colmap position).
-template <int kShift, class Emit>
-__device__ __forceinline__ void tile_runs(float4 v4, uint4 i4, const float* __restrict__ ut,
-                                          long long rows_left, int lane, Emit emit) {
-  constexpr unsigned kMask = (1u << kShift) - 1u;
+// This lane's four products of a tile, vals[e] * u[row(e)] (ut the chunk's
+// u, 0 past its rows_left rows).
+template <int kShift>
+__device__ __forceinline__ float4 tile_products(float4 v4, uint4 i4, const float* __restrict__ ut,
+                                                long long rows_left) {
   const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
   const unsigned ii[4] = {i4.x, i4.y, i4.z, i4.w};
-  int col[4];
   float p[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    col[k] = static_cast<int>(ii[k] & kMask);
     const long long row = ii[k] >> kShift;
     p[k] = row < rows_left ? vv[k] * __ldg(ut + row) : 0.0f;
   }
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// The runs of one warp's 128-slot tile, from this lane's four products p4
+// and index words i4: emit(col, sum) once per (tile, column) run, col the
+// stored column (WWCOO: the colmap position).
+template <int kShift, class Emit>
+__device__ __forceinline__ void tile_runs(float4 p4, uint4 i4, int lane, Emit emit) {
+  constexpr unsigned kMask = (1u << kShift) - 1u;
+  const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+  const unsigned ii[4] = {i4.x, i4.y, i4.z, i4.w};
+  int col[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) col[k] = static_cast<int>(ii[k] & kMask);
   // the lane's runs: the first (head), the middle ones (emitted here: their
   // column occurs in no other lane of a sorted tile) and the last (tail)
   float head = 0.0f, cur = p[0];
@@ -225,29 +255,6 @@ __device__ __forceinline__ void tile_runs(float4 v4, uint4 i4, const float* __re
   if (lane == 31 || !next_cont) emit(col[3], carry);
 }
 
-// WWCOO: one warp per tile in a grid-stride loop, one float atomic per run
-template <int kShift>
-__global__ void __launch_bounds__(kThreads) cols_adjoint_atomic(
-    const float* __restrict__ vals, const unsigned* __restrict__ idx,
-    const int* __restrict__ colmap, int d_pad, const float* __restrict__ u,
-    long long u_len, float* __restrict__ z, int n, long long tiles, int emax) {
-  const int lane = threadIdx.x & 31;
-  const long long nwarps = (static_cast<long long>(gridDim.x) * kThreads) >> 5;
-  for (long long w = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-       w < tiles; w += nwarps) {
-    const long long s0 = w * kTile;
-    const long long t = s0 / emax;  // a tile lies in one chunk: 128 | emax
-    const float4 v4 = __ldcs(reinterpret_cast<const float4*>(vals + s0) + lane);
-    const uint4 i4 = __ldcs(reinterpret_cast<const uint4*>(idx + s0) + lane);
-    const int* cm = colmap + t * d_pad;
-    tile_runs<kShift>(v4, i4, u + t * kChunkRows, u_len - t * kChunkRows, lane,
-                      [&](int pos, float s) {
-                        const int col = __ldg(cm + pos);
-                        if (s != 0.0f && col >= 0 && col < n) atomicAdd(z + col, s);
-                      });
-  }
-}
-
 // WCOO: block b adds the subtiles [b * S / G, (b + 1) * S / G) into its z in
 // shared memory and writes it to partials[b * n, (b + 1) * n)
 template <int kShift>
@@ -282,8 +289,8 @@ __global__ void __launch_bounds__(kThreads) cols_adjoint_partial(
     }
     const long long t = j * kSubtile / emax;  // a subtile lies in one chunk
     const int c0 = __shfl_sync(kFull, static_cast<int>(ci.x & ((1u << kShift) - 1u)), 0);
-    tile_runs<kShift>(cv, ci, u + t * kChunkRows, u_len - t * kChunkRows, lane,
-                      [&](int col, float s) {
+    tile_runs<kShift>(tile_products<kShift>(cv, ci, u + t * kChunkRows, u_len - t * kChunkRows),
+                      ci, lane, [&](int col, float s) {
                         if (col == c0) {  // the tile's first run
                           first_col[warp] = col;
                           first_sum[warp] = s;
@@ -328,6 +335,128 @@ __global__ void __launch_bounds__(32 * kSegments) sum_partials(
   }
 }
 
+// WWCOO compaction: block (t, w, s) of chunk t, position window w
+// [w * wsize, w * wsize + width) and subtile split s; G = blockDim.x / 256
+// groups of 8 warps, group g taking the split's subtiles j0 + g, j0 + g + G,
+// ... in lockstep into zs[g * wsize, (g + 1) * wsize)
+template <int kShift>
+__global__ void __launch_bounds__(kThreads * kMaxGroups) cols_compact(
+    const float* __restrict__ vals, const unsigned* __restrict__ idx,
+    const float* __restrict__ u, long long u_len, float* __restrict__ partials, int d_pad,
+    int wsize, int windows, int splits, int eb) {
+  constexpr unsigned kMask = (1u << kShift) - 1u;
+  extern __shared__ float zs[];
+  __shared__ int first_col[kWarps * kMaxGroups];
+  __shared__ float first_sum[kWarps * kMaxGroups];
+  const int groups = blockDim.x / kThreads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp / kWarps;
+  const long long b = blockIdx.x;
+  const long long t = b / (static_cast<long long>(windows) * splits);
+  const int p0 = static_cast<int>(b / splits % windows) * wsize;
+  const int width = min(wsize, d_pad - p0);
+  const int s = static_cast<int>(b % splits);
+  const int j0 = static_cast<int>(static_cast<long long>(eb) * s / splits);
+  const int j1 = static_cast<int>(static_cast<long long>(eb) * (s + 1) / splits);
+  for (int k = threadIdx.x; k < groups * wsize; k += blockDim.x) zs[k] = 0.0f;
+  float* z = zs + group * wsize;
+  const float* ut = u + t * kChunkRows;
+  const long long rows_left = u_len - t * kChunkRows;
+  // the warp's tile of subtile j: loaded when its positions meet the window
+  const long long tile0 = t * eb * kSubtile + (warp % kWarps) * kTile;
+  auto fetch = [&](int j, float4& v4, uint4& i4) {
+    if (j >= j1) return false;
+    const long long s0 = tile0 + static_cast<long long>(j) * kSubtile;
+    if (windows > 1) {  // the tile is sorted: its positions are [lo, hi]
+      const int lo = static_cast<int>(__ldg(idx + s0) & kMask);
+      const int hi = static_cast<int>(__ldg(idx + s0 + kTile - 1) & kMask);
+      if (hi < p0 || lo >= p0 + width) return false;
+    }
+    v4 = __ldcs(reinterpret_cast<const float4*>(vals + s0) + lane);
+    i4 = __ldcs(reinterpret_cast<const uint4*>(idx + s0) + lane);
+    return true;
+  };
+  // a step adds subtile j's runs while the next subtile's u gathers and the
+  // loads of the one after are in flight
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 v4 = zero4, v4n = zero4;
+  uint4 i4 = make_uint4(0u, 0u, 0u, 0u), i4n = i4;
+  int j = j0 + group;
+  bool have = fetch(j, v4, i4);
+  bool have_n = fetch(j + groups, v4n, i4n);
+  __syncthreads();
+  float4 p4 = have ? tile_products<kShift>(v4, i4, ut, rows_left) : zero4;
+  const int steps = (j1 - j0 + groups - 1) / groups;
+  for (int i = 0; i < steps; ++i, j += groups) {
+    const float4 cp = p4;
+    const uint4 ci = i4;
+    const bool cur = have;
+    p4 = have_n ? tile_products<kShift>(v4n, i4n, ut, rows_left) : zero4;
+    i4 = i4n;
+    have = have_n;
+    have_n = fetch(j + 2 * groups, v4n, i4n);
+    if (cur) {
+      const int c0 = __shfl_sync(kFull, static_cast<int>(ci.x & kMask), 0);
+      tile_runs<kShift>(cp, ci, lane, [&](int pos, float sum) {
+        const unsigned q = static_cast<unsigned>(pos - p0);
+        if (pos == c0) {  // the tile's first run
+          first_col[warp] = pos;
+          first_sum[warp] = sum;
+        } else if (q < static_cast<unsigned>(width)) {
+          z[q] += sum;
+        }
+      });
+    } else if (lane == 0) {
+      first_col[warp] = -1;
+    }
+    __syncthreads();
+    if (threadIdx.x % kThreads == 0) {  // each group's first runs, in warp order
+      for (int k = group * kWarps; k < (group + 1) * kWarps; ++k) {
+        const unsigned q = static_cast<unsigned>(first_col[k] - p0);
+        if (first_col[k] >= 0 && q < static_cast<unsigned>(width)) z[q] += first_sum[k];
+      }
+    }
+    __syncthreads();
+  }
+  float* out = partials + (t * splits + s) * static_cast<long long>(d_pad) + p0;
+  for (int q = threadIdx.x; q < width; q += blockDim.x) {
+    float acc = zs[q];
+    for (int g = 1; g < groups; ++g) acc += zs[g * wsize + q];
+    out[q] = acc;
+  }
+}
+
+// WWCOO expansion: z[c] = the partials of column c; zsrc[zptr[c] ..
+// zptr[c + 1]) holds t * d_pad + pos of each chunk t that has column c at
+// position pos, t ascending. kLanes lanes take a column: lane l adds list
+// entries l, l + kLanes, ... (each entry's splits in order), then the lanes'
+// sums join in a fixed tree, so a warm column's chain of loads is kLanes
+// times shorter and the order stays the same in every run.
+template <int kLanes>
+__global__ void __launch_bounds__(kExpandThreads) expand_columns(
+    const float* __restrict__ partials, const int* __restrict__ zptr,
+    const int* __restrict__ zsrc, int d_pad, int splits, float* __restrict__ z, int n) {
+  const long long gt = static_cast<long long>(blockIdx.x) * kExpandThreads + threadIdx.x;
+  const long long c = gt / kLanes;
+  const int l = static_cast<int>(gt % kLanes);
+  float acc = 0.0f;
+  if (c < n) {
+    const int k1 = __ldg(zptr + c + 1);
+#pragma unroll 4
+    for (int k = __ldg(zptr + c) + l; k < k1; k += kLanes) {
+      const int f = __ldg(zsrc + k);
+      const long long tt = f / d_pad;
+      const float* p = partials + tt * splits * d_pad + (f - tt * d_pad);
+      // through L1: neighbouring columns' positions in a chunk share lines
+      for (int sp = 0; sp < splits; ++sp) acc += __ldg(p + static_cast<long long>(sp) * d_pad);
+    }
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o, kLanes);
+  if (l == 0 && c < n) z[c] = acc;
+}
+
 inline unsigned grid_for(long long work, long long per_block) {
   long long grid = (work + per_block - 1) / per_block;
   const long long cap = 1LL << 20;  // the grid-stride loops cover the rest
@@ -349,18 +478,87 @@ cudaError_t launch_forward(const void* vals_r, const void* col_r, const void* gp
   return cudaGetLastError();
 }
 
-// WWCOO: z is zeroed here, on the stream, before the atomics add into it
-template <int kShift>
-cudaError_t launch_adjoint_atomic(const void* vals, const void* idx, const void* colmap,
-                                  int d_pad, const void* u, long long u_len, void* z, int n,
-                                  long long slots, int emax, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(z, 0, static_cast<size_t>(n) * sizeof(float), stream);
+// The WWCOO compaction's shared memory besides zs (first_col, first_sum)
+constexpr int kCompactStatic = 2 * 4 * kWarps * kMaxGroups;
+
+// The WWCOO adjoint's plan for chunks of eb subtiles and d_pad positions on
+// this card: plan = {G, wsize, windows, S}. One window where d_pad floats
+// fit a block's shared memory, with as many groups (at most 4) as fit
+// there too; else windows of what fits and G = 1. S splits each chunk's
+// subtiles where nc x windows blocks would not fill the card's SMs (at
+// most one split per G subtiles, and a split streams at least the partial
+// bytes it writes). The partials hold nc x S x d_pad floats.
+inline cudaError_t compact_plan(int d_pad, int eb, long long nc, int* plan) {
+  int dev = 0, optin = 0, per_sm = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long tiles = slots / kTile;
-  cols_adjoint_atomic<kShift><<<grid_for(tiles, kWarps), kThreads, 0, stream>>>(
+  if (d_pad < 1 || eb < 1 || nc < 1) return cudaErrorInvalidValue;
+  const int floats = (optin - kCompactStatic) / 4;
+  int groups = 1, wsize = d_pad, windows = 1;
+  if (d_pad <= floats) {
+    groups = std::min(kMaxGroups, floats / d_pad);
+  } else {
+    wsize = floats & ~127;
+    windows = (d_pad + wsize - 1) / wsize;
+  }
+  const int block_smem = groups * wsize * 4 + kCompactStatic + 1024;  // the card keeps 1 KB
+  const int resident = std::max(1, std::min(2048 / (kThreads * groups), per_sm / block_smem)) * sms;
+  // at most one split per G subtiles, and none that writes more partial
+  // bytes (4 * wsize) than it streams (8 KB a subtile)
+  const long long most = std::min<long long>((eb + groups - 1) / groups,
+                                             std::max<long long>(1, 2048LL * eb / wsize));
+  long long splits = resident / (nc * windows);
+  splits = splits < 1 ? 1 : (splits > most ? most : splits);
+  plan[0] = groups;
+  plan[1] = wsize;
+  plan[2] = windows;
+  plan[3] = static_cast<int>(splits);
+  return cudaSuccess;
+}
+
+// WWCOO: the compaction into partials (nc x S x d_pad floats), then the
+// expansion; every entry of z is written
+template <int kShift>
+cudaError_t launch_adjoint_compact(const void* vals, const void* idx, const void* zptr,
+                                   const void* zsrc, int d_pad, const void* u, long long u_len,
+                                   void* partials, int groups, int wsize, int windows,
+                                   int splits, void* z, int n, long long slots, int emax,
+                                   cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const long long nc = slots / emax;
+  const int eb = emax / kSubtile;
+  const size_t smem = static_cast<size_t>(groups) * wsize * sizeof(float);
+  if (groups < 1 || groups > kMaxGroups || wsize < 1 || windows < 1 || splits < 1 ||
+      splits > eb || static_cast<long long>(wsize) * windows < d_pad ||
+      nc * d_pad >= (1LL << 31) || d_pad > (1 << kShift)) {
+    return cudaErrorInvalidValue;
+  }
+  static size_t opted = 48 * 1024;  // what a launch takes without the opt-in
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cols_compact<kShift>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  cols_compact<kShift><<<static_cast<unsigned>(nc * windows * splits), kThreads * groups, smem,
+                         stream>>>(
       static_cast<const float*>(vals), static_cast<const unsigned*>(idx),
-      static_cast<const int*>(colmap), d_pad, static_cast<const float*>(u), u_len,
-      static_cast<float*>(z), n, tiles, emax);
+      static_cast<const float*>(u), u_len, static_cast<float*>(partials), d_pad, wsize, windows,
+      splits, eb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int kLanes = 8;
+  expand_columns<kLanes><<<static_cast<unsigned>((static_cast<long long>(n) * kLanes +
+                                                   kExpandThreads - 1) / kExpandThreads),
+                           kExpandThreads, 0, stream>>>(
+      static_cast<const float*>(partials), static_cast<const int*>(zptr),
+      static_cast<const int*>(zsrc), d_pad, splits, static_cast<float*>(z), n);
   return cudaGetLastError();
 }
 

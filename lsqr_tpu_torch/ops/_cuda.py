@@ -59,9 +59,11 @@ _SIGNATURES = {
     **{f"lsqr_dia_fused_halfstep_v3_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
                                            _P)
        for s in ("f32", "bf16")},
-    # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, stream
-    **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _P)
+    # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, T, stream
+    **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P)
        for s in ("f32", "bf16")},
+    # nd, lo, hi (returns the tile, 0 where none fits, -1 on a CUDA error)
+    **{f"lsqr_dia_pair_tile_{s}": (_I, _I, _I) for s in ("f32", "bf16")},
     # csrc/zdia.cu
     # dr, di, win, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, mode, stream
     "lsqr_zdia_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P),
@@ -86,11 +88,20 @@ _SIGNATURES = {
     "lsqr_wcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _P, _L,
                            _I, _P),
     # csrc/wwcoo.cu: as csrc/wcoo.cu with (colmap, d_pad) after the index
-    # plane, and no partials (the adjoint adds into z with atomics)
+    # plane; the adjoint reads (zptr, zsrc, d_pad) and takes the partials
+    # and its plan (groups, wsize, windows, splits)
     "lsqr_wwcoo_forward_f32": (_P, _P, _P, _P, _I, _P, _I, _P, _L, _P, _P, _P, _L, _I, _P),
-    "lsqr_wwcoo_adjoint_f32": (_P, _P, _P, _I, _P, _L, _P, _I, _L, _I, _P),
-    "lsqr_wwcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _L, _P, _P, _P, _P, _L,
-                            _I, _P),
+    # d_pad, eb, nc, plan (4 ints out)
+    "lsqr_wwcoo_adjoint_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # vals, cidx, d_pad, zptr, zsrc, u, u_len, partials, groups, wsize,
+    # windows, splits, z, n, slots, emax, stream
+    "lsqr_wwcoo_adjoint_f32": (_P, _P, _I, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P, _I, _L, _I,
+                               _P),
+    # vals_r, col_r, gpe, vals, cidx, colmap, d_pad, zptr, zsrc, x, n, y,
+    # y_len, c1, c2, u, partials, groups, wsize, windows, splits, z, m_pad,
+    # emax, stream
+    "lsqr_wwcoo_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _L, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P, _L, _I, _P),
     # csrc/stream_copy.cu
     # x, len, stream
     "lsqr_stream_copy_f32": (_P, _L, _P),

@@ -1,12 +1,15 @@
 """COO sparse operator: the general correctness path for any pattern.
 
-PyTorch counterpart of :mod:`lsqr_tpu.ops.coo`; ``index_add_`` takes the
-place of ``jax.ops.segment_sum``:
+PyTorch counterpart of :mod:`lsqr_tpu.ops.coo`. Where JAX sums with
+``jax.ops.segment_sum``, the port sums each destination's entries in a
+fixed order (:class:`GatherSum`): the entries sorted by destination once,
+when the operator is built, then a gather and a segmented sum per product,
 
-    matvec:  zeros(m).index_add_(0, rows, vals * x[cols])
-    rmatvec: zeros(n).index_add_(0, cols, vals * y[rows])
+    matvec:  out[i] = sum over the entries of row i of vals * x[cols]
+    rmatvec: out[j] = sum over the entries of column j of conj(vals) * y[rows]
 
-Indices are 0-based.
+so a product gives the same bits in every run on the card (``index_add_``
+adds there with float atomics in no fixed order). Indices are 0-based.
 """
 
 from __future__ import annotations
@@ -18,19 +21,86 @@ import torch
 
 from .linop import LinearOperator, as_tensor
 
-__all__ = ["COOOperator", "coo_operator"]
+__all__ = ["COOOperator", "coo_operator", "GatherSum", "destination_order", "segment_sum"]
+
+
+def destination_order(dest, length):
+    """(order, offsets): the entries' stable sort by destination ``dest``
+    (int64, values in [0, length)) and each destination's range of it,
+    offsets (length + 1,) int64."""
+    dest = dest.long()
+    order = torch.argsort(dest, stable=True)
+    offsets = torch.zeros(length + 1, dtype=torch.int64, device=dest.device)
+    torch.cumsum(torch.bincount(dest, minlength=length), 0, out=offsets[1:])
+    return order, offsets
+
+
+#: the longest segment that :class:`GatherSum` sums one thread a segment
+SHORT_SEGMENT = 64
+
+
+def segment_sum(values, offsets, short=False):
+    """The sums of values[offsets[i]:offsets[i + 1]] along dim 0, each in a
+    fixed order, 0 for an empty range: ``torch.segment_reduce``, whose CUDA
+    sum takes one block per segment for 1-D values (CUB's segmented
+    reduction) and one thread per segment and trailing index, in entry
+    order, for more dimensions; no atomics, so it gives the same bits in
+    every run (the card tests hold it so). ``short`` sums 1-D values one
+    thread a segment too (as a column of width 1): faster where every
+    segment is short, slower where one is long. Complex values sum their
+    real and imaginary parts so."""
+    if values.is_complex():
+        return torch.complex(segment_sum(values.real.contiguous(), offsets, short),
+                             segment_sum(values.imag.contiguous(), offsets, short))
+    if short and values.dim() == 1:
+        return segment_sum(values[:, None], offsets)[:, 0]
+    return torch.segment_reduce(values, "sum", offsets=offsets, axis=0, unsafe=True)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GatherSum:
+    """out[i] = the sum, in a fixed order, of vals[k] * vec[src[k]] over the
+    entries k with destination i: the entries sorted by destination once
+    (:func:`destination_order`), a gather and a :func:`segment_sum` per
+    call, one thread a destination where no destination has more than
+    SHORT_SEGMENT entries (rows of most patterns), else one block a
+    destination (power-law columns)."""
+
+    vals: torch.Tensor     # sorted by destination
+    src: torch.Tensor      # int64, in the same order
+    offsets: torch.Tensor  # (length + 1,) int64
+    short: bool            # every destination has at most SHORT_SEGMENT entries
+
+    @classmethod
+    def build(cls, vals, dest, src, length):
+        order, offsets = destination_order(dest, length)
+        longest = int(torch.diff(offsets).max()) if length else 0
+        return cls(vals=vals[order], src=src.long()[order], offsets=offsets,
+                   short=longest <= SHORT_SEGMENT)
+
+    def __call__(self, vec):
+        return segment_sum(self.vals * vec[self.src], self.offsets, self.short)
 
 
 @dataclasses.dataclass(frozen=True)
 class COOOperator(LinearOperator):
     """Sparse m x n matrix in coordinate format: vals (nnz,), rows and cols
-    (nnz,) int64 indices."""
+    (nnz,) int64 indices; the products' fixed-order sums by row and by
+    column are built with it."""
 
     vals: torch.Tensor
     rows: torch.Tensor
     cols: torch.Tensor
     m: int
     n: int
+    by_row: GatherSum = dataclasses.field(init=False, repr=False, compare=False)
+    by_col: GatherSum = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "by_row", GatherSum.build(self.vals, self.rows, self.cols,
+                                                           self.m))
+        object.__setattr__(self, "by_col", GatherSum.build(self.vals.conj().resolve_conj(),
+                                                           self.cols, self.rows, self.n))
 
     @property
     def nnz(self) -> int:
@@ -45,14 +115,10 @@ class COOOperator(LinearOperator):
         return self.vals.device
 
     def matvec(self, x):
-        prods = self.vals * x[self.cols]
-        return torch.zeros(self.m, dtype=prods.dtype, device=prods.device).index_add_(
-            0, self.rows, prods)
+        return self.by_row(x)
 
     def rmatvec(self, y):
-        prods = self.vals.conj() * y[self.rows]
-        return torch.zeros(self.n, dtype=prods.dtype, device=prods.device).index_add_(
-            0, self.cols, prods)
+        return self.by_col(y)
 
     def todense(self):
         dense = torch.zeros((self.m, self.n), dtype=self.dtype, device=self.device)

@@ -7,8 +7,10 @@ tile-local diagonal ``d`` and a per-row jitter ``e`` (int8, |e| <= 32), so
     c = i + d[slot, tile] + e[slot, i]
 
 Entries that fit no slot in both orientations spill into a COO remainder,
-applied with ``index_add_`` as in :mod:`.coo`. The transpose packing makes
-the adjoint the same streaming product.
+summed per row (per column for the adjoint) in a fixed order as in
+:mod:`.coo` (:class:`~lsqr_tpu_torch.ops.coo.GatherSum`, built with the
+operator), so a product gives the same bits in every run on the card. The
+transpose packing makes the adjoint the same streaming product.
 
 The packed arrays are the JAX package's, byte for byte (``jdia_pack``), so
 :func:`~lsqr_tpu_torch.ops.convert.operator_from_arrays` carries a JAX
@@ -23,10 +25,12 @@ packings always run the twin (the kernel computes in f32), as in JAX.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from .coo import GatherSum
 from .linop import LinearOperator, placement, to_numpy
 from .spmv_sparse import JITTER, jdia_matvec, jdia_matvec_plain
 
@@ -171,8 +175,9 @@ class JDIAOperator(LinearOperator):
 
     data/eoff (ns, m_pad) f32 or f64 / int8, base (ns_p, nt_p) int32: the
     forward packing; tdata/teoff/tbase the transpose packing; rem_vals,
-    rem_rows, rem_cols (int64 on the device) the remainder. ``nnz`` counts
-    the entries the operator was built from."""
+    rem_rows, rem_cols (int64 on the device) the remainder, with its
+    fixed-order sums by row and by column built from it (None when it is
+    empty). ``nnz`` counts the entries the operator was built from."""
 
     data: torch.Tensor
     eoff: torch.Tensor
@@ -191,6 +196,15 @@ class JDIAOperator(LinearOperator):
     twin: int
     tm: int
     nnz: int
+    rem_by_row: Optional[GatherSum] = dataclasses.field(init=False, repr=False)
+    rem_by_col: Optional[GatherSum] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        rem = self.rem_vals.shape[0] > 0
+        object.__setattr__(self, "rem_by_row", GatherSum.build(
+            self.rem_vals, self.rem_rows, self.rem_cols, self.m) if rem else None)
+        object.__setattr__(self, "rem_by_col", GatherSum.build(
+            self.rem_vals, self.rem_cols, self.rem_rows, self.n) if rem else None)
 
     @property
     def dtype(self):
@@ -216,14 +230,14 @@ class JDIAOperator(LinearOperator):
 
     def matvec(self, x):
         y = self._product(self.data, self.eoff, self.base, x, self.p_lo, self.tm, self.m)
-        if self.rem_vals.shape[0]:
-            y = y.index_add_(0, self.rem_rows, self.rem_vals * x.to(self.dtype)[self.rem_cols])
+        if self.rem_by_row is not None:
+            y = y.add_(self.rem_by_row(x.to(self.dtype)))
         return y
 
     def rmatvec(self, y):
         x = self._product(self.tdata, self.teoff, self.tbase, y, self.tp_lo, self.tm, self.n)
-        if self.rem_vals.shape[0]:
-            x = x.index_add_(0, self.rem_cols, self.rem_vals * y.to(self.dtype)[self.rem_rows])
+        if self.rem_by_col is not None:
+            x = x.add_(self.rem_by_col(y.to(self.dtype)))
         return x
 
     def todense(self) -> torch.Tensor:

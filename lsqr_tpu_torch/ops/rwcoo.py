@@ -87,6 +87,9 @@ class RWCOOOperator(LinearOperator):
         return u
 
     def _scatter_hot(self, z, u):
+        # each column is in the hotmap once: every z entry takes at most one
+        # addition, so this scatter has no order to fix (its bits are the
+        # same in every run, atomics or not)
         return z.index_add_(0, self.hotmap, wcoo_adjoint(self.hot, u))
 
     def matvec(self, x):

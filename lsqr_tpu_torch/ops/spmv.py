@@ -48,6 +48,7 @@ both packages.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -79,11 +80,13 @@ __all__ = [
     "reset_launch_counts",
     "register",
     "PAIR_MAX_HALO",
+    "pair_tile",
 ]
 
-#: the largest halo the one-pass pair kernels take (their shared-memory
-#: tile holds 1024 + 2H floats, or 1024 + lo + hi for the packed pair);
-#: above it the pair is two launches, the axpy kernel then the product.
+#: the largest halo the one-pass pair kernels take (the shared pair's tile
+#: holds 1024 + 2H floats; the packed pair stages T + lo + hi rows, see
+#: :func:`pair_tile`); above it the pair is two launches, the axpy kernel
+#: then the product.
 PAIR_MAX_HALO = 1024
 
 #: kernel-name suffix of each stripe dtype
@@ -612,10 +615,14 @@ def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int
         u = A (win_vec*c1) - c2*y,     z = A' u
     with data (nd, m), y (m,), win_vec (n,); z comes from the same
     row-aligned stripes read from the column side. Returns (u (m,), z (n,)).
-    On CUDA: f32 or bf16 stripes, f32 vectors. When lo = max(0, -min k) or
-    hi = max(0, max k) exceeds PAIR_MAX_HALO, the pair is two launches:
-    :func:`dia_matvec_axpy`, then :func:`dia_matvec` with ``adjoint=True``
-    (each counts its own launch)."""
+    On CUDA: f32 or bf16 stripes (16-byte aligned), f32 vectors. The kernel
+    stages each tile of T indices' stripe rows, x window and y rows in
+    shared memory (csrc/dia_packed.cu); T comes from the number of
+    diagonals, the halos and the stripes' dtype (:func:`pair_tile`). Where
+    no tile fits, or lo = max(0, -min k) or hi = max(0, max k) exceeds
+    PAIR_MAX_HALO, the pair is two launches: :func:`dia_matvec_axpy`, then
+    :func:`dia_matvec` with ``adjoint=True`` (each counts its own
+    launch)."""
     offsets = tuple(int(k) for k in offsets)
     if not data.is_cuda:
         return dia_pair_plain(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n)
@@ -623,19 +630,42 @@ def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int
     offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
                                           offsets_t)
     lo, hi = _halos(offsets)
-    if max(lo, hi) > PAIR_MAX_HALO:
+    tile = pair_tile(data.device, data.dtype, len(offsets), lo, hi)
+    if tile == 0:
         u = dia_matvec_axpy(data, y, win_vec, c1, c2, offsets=offsets, m=m, n=n,
                             offsets_t=offsets_t, out_dtype=torch.float32)
         return u, dia_matvec(data, u, offsets=offsets, m=m, n=n, adjoint=True,
                              offsets_t=offsets_t)
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned (the pair stages it in 16-byte "
+                         "copies)")
+    # the vectors are staged likewise: a view off the 16-byte grid is copied
+    win_vec, y = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (win_vec, y))
     u = torch.empty(m, dtype=torch.float32, device=data.device)
     z = torch.empty(n, dtype=torch.float32, device=data.device)
     if max(m, n) == 0:
         return u, z
     _launch(dia_pair, fn, data, data.data_ptr(), win_vec.data_ptr(), y.data_ptr(),
             c1.data_ptr(), c2.data_ptr(), u.data_ptr(), z.data_ptr(),
-            offsets_t.data_ptr(), len(offsets), m, n, lo, hi)
+            offsets_t.data_ptr(), len(offsets), m, n, lo, hi, tile)
     return u, z
+
+
+@functools.lru_cache(maxsize=None)
+def pair_tile(device, dtype, nd, lo, hi):
+    """The tile of :func:`dia_pair`'s staged kernel on ``device`` for nd
+    diagonals, halos lo, hi and stripes of ``dtype``: T = 1024 k - (lo + hi
+    rounded up to 4) indices for the least k in 1, 2, 4, 8 with T >= 256
+    and T >= lo + hi whose two stages fit two blocks an SM (else one); 0
+    where none fits or a halo exceeds PAIR_MAX_HALO (the two-launch
+    route)."""
+    from . import _cuda
+
+    with torch.cuda.device(device):
+        tile = getattr(_cuda.library(), f"lsqr_dia_pair_tile_{_SUFFIX[dtype]}")(nd, lo, hi)
+    if tile < 0:
+        raise RuntimeError("dia_pair: the card's shared-memory limits could not be read")
+    return tile
 
 
 #: the modes of the zdia_pair kernel (csrc/zdia.cu): the one-pass pair with

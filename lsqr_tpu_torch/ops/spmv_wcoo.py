@@ -27,10 +27,14 @@ layout mistake shows on the CPU too. f32 only, as in JAX.
 
 The pair is the forward and then the adjoint of its padded u on the card
 (csrc/wcoo.cu says why), and counts one launch per call, as does each
-product. The WCOO adjoint sums per-block partial z (scratch the wrapper
-allocates, ``ADJOINT_BLOCKS_PER_SM`` blocks per SM) in a fixed order, so z
-is bit-identical from run to run, as u is. The WWCOO adjoint adds with
-float atomics, so the last bits of its z vary from run to run.
+product. Neither adjoint adds with float atomics. The WCOO adjoint sums
+per-block partial z (scratch the wrapper allocates,
+``ADJOINT_BLOCKS_PER_SM`` blocks per SM) in a fixed order. The WWCOO
+adjoint compacts each chunk's z into partials (scratch of nc x S x D_pad
+floats, S and the block shape planned by the library from the shape and
+the card, :func:`wwcoo_adjoint_plan`) and expands them into z in chunk
+order through the packing's inverse column lists. So z is bit-identical
+from run to run on both layouts, as u is.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from . import spmv
 
 __all__ = [
     "CR",
+    "wwcoo_adjoint_plan",
     "wcoo_forward",
     "wcoo_adjoint",
     "wcoo_pair",
@@ -183,6 +188,8 @@ def _check_packed(packed, wide):
     spmv._check("gpe", packed.gpe, torch.int32, dev, (nc, CR))
     if wide:
         spmv._check("colmap", packed.colmap, torch.int32, dev, (nc, packed.js * 128))
+        spmv._check("zptr", packed.zptr, torch.int32, dev, (packed.n + 1,))
+        spmv._check("zsrc", packed.zsrc, torch.int32, dev, (packed.zsrc.shape[0],))
     if packed.m_pad != nc * CR or packed.m > packed.m_pad:
         raise ValueError(f"{nc} chunks of {CR} rows cannot hold m = {packed.m}")
     return dev
@@ -201,18 +208,43 @@ def _wide_args(packed, wide):
     return (packed.colmap.data_ptr(), packed.js * 128) if wide else ()
 
 
+def _lists_args(packed, wide):
+    """The WWCOO adjoint's D_pad and inverse column lists."""
+    return (packed.js * 128, packed.zptr.data_ptr(), packed.zsrc.data_ptr()) if wide else ()
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def wwcoo_adjoint_plan(index, d_pad, eb, nc):
+    """The WWCOO adjoint's plan on card ``index`` for nc chunks of eb
+    subtiles and d_pad positions: (groups of 8 warps a block, positions a
+    window, windows, splits of each chunk's subtiles), from the shape and
+    the card only (csrc/chunked_coo.cuh: compact_plan)."""
+    import ctypes
+
+    from . import _cuda
+
+    plan = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        _cuda.check(_fn("lsqr_wwcoo_adjoint_plan")(d_pad, eb, nc, plan), "wwcoo_adjoint_plan")
+    return tuple(plan)
+
+
 def _scratch(packed, dev, wide):
-    """The adjoint's arguments before z: for WCOO its partial z (scratch of
-    (blocks, n) f32) and the block count, a function of the shape and the
-    card only, so z is summed in the same order in every run; none for
-    WWCOO. Returns (arguments, the scratch to keep alive over the launch)."""
+    """The adjoint's arguments between u and z: its partial z and how they
+    are laid out, a function of the shape and the card only, so z is summed
+    in the same order in every run. WCOO: (blocks, n) f32 and the block
+    count; WWCOO: (nc x splits, D_pad) f32 and the plan. Returns
+    (arguments, the scratch to keep alive over the launch)."""
     if wide:
-        return (), None
+        plan = wwcoo_adjoint_plan(dev.index, packed.js * 128, packed.eb, packed.nc)
+        partials = torch.empty((packed.nc * plan[3], packed.js * 128), dtype=torch.float32,
+                               device=dev)
+        return (partials.data_ptr(), *plan), partials
     blocks = min(packed.nc * packed.eb, ADJOINT_BLOCKS_PER_SM * _sm_count(dev.index))
     partials = torch.empty((blocks, packed.n), dtype=torch.float32, device=dev)
     return (partials.data_ptr(), blocks), partials
@@ -241,7 +273,7 @@ def _adjoint(wrapper, packed, u, wide):
     index = packed.cidx if wide else packed.idx
     scratch, _keep = _scratch(packed, dev, wide)
     spmv._launch(wrapper, _fn(name), packed.vals, packed.vals.data_ptr(), index.data_ptr(),
-                 *_wide_args(packed, wide), u.data_ptr(), u.shape[0], *scratch, z.data_ptr(),
+                 *_lists_args(packed, wide), u.data_ptr(), u.shape[0], *scratch, z.data_ptr(),
                  packed.n, packed.vals.numel(), packed.eb * 1024)
     return z
 
@@ -259,8 +291,10 @@ def _pair(wrapper, packed, y, win, c1, c2, wide):
     scratch, _keep = _scratch(packed, dev, wide)
     spmv._launch(wrapper, _fn(name), packed.vals_r, packed.vals_r.data_ptr(),
                  packed.col_r.data_ptr(), packed.gpe.data_ptr(), packed.vals.data_ptr(),
-                 index.data_ptr(), *_wide_args(packed, wide), win.data_ptr(), packed.n,
-                 y.data_ptr(), y.shape[0], c1.data_ptr(), c2.data_ptr(), u.data_ptr(),
+                 index.data_ptr(), *_wide_args(packed, wide)[:1],  # colmap
+                 *_lists_args(packed, wide),
+                 win.data_ptr(), packed.n, y.data_ptr(), y.shape[0], c1.data_ptr(),
+                 c2.data_ptr(), u.data_ptr(),
                  *scratch, z.data_ptr(), packed.m_pad, packed.eb * 1024)
     return u[:packed.m], z
 

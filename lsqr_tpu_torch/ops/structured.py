@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import as_dtype
+from .coo import destination_order, segment_sum
 from .linop import LinearOperator, as_tensor, placement, to_numpy
 from .spmv import (
     _geometry,
@@ -542,7 +543,9 @@ class BlockELLOperator(LinearOperator):
     a tall pattern, kt > 96) takes the latter.
     ``fused_pair`` runs ``block_ell_pair_windowed``. On the CPU and for f64
     they run the einsum twins. ``prefers_pair`` stays False, as in JAX:
-    ``pair=True`` is the opt-in."""
+    ``pair=True`` is the opt-in. ``zorder``/``zoffsets``, built with the
+    operator, list the mb*kb blocks by block column (stable) for the
+    pair's fixed-order sum."""
 
     blocks: torch.Tensor
     bcols: torch.Tensor
@@ -550,6 +553,13 @@ class BlockELLOperator(LinearOperator):
     tbrows: torch.Tensor
     m: int
     n: int
+    zorder: torch.Tensor = dataclasses.field(init=False, repr=False)
+    zoffsets: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        order, offsets = destination_order(self.bcols.reshape(-1), self.tblocks.shape[0])
+        object.__setattr__(self, "zorder", order)
+        object.__setattr__(self, "zoffsets", offsets)
 
     @property
     def dtype(self):
@@ -606,18 +616,15 @@ class BlockELLOperator(LinearOperator):
         """Both bidiagonalization products: u = A(win*c1) - c2*y and
         z = A'u, from one pass over ``blocks`` (no transpose packing): the
         pair gives u and the per-block partials zp[r, j] = blocks[r, j]' u_r,
-        and z is their sum by block column, ``index_add_`` of the mb*kb zp
-        rows into the nb block columns. On CUDA ``index_add_`` adds with
-        float atomics in no fixed order, so the last bits of z vary from run
-        to run; on the CPU it adds in row order."""
+        and z is their sum by block column: the mb*kb zp rows gathered in
+        block-column order (``zorder``) and summed per block column in row
+        order (``segment_sum``), the same bits in every run."""
         mb, kb, bh, bw = self.blocks.shape
-        nb = self.tblocks.shape[0]
-        xp = _pad_to(win.to(self.dtype), nb * bw)
+        xp = _pad_to(win.to(self.dtype), self.tblocks.shape[0] * bw)
         yp = _pad_to(y.to(self.dtype), mb * bh)
         pair = block_ell_pair_windowed if self._kernels() else block_ell_pair_plain
         u, zp = pair(self.blocks, self.bcols, xp, yp, c1, c2)
-        z = zp.new_zeros((nb, bw)).index_add_(0, self.bcols.reshape(-1).long(),
-                                              zp.reshape(mb * kb, bw))
+        z = segment_sum(zp.reshape(mb * kb, bw)[self.zorder], self.zoffsets)
         return u[:self.m], z.reshape(-1)[:self.n]
 
     def todense(self):

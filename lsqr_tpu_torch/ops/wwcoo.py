@@ -7,12 +7,16 @@ compacted (``col_r`` holds a position in the chunk's sorted column list
 ``colmap``, padded with the out-of-range n_pad).
 
 The kernels on the card (:mod:`.spmv_wcoo`, csrc/wwcoo.cu) read ``vals_r``,
-``col_r``, ``gpe``, ``colmap``, ``vals`` and one plane JAX does not store,
-``cidx = colc | rowl << 18`` (unsigned, in the column-sorted order): colc is
-the slot's compacted column, which the TPU kernel recovered from its
-emission tables ep. :func:`column_index` derives it from ``col_r`` and
-``rowl``. The operator keeps only those six arrays; the TPU kernels' tables
-(``rowl``, ``ep``, ``zexp``, ``bnb`` and the eleven work lists) come out of
+``col_r``, ``gpe``, ``colmap``, ``vals`` and three arrays JAX does not
+store: ``cidx = colc | rowl << 18`` (unsigned, in the column-sorted order),
+colc the slot's compacted column, which the TPU kernel recovered from its
+emission tables ep (:func:`column_index` derives it from ``col_r`` and
+``rowl``); and the inverse of ``colmap``, ``zptr``/``zsrc``, the (chunk,
+position) of each column in chunk order, through which the adjoint expands
+each chunk's compacted z into z as the TPU kernel did through its ``zexp``
+tables (:func:`column_lists` derives it from ``colmap``). The operator keeps
+only those eight arrays; the TPU kernels' tables (``rowl``, ``ep``,
+``zexp``, ``bnb`` and the eleven work lists) come out of
 :func:`wwcoo_pack_arrays`, which gives JAX's whole packing.
 
 The packer keeps JAX's refusals with their limits: n > 262,144, an empty
@@ -36,7 +40,7 @@ from .spmv_wcoo import CR, SHIFT, wwcoo_adjoint, wwcoo_forward, wwcoo_pair
 from .wcoo import ChunkedCOOOperator, ChunkedPacked, row_ends
 
 __all__ = ["WWCOOOperator", "WWCOOPacked", "WWCOOPackError", "wwcoo_operator",
-           "wwcoo_pack", "wwcoo_pack_arrays", "column_index"]
+           "wwcoo_pack", "wwcoo_pack_arrays", "column_index", "column_lists"]
 
 #: widest n (JAX's VMEM-resident x and z blocks)
 _N_MAX = 262_144
@@ -59,6 +63,8 @@ class WWCOOPacked(ChunkedPacked):
     col_r: torch.Tensor   # (nc, emax) int32 compacted columns, row-sorted
     colmap: torch.Tensor  # (nc, D_pad) int32 sorted distinct columns (pad n_pad)
     gpe: torch.Tensor     # (nc, CR) int32: last slot of rows <= r (-1 none)
+    zptr: torch.Tensor    # (n + 1,) int32: column c's entries of zsrc
+    zsrc: torch.Tensor    # (pairs,) int32: t * D_pad + pos of column c, t ascending
     m: int
     n: int
     m_pad: int
@@ -73,7 +79,9 @@ class WWCOOPacked(ChunkedPacked):
     wm: int = 1
     wz: int = 1
 
-    DEVICE_FIELDS = ("vals", "cidx", "vals_r", "col_r", "colmap", "gpe")
+    DEVICE_FIELDS = ("vals", "cidx", "vals_r", "col_r", "colmap", "gpe", "zptr", "zsrc")
+    #: the device arrays the port derives (JAX's packing has none of them)
+    DERIVED = ("cidx", "zptr", "zsrc")
 
 
 def column_index(col_r, rowl, eb):
@@ -86,16 +94,41 @@ def column_index(col_r, rowl, eb):
     return code.view(np.int32)
 
 
+def column_lists(colmap, n):
+    """The inverse of the chunks' column lists ``colmap`` (numpy (nc, D_pad),
+    padded with n_pad >= n): (zptr (n + 1,), zsrc), where
+    zsrc[zptr[c]:zptr[c + 1]] holds t * D_pad + pos for each chunk t whose
+    colmap has column c at position pos, t ascending. It says what JAX's
+    zexp tables say (position zexp[t, .., c % 1024] of column c in chunk t,
+    -1 where chunk t lacks it), as one list per column. Both int32, as the
+    kernel reads them, unless a value passes 2^31 - 1 (a packing too large
+    for one card: its colmap alone would hold 8 GiB)."""
+    nc, d_pad = colmap.shape
+    t, pos = np.nonzero(colmap < n)  # chunk-major: t ascending
+    cols = colmap[t, pos].astype(np.int64)
+    order = np.argsort(cols, kind="stable")
+    zptr = np.zeros(n + 1, np.int64)
+    zptr[1:] = np.cumsum(np.bincount(cols, minlength=n))
+    zsrc = (t.astype(np.int64) * d_pad + pos)[order]
+    narrow = nc * d_pad < 1 << 31
+    return (zptr.astype(np.int32) if narrow else zptr), (zsrc.astype(np.int32) if narrow
+                                                         else zsrc)
+
+
 def packed_from_arrays(arrays, meta, device) -> WWCOOPacked:
     """A :class:`WWCOOPacked` over the arrays (numpy) and static fields of a
     WWCOO packing, JAX's or :func:`wwcoo_pack_arrays`'s, on ``device``: its
-    device arrays, and ``cidx`` derived from ``col_r`` and ``rowl``."""
+    device arrays, ``cidx`` derived from ``col_r`` and ``rowl``, and
+    ``zptr``/``zsrc`` from ``colmap``."""
     def t(a):
         return torch.from_numpy(np.array(a, order="C", copy=True))
 
-    fields = {f: t(arrays[f]) for f in WWCOOPacked.DEVICE_FIELDS if f != "cidx"}
+    fields = {f: t(arrays[f]) for f in WWCOOPacked.DEVICE_FIELDS
+              if f not in WWCOOPacked.DERIVED}
     fields["cidx"] = t(column_index(np.asarray(arrays["col_r"]), np.asarray(arrays["rowl"]),
                                     int(meta["eb"])))
+    fields["zptr"], fields["zsrc"] = map(t, column_lists(np.asarray(arrays["colmap"]),
+                                                         int(meta["n"])))
     return WWCOOPacked(**fields, **{k: int(meta[k]) for k in _STATICS}).to(device)
 
 

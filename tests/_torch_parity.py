@@ -52,6 +52,17 @@ def banded(rng, m, n, offsets, dtype=np.float32, boost=0.0, dense=True):
     return data, full
 
 
+def wide_band_triplets(rng, m, per_row, stride):
+    """COO triplets (f32) whose row r has entries on per_row of the columns
+    r * stride .. r * stride + stride - 1: each WWCOO chunk of 16384 rows
+    holds 16384 * per_row distinct columns (its D_pad) while each subtile
+    spans few, so JAX's window budget accepts it (a uniform pattern that
+    wide exceeds the work-list cap)."""
+    rows = np.repeat(np.arange(m), per_row)
+    cols = rows * stride + np.argsort(rng.random((m, stride)), axis=1)[:, :per_row].ravel()
+    return rng.standard_normal(rows.size).astype(np.float32), rows, cols
+
+
 def banded_triplets(data, offsets, n):
     """COO triplets (vals, rows, cols) of the stripes' nonzero entries."""
     m = data.shape[1]

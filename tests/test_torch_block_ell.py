@@ -143,6 +143,28 @@ def test_block_ell_f32_operator_and_from_arrays_match_jax(rng):
     np.testing.assert_allclose(to_np(z_t), np.asarray(z_j), **TOL)
 
 
+@pytest.mark.parametrize("m,n,block,per_row", [(600, 130, 16, 3), (512, 512, 32, 3)])
+def test_block_ell_pair_block_column_sums_match_jax(rng, m, n, block, per_row):
+    """The pair's z, the per-block partials summed by block column in the
+    order built with the operator (a tall pattern puts many blocks in each
+    block column), against JAX's pair and the transpose product."""
+    (vals, rows, cols), Aj = _jax_operator(m, n, block, per_row, np.float32, seed=4)
+    At = lt.block_ell_operator(m, n, vals, rows, cols, block=(block, block), device=DEV)
+    kb = At.kb
+    bcols = to_np(At.bcols).ravel()
+    order = to_np(At.zorder)
+    np.testing.assert_array_equal(order, np.argsort(bcols, kind="stable"))
+    np.testing.assert_array_equal(np.diff(to_np(At.zoffsets)),
+                                  np.bincount(bcols, minlength=At.tblocks.shape[0]))
+    assert At.kt > kb
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    u_t, z_t = At.fused_pair(y=_t(y), win=_t(x), c1=0.5, c2=2.0)
+    u_j, z_j = Aj.fused_pair(y=jnp.asarray(y), win=jnp.asarray(x), c1=0.5, c2=2.0)
+    np.testing.assert_allclose(to_np(z_t), np.asarray(z_j), **TOL)
+    np.testing.assert_allclose(to_np(z_t), to_np(At.rmatvec(u_t)), **TOL)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("pair", [False, True])
 def test_block_ell_solve_matches_jax(rng, dtype, pair):

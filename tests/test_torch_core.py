@@ -96,6 +96,42 @@ def test_coo_products_match_jax(rng, m, n):
     assert At.nnz == Aj.nnz and At.dtype == torch.float64
 
 
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex128])
+def test_coo_fixed_order_sums_match_jax(rng, dtype, hot):
+    """The products sum each row's (column's) entries through the order
+    built with the operator: the entries sorted by destination, stably,
+    with each destination's range; duplicates, empty rows and columns; a
+    column of more than SHORT_SEGMENT entries (``hot``) takes the sum of
+    one block a destination, the rest one thread a destination."""
+    m, n = 70, 50
+    vals, rows, cols = _coo(rng, m, n, 400)
+    rows[rows == 5], cols[cols == 7] = 6, 8  # an empty row and column
+    rows[-30:], cols[-30:] = rows[:30], cols[:30]  # duplicates
+    if hot:
+        cols[:100] = 3
+    if dtype == np.complex128:
+        vals = vals + 1j * rng.standard_normal(vals.size)
+    vals = vals.astype(dtype)
+    Aj = lj.coo_operator(m, n, vals, rows, cols)
+    At = lt.coo_operator(m, n, vals, rows, cols, device=DEV)
+    assert At.by_row.short and At.by_col.short != hot
+    x, y = (rng.standard_normal(k).astype(dtype) for k in (n, m))
+    tol = 1e-5 if dtype == np.float32 else 1e-13
+    for got, ref in ((At.matvec(torch.from_numpy(x)), Aj.matvec(jnp.asarray(x))),
+                     (At.rmatvec(torch.from_numpy(y)), Aj.rmatvec(jnp.asarray(y)))):
+        got, ref = to_np(got), np.asarray(ref)  # complex kept
+        assert got.dtype == ref.dtype and np.abs(got - ref).max() < tol * np.abs(ref).max()
+    for sums, dest, src, length in ((At.by_row, rows, cols, m), (At.by_col, cols, rows, n)):
+        order = np.argsort(dest, kind="stable")
+        np.testing.assert_array_equal(to_np(sums.src), src[order])
+        np.testing.assert_array_equal(to_np(sums.offsets),
+                                      np.concatenate([[0], np.cumsum(np.bincount(
+                                          dest, minlength=length))]))
+    np.testing.assert_array_equal(to_np(At.by_col.vals), np.conj(vals[np.argsort(
+        cols, kind="stable")]))
+
+
 def test_dense_callback_and_transpose_match_jax(rng):
     a = rng.standard_normal((30, 20))
     x, y = rng.standard_normal(20), rng.standard_normal(30)

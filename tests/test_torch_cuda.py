@@ -17,7 +17,7 @@ import torch
 import lsqr_tpu_torch as lt
 from lsqr_tpu_torch.ops import spmv
 
-from _torch_parity import DEV, banded, cuda_device, rel_err  # noqa: F401
+from _torch_parity import DEV, banded, cuda_device, rel_err, wide_band_triplets  # noqa: F401
 
 # f32, relative to the max: kernel and twin differ in rounding only (the
 # kernel contracts multiply-adds)
@@ -186,9 +186,21 @@ def test_cuda_bf16_shared_kernels_match_twins(rng, cuda_device, m, n, ks):
     assert counts["dia_product_shared_axpy[bf16]"] == 2 and counts["dia_pair_shared"] == 0
 
 
+#: the staged dia_pair's edges: m not a multiple of 4 (or 8), so stripe
+#: rows start off the 16-byte grid, with ragged m and n; halos that stage at
+#: T = 2048 (one block an SM); and halos no tile's stages fit, so the pair
+#: takes two launches though no halo exceeds PAIR_MAX_HALO
+PAIR_CASES = [
+    (4099, 2053, (-7, -1, 0, 2, 9)),
+    (1027, 9001, (-3, 0, 5)),
+    (2051, 6001, (-1000, 0, 1000)),
+    (3001, 3001, (-1000, -800, -500, -200, 0, 200, 400, 700, 1000)),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,n,ks", CASES + WIDE)
+@pytest.mark.parametrize("m,n,ks", CASES + WIDE + PAIR_CASES)
 def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
     data, _ = banded(rng, m, n, ks, np.float32, dense=False)
     Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
@@ -232,7 +244,9 @@ def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
         assert got.dtype == ref.dtype == (torch.bfloat16 if bf16_out else torch.float32)
         assert got.shape == ref.shape
         assert rel_err(got, ref) < (1e-2 if bf16_out else TOL)
-    wide = max(spmv._halos(ks)) > spmv.PAIR_MAX_HALO
+    # the pair's two-launch route: a halo past PAIR_MAX_HALO, or no tile fits
+    wide = spmv.pair_tile(A.data.device, A.data.dtype, len(ks), *spmv._halos(ks)) == 0
+    assert wide == (ks in (WIDE[0][2], WIDE[1][2], PAIR_CASES[-1][2]))
     bf16 = storage == "bfloat16"
     expect = dict(dia_pair=0 if wide else 1, dia_matvec_axpy=(3 if wide else 2) + bf16,
                   dia_matvec=4 if wide else 3,
@@ -240,6 +254,34 @@ def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
     assert spmv.launch_counts() == _only(**expect)
     suffix = "" if storage == "float32" else "[bf16]"
     assert spmv.launch_counts(by_variant=True)["dia_matvec" + suffix] == expect["dia_matvec"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,ks", [(300_001, 200_003, (-60, -3, 0, 5)),
+                                    (2 ** 18 + 3, 2 ** 18 + 3, tuple(range(-5, 6)))])
+def test_cuda_staged_pair_is_bit_stable_and_takes_any_vectors(rng, cuda_device, m, n, ks,
+                                                              storage):
+    """Each u and z element of the staged pair comes from one tile in a
+    fixed order: two calls give the same bits, as do vectors that are views
+    off the 16-byte grid (the wrapper copies them)."""
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
+    d = Ah.data.to(cuda_device)
+    v, y = (t.to(cuda_device) for t in _vectors(rng, m, n))
+    kw = dict(offsets=ks, m=m, n=n)
+    c1 = torch.tensor(0.8, device=cuda_device)
+    spmv.reset_launch_counts()
+    (u1, z1), (u2, z2) = (spmv.dia_pair(d, y, v, c1, 1.1, **kw) for _ in range(2))
+    vo, yo = (torch.cat([t.new_zeros(1), t])[1:] for t in (v, y))
+    assert vo.data_ptr() % 16 and yo.data_ptr() % 16
+    u3, z3 = spmv.dia_pair(d, yo, vo, c1, 1.1, **kw)
+    u_ref, z_ref = spmv.dia_pair_plain(d, y, v, c1, 1.1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(u1, u2) and torch.equal(z1, z2)
+    assert torch.equal(u1, u3) and torch.equal(z1, z3)
+    assert rel_err(u1, u_ref) < TOL and rel_err(z1, z_ref) < TOL
+    assert spmv.launch_counts() == _only(dia_pair=3)
 
 
 @pytest.mark.cuda
@@ -613,9 +655,10 @@ def test_cuda_wcoo_solves_run_through_kernels(rng, cuda_device, kind, record_pro
     """The pair path on the card against the separate products on the CPU.
     On Zipf columns the f32 iterates depend on the summation order once
     Golub-Kahan loses orthogonality, so x is held to the damped objective,
-    within a limit that three card solves (the adjoint's atomics vary them)
-    keep and the same solve on a planted fault exceeds. The readings go to
-    the test's properties (``--junitxml``)."""
+    within a limit that three card solves keep and the same solve on a
+    planted fault exceeds; the three card solves give bit-equal x (no
+    kernel of the path adds with atomics). The readings go to the test's
+    properties (``--junitxml``)."""
     import scipy.sparse
 
     m, n = (40_000, 500) if kind == "wcoo" else (40_000, 8192)
@@ -644,8 +687,9 @@ def test_cuda_wcoo_solves_run_through_kernels(rng, cuda_device, kind, record_pro
         return r @ r + damp ** 2 * x @ x
 
     ref = objective(host.x)
-    sound = [abs(objective(x) - ref) / ref
-             for x in (res.x, *(lt.lsqr(A, b_card, damp, **kw).x for _ in range(2)))]
+    again = [lt.lsqr(A, b_card, damp, **kw).x for _ in range(2)]
+    assert all(torch.equal(x, res.x) for x in again)
+    sound = [abs(objective(x) - ref) / ref for x in (res.x, *again)]
     faulty = (dataclasses.replace(A, packed=_zero_subtile(A.packed)) if kind == "wcoo" else
               dataclasses.replace(A, hot=_zero_subtile(A.hot), cold=_zero_subtile(A.cold)))
     fault = abs(objective(lt.lsqr(faulty, b_card, damp, **kw).x) - ref) / ref
@@ -747,27 +791,108 @@ def test_cuda_chunked_coo_forwards_match_twins_on_long_rows(rng, cuda_device, ki
     ("wcoo", 40_000, 300, 150_000),
     ("wcoo", 16_384, 4096, 60_000),
     ("rwcoo", 100_003, 12_345, 400_000),
+    ("rwcoo cold", 100_003, 12_345, 400_000),
+    ("wwcoo", 40_000, 30_001, 120_000),
+    # D_pad = 98,304 positions: past one block's shared memory, two windows
+    ("wwcoo band", 32_768, 262_144, 6),
+    # D_pad = 49,152: one window, one group of 8 warps a block
+    ("wwcoo band", 32_768, 262_144, 3),
 ])
 def test_cuda_wcoo_adjoint_and_pair_are_bit_stable(rng, cuda_device, kind, m, n, nnz):
-    """The WCOO adjoint sums fixed per-block partials in a fixed order: two
-    calls on the same inputs give the same bits (the RWCOO hot panel's
-    too), as the forward does."""
-    vals, rows, cols = _ragged_triplets(rng, m, n, nnz)
-    build = lt.wcoo_operator if kind == "wcoo" else lt.rwcoo_operator
+    """Neither adjoint adds with float atomics: the WCOO one sums fixed
+    per-block partials in a fixed order, the WWCOO one expands each chunk's
+    compacted partials in chunk order. Two calls on the same inputs give the
+    same bits (the RWCOO hot panel's and cold stream's too), as the forward
+    does, and match the twins."""
+    if kind == "wwcoo band":
+        vals, rows, cols = wide_band_triplets(rng, m, nnz, {6: 8, 3: 4}[nnz])
+    else:
+        vals, rows, cols = _ragged_triplets(rng, m, n, nnz)
+    build = {"wcoo": lt.wcoo_operator, "wwcoo": lt.wwcoo_operator}.get(kind.split()[0],
+                                                                      lt.rwcoo_operator)
     A = build(m, n, vals, rows, cols, device=cuda_device)
-    p = A.packed if kind == "wcoo" else A.hot
+    p = A.hot if kind == "rwcoo" else A.cold if kind == "rwcoo cold" else A.packed
+    pre = "wcoo" if kind in ("wcoo", "rwcoo") else "wwcoo"
+    fwd, adj, pair = (getattr(spmv_wcoo, f"{pre}_{s}") for s in ("forward", "adjoint", "pair"))
+    if kind == "wwcoo band":
+        groups, _, windows, _ = spmv_wcoo.wwcoo_adjoint_plan(
+            p.vals.device.index, p.js * 128, p.eb, p.nc)
+        assert p.js * 128 == 16384 * nnz
+        assert (groups, windows > 1) == ((1, True) if nnz == 6 else (1, False))
     x = torch.randn(p.n, device=cuda_device)
     y = torch.randn(m, device=cuda_device)
     c1 = torch.tensor(0.7, device=cuda_device)
     spmv.reset_launch_counts()
-    z1, z2 = spmv_wcoo.wcoo_adjoint(p, y), spmv_wcoo.wcoo_adjoint(p, y)
-    (u1, w1), (u2, w2) = (spmv_wcoo.wcoo_pair(p, y, x, c1, 0.3) for _ in range(2))
-    f1, f2 = (spmv_wcoo.wcoo_forward(p, x, c1, 0.3, y) for _ in range(2))
+    z1, z2 = adj(p, y), adj(p, y)
+    (u1, w1), (u2, w2) = (pair(p, y, x, c1, 0.3) for _ in range(2))
+    f1, f2 = (fwd(p, x, c1, 0.3, y) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(z1, z2) and torch.equal(w1, w2)
     assert torch.equal(u1, u2) and torch.equal(f1, f2) and torch.equal(u1, f1)
-    assert rel_err(z1, spmv_wcoo.wcoo_adjoint_plain(p, y)) < 1e-4
-    assert spmv.launch_counts() == _only(wcoo_adjoint=2, wcoo_pair=2, wcoo_forward=2)
+    assert rel_err(z1, getattr(spmv_wcoo, f"{pre}_adjoint_plain")(p, y)) < 1e-4
+    u_ref, w_ref = getattr(spmv_wcoo, f"{pre}_pair_plain")(p, y, x, c1, 0.3)
+    assert rel_err(u1, u_ref) < TOL and rel_err(w1, w_ref) < 1e-4
+    assert spmv.launch_counts() == _only(**{f"{pre}_adjoint": 2, f"{pre}_pair": 2,
+                                            f"{pre}_forward": 2})
+
+
+#: the products whose sums by destination ran through index_add_ (float
+#: atomics on the card) and now run in a fixed order
+FIXED_ORDER = ["coo", "coo complex", "jdia remainder", "block pair"]
+
+
+def _fixed_order_case(rng, kind, device):
+    """(operator on ``device``, right-hand side, solve keywords)."""
+    if kind.startswith("coo"):
+        m, n = 40_000, 2000
+        vals, rows, cols = zipf_column_coo(m, n, 8 * m, seed=21)
+        if kind == "coo complex":
+            vals = (vals + 1j * np.random.default_rng(21).standard_normal(vals.size)).astype(
+                np.complex64)
+        A = lt.coo_operator(m, n, vals, rows, cols, device=device)
+        kw = {}
+    elif kind == "jdia remainder":
+        m = n = 40_000
+        A = lt.jdia_operator(m, n, *jittered_band_coo(m, n, outliers=0.05, seed=22,
+                                                      diag=12.0), device=device)
+        assert A.rem_vals.shape[0] > 1000
+        kw = {}
+    else:
+        m, n = 5000, 4100
+        A = lt.block_ell_operator(m, n, *random_block_coo(m, n, seed=23, diag=2.0),
+                                  device=device)
+        kw = dict(pair=True)
+    b = rng.standard_normal(m).astype(np.complex64 if A.dtype.is_complex else np.float32)
+    return A, torch.from_numpy(b).to(device), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FIXED_ORDER)
+def test_cuda_fixed_order_products_are_bit_stable(rng, cuda_device, kind):
+    """The COO products, JDIA's remainder and BlockELL's block-column sum of
+    the pair give the same bits over two calls and two solves, and agree
+    with the same operator on the CPU."""
+    A, b, kw = _fixed_order_case(rng, kind, cuda_device)
+    H, bh, _ = _fixed_order_case(np.random.default_rng(0), kind, DEV)
+    dt = A.dtype
+    x = torch.from_numpy(rng.standard_normal(A.n).astype(np.float32)).to(dt).to(cuda_device)
+    if kind == "block pair":
+        c1 = torch.tensor(0.7, device=cuda_device)
+        (u1, z1), (u2, z2) = (A.fused_pair(y=b, win=x, c1=c1, c2=0.3) for _ in range(2))
+        u_h, z_h = H.fused_pair(y=b.cpu(), win=x.cpu(), c1=0.7, c2=0.3)
+        torch.cuda.synchronize()
+        assert torch.equal(u1, u2) and torch.equal(z1, z2)
+        assert rel_err(u1, u_h) < TOL and rel_err(z1, z_h) < 1e-4
+    else:
+        f1, f2 = A.matvec(x), A.matvec(x)
+        a1, a2 = A.rmatvec(b), A.rmatvec(b)
+        torch.cuda.synchronize()
+        assert torch.equal(f1, f2) and torch.equal(a1, a2)
+        for got, ref in ((f1, H.matvec(x.cpu())), (a1, H.rmatvec(b.cpu()))):
+            got = got.cpu()  # complex kept
+            assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
+    r1, r2 = (lt.lsqr(A, b, 0.01, atol=1e-6, btol=1e-6, **kw) for _ in range(2))
+    assert int(r1.itn) == int(r2.itn) and torch.equal(r1.x, r2.x)
 
 
 @pytest.mark.cuda

@@ -112,6 +112,23 @@ def test_jdia_f64_operator_matches_jax(rng, m, n):
     np.testing.assert_array_equal(to_np(At.todense()), np.asarray(Aj.todense()))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_jdia_remainder_sums_match_jax(rng, dtype):
+    """A pattern with 8% outliers leaves a large COO remainder; its fixed-
+    order sums by row and by column (built with the operator) give JAX's
+    products."""
+    m, n = 2000, 1500
+    vals, rows, cols = _pattern(m, n, seed=12, outliers=0.08, dtype=dtype)
+    Aj = j_jdia_operator(m, n, vals, rows, cols, tm=1024)
+    At = lt.jdia_operator(m, n, vals, rows, cols, tm=1024, device=DEV)
+    rem = At.rem_vals.shape[0]
+    assert rem > 100 and At.rem_by_row.offsets[-1] == At.rem_by_col.offsets[-1] == rem
+    x, y = rng.standard_normal(n).astype(dtype), rng.standard_normal(m).astype(dtype)
+    tol = 1e-5 if dtype == np.float32 else 1e-13
+    assert rel_err(At.matvec(_t(x)), Aj.matvec(jnp.asarray(x))) < tol
+    assert rel_err(At.rmatvec(_t(y)), Aj.rmatvec(jnp.asarray(y))) < tol
+
+
 def test_jdia_dtype_rule_matches_jax():
     vals, rows, cols = _pattern(300, 300, seed=2)
     for v in (vals, vals.astype(np.float32), np.round(vals * 10).astype(np.int64)):

@@ -25,15 +25,15 @@ from lsqr_tpu.ops.wwcoo import wwcoo_pack as j_wwcoo_pack
 from lsqr_tpu_torch.models.synthetic import zipf_column_coo
 from lsqr_tpu_torch.ops import spmv_wcoo
 from lsqr_tpu_torch.ops.wcoo import WCOOPacked, wcoo_pack_arrays
-from lsqr_tpu_torch.ops.wwcoo import (WWCOOPackError, WWCOOPacked, column_index, wwcoo_pack,
-                                      wwcoo_pack_arrays)
+from lsqr_tpu_torch.ops.wwcoo import (WWCOOPackError, WWCOOPacked, column_index, column_lists,
+                                      wwcoo_pack, wwcoo_pack_arrays)
 
-from _torch_parity import DEV, rel_err, to_np
+from _torch_parity import DEV, rel_err, to_np, wide_band_triplets
 from test_torch_wcoo import (_scipy, assert_close, assert_same_arrays, assert_same_packing,
                              jax_arrays)
 
-#: the device arrays JAX stores too (cidx is the port's own)
-WW_FIELDS = [f for f in WWCOOPacked.DEVICE_FIELDS if f != "cidx"]
+#: the device arrays JAX stores too (cidx, zptr and zsrc are the port's own)
+WW_FIELDS = [f for f in WWCOOPacked.DEVICE_FIELDS if f not in WWCOOPacked.DERIVED]
 
 
 @pytest.fixture
@@ -323,3 +323,73 @@ def test_column_index_of_jax_arrays_equals_the_packers(rng):
     got = column_index(np.asarray(ref.col_r), np.asarray(ref.rowl), ref.eb)
     assert got.dtype == np.int32
     assert got.tobytes() == to_np(wwcoo_pack(m, n, vals, rows, cols, device=DEV).cidx).tobytes()
+
+
+#: the WWCOO packings of the inverse-list test: PATTERNS, RWCOO's cold
+#: streams (name prefixed "cold"), and the wide band
+INVERSE = sorted(PATTERNS) + [f"cold {k}" for k in sorted(RW_PATTERNS)] + ["band_32768x262144"]
+
+
+def _inverse_case(rng, name):
+    """(port's WWCOOPacked, JAX's packing) of an INVERSE entry."""
+    if name.startswith("cold "):
+        m, n, vals, rows, cols = RW_PATTERNS[name[5:]](rng)
+        return (lt.rwcoo_operator(m, n, vals, rows, cols, device=DEV).cold,
+                j_rwcoo_operator(m, n, vals, rows, cols).cold)
+    if name == "band_32768x262144":
+        m, n = 32768, 262144
+        vals, rows, cols = wide_band_triplets(rng, m, 6, 8)
+    else:
+        m, n, vals, rows, cols = PATTERNS[name](rng)
+    return wwcoo_pack(m, n, vals, rows, cols, device=DEV), j_wwcoo_pack(m, n, vals, rows, cols)
+
+
+@pytest.mark.parametrize("name", INVERSE)
+def test_inverse_column_lists_equal_jax_zexp(rng, name):
+    """zptr/zsrc, the WWCOO adjoint's inverse of colmap, say for every chunk
+    and column what JAX's expansion tables zexp say: column zwk_zb[t, i] + j
+    sits at position zexp[t, 8 i:8 i + 8].ravel()[j] of chunk t (-1: absent),
+    listed per column in chunk order."""
+    p, ref = _inverse_case(rng, name)
+    zexp, zb = np.asarray(ref.zexp), np.asarray(ref.zwk_zb)
+    nc, wz = zb.shape
+    want = []
+    for t in range(nc):
+        tabs = zexp[t].reshape(wz, 1024)
+        i, j = np.nonzero(tabs >= 0)
+        want.append(np.stack([zb[t, i] + j, np.full(i.size, t), tabs[i, j]], axis=1))
+    want = np.unique(np.concatenate(want).astype(np.int64), axis=0)  # by (column, t)
+    zptr, zsrc = to_np(p.zptr).astype(np.int64), to_np(p.zsrc).astype(np.int64)
+    d_pad = p.js * 128
+    got = np.stack([np.repeat(np.arange(p.n), np.diff(zptr)), zsrc // d_pad, zsrc % d_pad],
+                   axis=1)
+    assert zptr[0] == 0 and zptr[-1] == zsrc.size and p.zptr.dtype == torch.int32
+    np.testing.assert_array_equal(got, want)
+    lists = column_lists(np.asarray(ref.colmap), p.n)
+    assert lists[0].tobytes() == to_np(p.zptr).tobytes()
+    assert lists[1].tobytes() == to_np(p.zsrc).tobytes()
+
+
+@pytest.mark.parametrize("c1,c2", [(1.0, 0.0), (0.7, 0.3)])
+def test_wwcoo_twins_on_a_wide_band_match_jax_and_scipy(rng, c1, c2):
+    """The pattern of the card's large-D_pad adjoint (98,304 positions a
+    chunk): JAX packs it byte for byte as the port does, and the twins
+    match JAX's plain products and scipy."""
+    m, n = 32768, 262144
+    vals, rows, cols = wide_band_triplets(rng, m, 6, 8)
+    ref = j_wwcoo_pack(m, n, vals, rows, cols)
+    assert_same_arrays(*wwcoo_pack_arrays(m, n, vals, rows, cols), ref)
+    A = lt.wwcoo_operator(m, n, vals, rows, cols, device=DEV)
+    assert A.packed.js * 128 == 98304
+    Aj = j_wwcoo_operator(m, n, vals, rows, cols)
+    S = _scipy(m, n, vals, rows, cols)
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    z = spmv_wcoo.wwcoo_adjoint(A.packed, _t(y))
+    assert_close(z, S.T @ y)
+    assert_close(z, Aj.rmatvec(jnp.asarray(y)))
+    u2, z2 = spmv_wcoo.wwcoo_pair(A.packed, _t(y), _t(x), c1, c2)
+    uj, zj = Aj.fused_pair(y=jnp.asarray(y), win=jnp.asarray(x), c1=c1, c2=c2)
+    assert_close(u2, uj)
+    assert_close(z2, zj)
+    assert_close(z2, S.T @ (c1 * (S @ x) - c2 * y))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the WCOO/WWCOO kernels of one or more checkouts.
+"""Device times of the WCOO/WWCOO and packed-pair kernels of one or more
+checkouts.
 
     python3 tools/coo_kernel_times.py [ROOT ...] [--out FILE]
 
@@ -17,12 +18,18 @@ the WCOO forward, adjoint and pair; RWCOO's hot forward and adjoint and
 its cold forward, adjoint and pair; each forward again on its packing with
 every row emptied (gpe = -1: the per-row work alone, gpe, y and u); and
 ``torch.sparse_csr_tensor`` products of the same matrices (A, A', the cold
-stream's A and A'). Every checkout is timed by this checkout's
-``chip_smoke.time_ms`` (the mean device time of ``--reps`` calls, the card
-spinning while the host queues them) and its CSR built by
-``chip_smoke.csr_of``. Prints one JSON line per checkout (the card's name and
-power limit with it) and, with ``--out FILE``, writes them all there.
-Needs one CUDA device.
+stream's A and A'). Then ``spmv.dia_pair`` on ``bench.py``'s banded
+shape (m = n = 2^23, 11 diagonals, ``chip_smoke.random_stripes``) and at
+2^19, f32 and bf16 stripes; its u and z at 2^23 go to
+``build/coo_kernel_times/<run>.pt``, and this process prints the largest
+|difference| of each run's from the first run's (the same inputs on the
+same card). Last, ``stream_copy`` and ``x.mul_`` on ``bench.py``'s roofline
+shape (1024 x 2^18 f32), timed in turns five times each. Every checkout is
+timed by this checkout's ``chip_smoke.time_ms`` (the mean device time of
+``--reps`` calls, the card spinning while the host queues them) and its
+CSR built by ``chip_smoke.csr_of``. Prints one JSON line per checkout (the
+card's name and power limit with it) and, with ``--out FILE``, writes them
+all there. Needs one CUDA device.
 """
 
 import argparse
@@ -49,7 +56,50 @@ def yardstick():
     return mod
 
 
-def one(root, reps):
+def pair_times(smoke, dev, reps, dump):
+    """dia_pair's times at 2^23 and 2^19 x 11 diagonals, f32 and bf16
+    stripes; the 2^23 results saved to ``dump``."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    out, saved = {}, {}
+    for m in (2 ** 23, 2 ** 19):
+        data, y, g = smoke.random_stripes(m, m, smoke.OFFSETS, dev, seed=100, boost=12.0)
+        v = torch.randn(m, generator=g, device=dev)
+        c1, c2 = torch.tensor(0.8, device=dev), torch.tensor(1.1, device=dev)
+        offsets_t = torch.tensor(smoke.OFFSETS, dtype=torch.int32, device=dev)
+        for tag, d in (("f32", data), ("bf16", data.bfloat16())):
+            def call(d=d):
+                return spmv.dia_pair(d, y, v, c1, c2, offsets=smoke.OFFSETS, m=m, n=m,
+                                     offsets_t=offsets_t)
+            out[f"dia_pair_{tag}_{m}"] = smoke.time_ms(call, reps)
+            if m == 2 ** 23:
+                saved[tag] = [t.cpu() for t in call()]
+        del data, y, v
+        torch.cuda.empty_cache()
+    Path(dump).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(saved, dump)
+    return out
+
+
+def stream_turns(smoke, dev, reps):
+    """stream_copy and x.mul_ at bench.py's roofline shape, in turns, five
+    times each."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.ops import roofline
+
+    x = torch.randn((roofline.ROWS, roofline.COLS), device=dev)
+    copy, mul = [], []
+    for _ in range(5):
+        copy.append(smoke.time_ms(lambda: lt.stream_copy(x), reps))
+        mul.append(smoke.time_ms(lambda: x.mul_(roofline.SCALE), reps))
+    return {"stream_copy_turns": copy, "mul_turns": mul}
+
+
+def one(root, reps, dump):
     """Times of the kernels of the checkout at ``root`` (this process)."""
     sys.path.insert(0, str(root))
     import numpy as np
@@ -99,6 +149,8 @@ def one(root, reps):
                 out[f"{key}_pair"] = t(lambda: pair(p, y, xp, c1, c2))
         del A, tri
         torch.cuda.empty_cache()
+    out.update(pair_times(smoke, dev, reps, dump))
+    out.update(stream_turns(smoke, dev, reps))
     return out
 
 
@@ -108,9 +160,10 @@ def main():
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--out", help="write the runs to this JSON file too")
     ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--dump", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(one(args.one, args.reps)), flush=True)
+        print(json.dumps(one(args.one, args.reps, args.dump)), flush=True)
         return 0
     import torch
 
@@ -121,15 +174,22 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     runs = []
-    for root in args.roots:
+    dumps = HERE / "build" / "coo_kernel_times"
+    for i, root in enumerate(args.roots):
         root = str(Path(root).resolve())
         proc = subprocess.run([sys.executable, __file__, "--one", root, "--reps",
-                               str(args.reps)], capture_output=True, text=True,
+                               str(args.reps), "--dump", str(dumps / f"{i}.pt")],
+                              capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": root})
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return proc.returncode
         runs.append({"root": root, "card": card, **json.loads(proc.stdout.splitlines()[-1])})
+        if i:  # dia_pair's u and z against the first run's, on the same inputs
+            first, this = (torch.load(dumps / f"{k}.pt") for k in (0, i))
+            runs[-1]["dia_pair_max_abs_diff_to_first"] = {
+                tag: [float((a.double() - b.double()).abs().max())
+                      for a, b in zip(this[tag], first[tag])] for tag in this}
         print(json.dumps(runs[-1]), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
