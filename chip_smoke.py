@@ -13,7 +13,10 @@ raises on failure:
    the main path's shape (m = n = 2^23, 11 diagonals: f32, and bf16
    stripes), a ragged rectangular one (f32, and the f64 products), a wide
    one, and a band wider than the pair kernels' halo (2^20, offsets
-   +-1500: the two-launch route); the kernels' and the twins' times;
+   +-1500: the two-launch route); the kernels' and the twins' times; the
+   shared pair's staged route (checked to be the one taken at the main
+   shape) and its unstaged kernel, the same bits at every shape whose halo
+   one launch takes, both also timed at 2^19;
 2. the main-path solve at m = n = 2^23 on the shared-stripe layout: f32
    stripes from a seeded generator with 12 added to the main diagonal, damp
    0.01 — a run to the machine-precision guards within 64 iterations, a
@@ -22,7 +25,10 @@ raises on failure:
    in f64;
 3. the same solve with pair=False (the product+axpy kernel);
 4. ``auto_operator`` on the COO triplets of a 2^20 banded f32 matrix and a
-   short solve, against the same solve on the host;
+   short solve, against the same solve on the host; solves at 2^20 on 81
+   diagonals (f32 and bf16 stripes), whose shared pair takes the unstaged
+   kernel (no staged tile fits), checked in f64, after that pair at those
+   stripes against its twin and the unstaged kernel called directly;
 5. f64 conformance at 2^16 against ``scipy.sparse.linalg.lsqr``, on the
    shared layout and through ``auto_operator`` (the packed layout), and the
    README 3x3 system through ``LSQRSolver(device="cuda")``;
@@ -46,7 +52,8 @@ raises on failure:
    ``megakernel=True`` against the regular (pair) path on the card, in f32
    and bf16, the LSQR answer checked in f64; fixed 64-iteration LSQR runs
    with and without the megakernel at 2^23 and 2^19 (ms and CUDA launches
-   per iteration); ``cgls`` (regular, and ``pair=True``) checked in f64.
+   per iteration; the megakernel's own launches, by name, one per K
+   iterations); ``cgls`` (regular, and ``pair=True``) checked in f64.
 
 11. the general-sparsity kernels against their twins on the card:
    ``jdia_matvec`` on a jittered-diagonal pattern at m = n = 2^22 (6
@@ -102,7 +109,8 @@ raises on failure:
    bit for bit at the ceiling's shape and at a ragged length;
    ``stream_ceiling`` at ``bench.py``'s roofline shape (1024 x 2^18 f32,
    1 GiB, 20 chained in-place copies after a warm-up) in GB/s beside the
-   data sheet's 3.35 TB/s; kernel, twin and ``x.mul_`` times at that shape.
+   data sheet's 3.35 TB/s; kernel, twin and ``x.mul_`` times at that shape,
+   the kernel and ``x.mul_`` in five turns.
 
 Every solve of phases 2-5, 7, 8, 10, 12, 13, 15 and 17 runs with the launch
 counts reset just before it and read just after, and so does a direct call
@@ -115,6 +123,7 @@ operations it must handle, and a PyTorch library call's time where one
 computes the same function); the last line is {"ok": true, "device": {...}}.
 """
 
+import inspect
 import json
 import subprocess
 import sys
@@ -135,6 +144,9 @@ WCOO = "lsqr_tpu_torch/csrc/wcoo.cu"
 WWCOO = "lsqr_tpu_torch/csrc/wwcoo.cu"
 ZDIA = "lsqr_tpu_torch/csrc/zdia.cu"
 STREAM = "lsqr_tpu_torch/csrc/stream_copy.cu"
+#: the staged pair of both layouts (csrc/dia_packed.cu and csrc/dia_shared.cu
+#: include it): the source of the pairs' staged variants
+STAGED_PAIR = "lsqr_tpu_torch/csrc/dia_pair_staged.cuh"
 M_JDIA = 2 ** 22  # phase 11-12's jittered-diagonal size
 M_BELL = 2 ** 18  # phase 11-12's BlockELL size
 M_PLAN = 2 ** 18  # phase 13's scrambled pattern
@@ -171,8 +183,13 @@ PEAK_FLOPS = {4: 67e12, 2: 67e12, 8: 34e12}  # by stripe bytes: f32, bf16 (f32 m
 MK_K = 8  # iterations per megakernel call in phase 9
 MK_SIDE = 2 ** 20  # phase 9's one-sided and ragged shapes
 M_SMALL = 2 ** 19  # phase 10's second timing size, the JAX megakernel's size class
-PROFILE_ATTEMPTS = 3  # phase_launches: profiled pairs of runs before its check fails
+#: phase 4's band whose shared pair takes the unstaged kernel: m = n, 81
+#: diagonals (no staged tile's two stages fit one SM in f32 or bf16), and
+#: what is added on the main diagonal (the band's singular values stay
+#: within about 40 +- 2 sqrt(81))
+MANY = (2 ** 20, tuple(range(-40, 41)), 40.0)
 MK_TOL = 1e-4  # megakernel vs twin after MK_K iterations, relative
+STREAM_TURNS = 5  # phase 18: stream_copy and x.mul_ timed in turns
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "dia_pair_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1969"),
     "dia_product_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1653"),
@@ -432,7 +449,22 @@ def kernel_calls(dev, data, v, y, m, n, ks, storage):
         (lambda a=a: spmv.dia_fused_halfstep_v3(*a[0], c1, c2, **a[1]),
          lambda a=a: spmv.dia_fused_halfstep_v3_plain(*a[0], c1, c2, **a[2]))
         for a in (((pd, y, v), pkw, kw), ((pt, v, y), ptkw, tkw))]
-    return {name + sfx: pairs for name, pairs in calls.items()}
+    out = {name + sfx: pairs for name, pairs in calls.items()}
+    if As.H <= spmv.PAIR_MAX_HALO:  # the shared pair's unstaged kernel, called
+        # directly (the route where no staged tile fits); above the halo both
+        # routes are two launches
+        out.update(unstaged_calls(dp, v, y, c1, c2, skw, kw))
+    return out
+
+
+def unstaged_calls(dp, v, y, c1, c2, skw, kw):
+    """{the shared pair's unstaged variant: [(its kernel, called directly
+    whatever the route, twin call)]} for these shared stripes."""
+    from lsqr_tpu_torch.ops import spmv
+
+    return {f"dia_pair_shared[{spmv.UNSTAGED[dp.dtype]}]": [
+        (lambda: spmv._dia_pair_shared_launch(dp, v, y, c1, c2, tile=0, **skw),
+         lambda: spmv.dia_pair_shared_plain(dp, v, y, c1, c2, **kw))]}
 
 
 def hold(calls, errs, m, n, ks, bound):
@@ -454,6 +486,70 @@ def hold(calls, errs, m, n, ks, bound):
                 log(f"  {name:30s} m={m} n={n} nd={len(ks)} out {tuple(a.shape)} "
                     f"{str(a.dtype)[6:]}: max rel err {r:.3e}")
                 check(r <= tol, f"{name} disagrees with its twin: {r:.3e} > {tol}")
+
+
+def pair_routes_agree(calls, storage, label):
+    """The shared pair's route at these stripes, called twice, and its
+    unstaged kernel where ``calls`` holds it (``kernel_calls``' first
+    pairs) give the same bits."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    sfx = "" if storage == torch.float32 else "[bf16]"
+    route = calls["dia_pair_shared" + sfx][0][0]
+    others = [("a second call", route)]
+    unstaged = calls.get(f"dia_pair_shared[{spmv.UNSTAGED[storage]}]")
+    if unstaged:
+        others.append(("the unstaged kernel", unstaged[0][0]))
+    first = route()
+    for tag, fn in others:
+        got = fn()
+        same = all(torch.equal(a, b) for a, b in zip(got, first))
+        log(f"  dia_pair_shared{sfx} {label}: {tag} bit-equal {same}")
+        check(same, f"dia_pair_shared{sfx} {label}: {tag} differs in u or z")
+
+
+def dia_perf(name, ms, plain_ms, m, n, nd, esize, lib=None):
+    """The perf entry of a DIA kernel variant: the bytes it must move (the
+    stripes once, its f32 or f64 vectors, a bf16 result where it has one)
+    and its 2 flops per stripe element and product."""
+    vm, vn = VECTORS[base(name)]
+    moved = nd * m * esize + (vm * m + vn * n) * (8 if esize == 8 else 4)
+    if esize == 2 and base(name) in STRIPE_DTYPE_OUT:
+        moved -= 2 * m  # out is bf16
+    flops = 2 * nd * m * (2 if "pair" in name else 1)
+    return perf_entry(ms, plain_ms, moved, flops, esize, lib)
+
+
+def phase_pair_routes(dev, m, errs, card):
+    """Phase 1 at m = n (2^19 on the card), 11 diagonals: the shared
+    pair's staged route (checked to be the one taken) and its unstaged
+    kernel against the twin and each other (the same bits), f32 and bf16
+    stripes, timed beside their bound: {variant: perf entry}."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.ops import spmv
+
+    data, y, g = random_stripes(m, m, OFFSETS, dev, seed=19)
+    v = torch.randn(m, generator=g, device=dev)
+    out = {}
+    for storage in (torch.float32, torch.bfloat16):
+        calls = {k: pairs for k, pairs in kernel_calls(dev, data, v, y, m, m, OFFSETS,
+                                                        storage).items()
+                 if base(k) == "dia_pair_shared"}
+        hold(calls, errs, m, m, OFFSETS, TOL)
+        tile = spmv.pair_tile(dev, storage, len(OFFSETS), *spmv._halos(OFFSETS))
+        check(tile > 0, f"m={m}: the shared pair must take the staged route")
+        pair_routes_agree(calls, storage, f"m={m} n={m} nd={len(OFFSETS)}")
+        for name, pairs in calls.items():
+            out[name] = dia_perf(name, time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, m,
+                                 len(OFFSETS), storage.itemsize)
+            report(f"{name} m={m}", out[name], card)
+    del data, y, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def library_ms(csr, x, kernel_out):
@@ -484,8 +580,13 @@ def phase_kernels(dev, shapes, errs, paths):
             calls = kernel_calls(dev, data, v, y, m, n, ks, storage)
             hold(calls, errs, m, n, ks, TOL)
             tile = spmv.pair_tile(data.device, storage, len(ks), *spmv._halos(ks))
+            route = spmv.pair_shared_route(max(abs(k) for k in ks), tile)
             log(f"  dia_pair m={m} n={n} nd={len(ks)} {str(storage)[6:]} stripes: "
-                + (f"staged tiles of {tile}" if tile else "the two-launch route"))
+                + (f"staged tiles of {tile}" if tile else "the two-launch route")
+                + f"; dia_pair_shared: {route}")
+            check(si != 0 or route == "staged",
+                  f"the main shape's shared pair must take the staged route, not {route}")
+            pair_routes_agree(calls, storage, f"m={m} n={n} nd={len(ks)}")
             if si == 0:
                 csr = stripes_csr(data, ks, m, n) if storage == torch.float32 else None
                 for name, pairs in calls.items():
@@ -705,6 +806,63 @@ def phase_auto_operator(dev, m, paths):
     check(err <= 1e-4 and bool(torch.isfinite(res.x).all()), "auto_operator solve: x differs")
 
 
+def phase_unstaged_solves(dev, errs, card, paths):
+    """Phase 4: solves on the shared layout whose pair takes the unstaged
+    kernel (MANY: no staged tile's two stages fit one SM), f32 and bf16
+    stripes, to atol = btol = 1e-6, checked in f64. First the pair at these
+    stripes: the wrapper (one launch, on the unstaged route) and the
+    unstaged kernel called directly against the twin, and the same bits."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.ops import spmv
+
+    m, ks, boost = MANY
+    data, b, g = random_stripes(m, m, ks, dev, seed=104, boost=boost)
+    v = torch.randn(m, generator=g, device=dev)
+    c1 = torch.tensor(0.8, device=dev)
+    c2 = torch.tensor(1.1, device=dev)
+    seg = lt.LSQROptions().loop_segment
+    out = {}
+    for storage in (torch.float32, torch.bfloat16):
+        A = lt.dia_shared_operator(m, m, ks, data, storage_dtype=storage)
+        tag = str(storage)[6:]
+        tile = spmv.pair_tile(dev, storage, len(ks), *spmv._halos(ks))
+        check(spmv.pair_shared_route(A.H, tile) == "unstaged",
+              f"{len(ks)} diagonals, {tag}: expected the unstaged route (tile {tile})")
+        sfx = "" if storage == torch.float32 else "[bf16]"
+        kw = dict(offsets=ks, m=m, n=m)
+        calls = {"dia_pair_shared" + sfx: [
+            (lambda: spmv.dia_pair_shared(A.dp, v, b, c1, c2, offsets_t=A.offsets_t, **kw),
+             lambda: spmv.dia_pair_shared_plain(A.dp, v, b, c1, c2, **kw))],
+            **unstaged_calls(A.dp, v, b, c1, c2, dict(kw, offsets_t=A.offsets_t), kw)}
+        hold(calls, errs, m, m, ks, TOL)
+        _, delta = counted(calls["dia_pair_shared" + sfx][0][0])  # a comparison: not a path
+        check({k: c for k, c in delta.items() if c} == {
+            f"dia_pair_shared[{spmv.UNSTAGED[storage]}]": 1},
+              f"{len(ks)} diagonals {tag}: the wrapper must launch the unstaged kernel "
+              f"once: {delta}")
+        pair_routes_agree(calls, storage, f"m={m} n={m} nd={len(ks)}")
+        del calls
+        res, delta, secs = timed_solve(A, b, f"{len(ks)} diagonals {tag} (b)", card,
+                                       atol=1e-6, btol=1e-6)
+        paths.append(delta)
+        body = iterations_run(int(res.itn), seg)
+        unstaged = f"dia_pair_shared[{spmv.UNSTAGED[storage]}]"
+        check(int(res.istop) in (1, 2, 3), f"{len(ks)} diagonals {tag}: bad stop")
+        check(delta[unstaged] == body and delta["dia_pair_shared" + sfx] == 0,
+              f"{len(ks)} diagonals {tag}: expected {body} unstaged pair launches: {delta}")
+        ratio = shared_optimality(A, b, res.x)  # bf16: against the rounded operator
+        log(f"  {len(ks)} diagonals {tag}: independent check {ratio:.3e}")
+        check(ratio <= 1e-4, f"{len(ks)} diagonals {tag}: optimality check {ratio:.3e}")
+        out[tag] = dict(istop=int(res.istop), itn=int(res.itn), ms=secs * 1e3,
+                        optimality=ratio)
+        del A
+    del data, b, v
+    torch.cuda.empty_cache()
+    return out
+
+
 def scipy_istop(istop, damped):
     """scipy's lsqr taxonomy mapped to the reference's (lsqr.f90:520-538)."""
     mapped = {0: 0, 1: 1, 2: 2, 3: 4, 4: 1, 5: 2, 6: 4, 7: 5}[istop]
@@ -795,38 +953,43 @@ def profile_run(A, b, itnlim, **extra):
     return len(kernels), len(launch_calls), sum(t for _, t in by_name.values()), by_name
 
 
-def phase_launches(A, b, **extra):
+def phase_launches(A, b, own=None, **extra):
     """Phase 6 (and 7, 8, 10): CUDA launches per iteration of a solve (the
-    pair solve, or ``extra``'s), from the profiler: (launches of a
-    128-iteration run - a 64-iteration run) / 64.
+    pair solve, or ``extra``'s), from the profiler: (device events of a
+    128-iteration run - a 64-iteration run) / 64, with the kernel time per
+    iteration likewise.
 
-    A megakernel solve launches once per K iterations, so its two runs
-    differ by four device events only; twice the profiler's counts left
-    the difference <= 0 (``tools/launch_profile_counts.py`` repeats these
-    profiles). Such a pair of runs is profiled again, up to
-    ``PROFILE_ATTEMPTS`` times, each attempt logged; the check holds the
-    last one."""
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        counts = {itnlim: profile_run(A, b, itnlim, **extra) for itnlim in (64, 128)}
-        per_iter = (counts[128][0] - counts[64][0]) / 64
-        if per_iter > 0:
-            break
-        log(f"  profile attempt {attempt}: {counts[64][0]} / {counts[128][0]} device "
-            f"events in the 64- / 128-iteration runs, by kernel:")
-        for name in sorted(set(counts[64][3]) | set(counts[128][3])):
-            log(f"    {counts[64][3].get(name, (0, 0.0))[0]:6d} / "
-                f"{counts[128][3].get(name, (0, 0.0))[0]:6d} launches  {name[:90]}")
+    ``own`` = (kernel name, iterations per launch) names a kernel that must
+    launch once per that many iterations: the megakernel's own events, by
+    name, must differ by exactly 64 / K between the two runs. The totals
+    are logged but not held there: they differ by four device events (two
+    launches and two state copies), and a stray set of small torch kernels
+    in one run can cancel that (``tools/launch_profile_counts.py``)."""
+    counts = {itnlim: profile_run(A, b, itnlim, **extra) for itnlim in (64, 128)}
+    per_iter = (counts[128][0] - counts[64][0]) / 64
     calls = (counts[128][1] - counts[64][1]) / 64
     busy = (counts[128][2] - counts[64][2]) / 64
-    log(f"  device kernels per iteration: {per_iter:.2f} (runtime launch calls seen: "
-        f"{calls:.2f}); kernel time per iteration {busy:.4f} ms")
-    check(per_iter > 0, f"the profiler saw no more CUDA kernels in 128 iterations than in "
-          f"64, in {PROFILE_ATTEMPTS} attempts")
+    log(f"  device events per iteration: {per_iter:.2f} ({counts[64][0]} / {counts[128][0]} "
+        f"in the 64- / 128-iteration runs; runtime launch calls seen: {calls:.2f}); "
+        f"kernel time per iteration {busy:.4f} ms")
+    out = dict(kernels_per_iteration=per_iter, kernel_ms_per_iteration=busy)
+    if own is None:
+        check(per_iter > 0, "the profiler saw no more CUDA kernels in 128 iterations "
+              "than in 64")
+    else:
+        name, k = own
+        mine = [sum(c for kernel, (c, _) in counts[it][3].items() if name in kernel)
+                for it in (64, 128)]
+        log(f"  {name} events: {mine[0]} / {mine[1]} in the 64- / 128-iteration runs "
+            f"(one launch per {k} iterations: a difference of {64 // k})")
+        check(mine[1] - mine[0] == 64 // k,
+              f"{name}: {mine[1] - mine[0]} more launches in 128 iterations than in 64, "
+              f"not {64 // k}")
+        out[f"{name}_per_iteration"] = (mine[1] - mine[0]) / 64
     top = sorted(counts[128][3].items(), key=lambda kv: -kv[1][1])[:10]
-    for name, (n, t) in top:  # the 128-iteration run, setup included
-        log(f"    {t / 128:9.4f} ms/it  {n / 128:6.2f} launches/it  {name[:90]}")
-    return dict(kernels_per_iteration=per_iter, kernel_ms_per_iteration=busy,
-                profile_attempts=attempt)
+    for kname, (n, t) in top:  # the 128-iteration run, setup included
+        log(f"    {t / 128:9.4f} ms/it  {n / 128:6.2f} launches/it  {kname[:90]}")
+    return out
 
 
 def phase_packed_solve(dev, m, x_shared, card, paths):
@@ -1130,13 +1293,18 @@ def phase_mk_solves(dev, m, card, paths):
     del A, data, b, xt
     torch.cuda.empty_cache()
 
-    # fixed 64 iterations with and without the megakernel, at 2^23 and 2^19
+    # fixed 64 iterations with and without the megakernel, at 2^23 and 2^19;
+    # lsqr(megakernel=True) runs K iterations a launch, K the default of
+    # lsqr_megakernel's iters_per_call
+    k_call = inspect.signature(lt.lsqr_megakernel).parameters["iters_per_call"].default
     for mm in (m, M_SMALL):
         data, b, _ = random_stripes(mm, mm, OFFSETS, dev, seed=100, boost=12.0)
         A = lt.dia_operator_device(mm, mm, OFFSETS, data)
         del data
         row = {}
-        for label, extra in (("regular", {}), ("megakernel", dict(megakernel=True))):
+        for label, extra, own in (("regular", {}, None),
+                                  ("megakernel", dict(megakernel=True),
+                                   ("lsqr_megakernel", k_call))):
             kw = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65, **extra)
             mk_solve(f"m=n={mm} {label} warm-up 64 iterations", lt.lsqr, A, b, card, paths,
                      damp=DAMP, **kw)
@@ -1145,7 +1313,7 @@ def phase_mk_solves(dev, m, card, paths):
             check(int(res.itn) == 64, f"fixed run {label}: itn {int(res.itn)} != 64")
             log(f"  launch profile, m=n={mm} {label}:")
             row[label] = dict(ms_per_iteration=secs * 1e3 / 64,
-                              launch_profile=phase_launches(A, b, **extra))
+                              launch_profile=phase_launches(A, b, own, **extra))
         out[f"fixed64_m{mm}"] = row
         del A, b
         torch.cuda.empty_cache()
@@ -2186,7 +2354,8 @@ def phase_roofline(dev, errs, card, paths):
     bit, at ``bench.py``'s roofline shape (the one ``stream_ceiling`` gives
     it) and at a ragged length (the tail launch); ``stream_ceiling`` as a
     counted path; the kernel, its twin and ``x.mul_`` timed at that shape.
-    Returns (perf entry, GB/s)."""
+    The kernel and ``x.mul_`` are timed in STREAM_TURNS turns (their means
+    go into the kernels line). Returns (perf entry, GB/s)."""
     import torch
 
     import lsqr_tpu_torch as lt
@@ -2216,9 +2385,16 @@ def phase_roofline(dev, errs, card, paths):
         f"in-place copies): {gbs:.1f} GB/s, {gbs / (HBM_BYTES_PER_S / 1e9):.1%} of the data "
         f"sheet's {HBM_BYTES_PER_S / 1e9:.0f} GB/s  [{card}]")
     x = torch.randn((roofline.ROWS, roofline.COLS), generator=g, device=dev)
-    entry = perf_entry(time_ms(lambda: lt.stream_copy(x)),
-                       time_ms(lambda: roofline.stream_copy_plain(x)), 2 * x.numel() * 4,
-                       x.numel(), library_ms=time_ms(lambda: x.mul_(roofline.SCALE)))
+    turns = []  # the kernel and x.mul_ in turns: the two differ by well under 1%
+    for turn in range(STREAM_TURNS):
+        turns.append((time_ms(lambda: lt.stream_copy(x)),
+                      time_ms(lambda: x.mul_(roofline.SCALE))))
+        log(f"  turn {turn}: stream_copy {turns[-1][0]:.5f} ms, x.mul_ {turns[-1][1]:.5f} ms")
+    copy_ms, mul_ms = (sum(t[i] for t in turns) / len(turns) for i in (0, 1))
+    log(f"  stream_copy {copy_ms:.5f} ms, x.mul_ {mul_ms:.5f} ms (means of {len(turns)} "
+        f"turns); the kernel at or under x.mul_ in {sum(c <= m for c, m in turns)} turns")
+    entry = perf_entry(copy_ms, time_ms(lambda: roofline.stream_copy_plain(x)),
+                       2 * x.numel() * 4, x.numel(), library_ms=mul_ms)
     report("stream_copy", entry, card)
     del x
     torch.cuda.empty_cache()
@@ -2259,18 +2435,16 @@ def main():
                                 (200_000, 300_007, (0, 1, 7)), WIDE], errs, paths)
     perf = {}
     for name, (ms, plain_ms, m, n, nd, esize, lib) in times.items():
-        vm, vn = VECTORS[base(name)]
-        moved = nd * m * esize + (vm * m + vn * n) * (8 if esize == 8 else 4)
-        if esize == 2 and base(name) in STRIPE_DTYPE_OUT:
-            moved -= 2 * m  # out is bf16
-        flops = 2 * nd * m * (2 if "pair" in name else 1)
-        perf[name] = perf_entry(ms, plain_ms, moved, flops, esize, lib)
+        perf[name] = dia_perf(name, ms, plain_ms, m, n, nd, esize, lib)
         report(name, perf[name], card)
+    pair_small = phase_pair_routes(dev, M_SMALL, errs, card)
 
     phase("phases 2-3: main-path solves, shared layout")
     A, b, x_shared, solves = phase_main_solve(dev, M_MAIN, card, paths)
-    phase("phase 4: auto_operator")
+    solves["pair_shared_m" + str(M_SMALL)] = pair_small
+    phase("phase 4: auto_operator; the shared pair's unstaged route")
     phase_auto_operator(dev, 2 ** 20, paths)
+    solves["unstaged_pair"] = phase_unstaged_solves(dev, errs, card, paths)
     phase("phase 5: f64 conformance")
     phase_f64(dev, 2 ** 16, paths)
     phase("phase 6: launches per iteration")
@@ -2335,7 +2509,9 @@ def main():
     for name in launches:
         entry = perf[name]
         bound_ms, bound_by = bound(entry["bytes"], entry["flops"], entry["esize"])
-        rows.append({"name": name, "route": "cuda", "source": KERNELS[base(name)][0],
+        staged = base(name) in ("dia_pair", "dia_pair_shared") and "unstaged" not in name
+        rows.append({"name": name, "route": "cuda",
+                     "source": STAGED_PAIR if staged else KERNELS[base(name)][0],
                      "replaces": KERNELS[base(name)][1], "launches": launches[name],
                      "max_abs_err": errs[name], "ms": entry["ms"],
                      "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,

@@ -25,9 +25,11 @@
 // 2. dia_shared_axpy_kernel      <- dia_product_shared_axpy /
 //                                   _dia_shared_axpy_kernel
 //    (A or A')(vec * c1) - c2 * y: the pair=False half-step.
-// 3. dia_pair_shared_kernel      <- dia_pair_shared /
-//                                   _dia_pair_shared_kernel_carry
-//    u = A(vec * c1) - c2 * y and z = A' u in one pass.
+// 3. dia_pair_kernel (staged)    <- dia_pair_shared /
+//    dia_pair_shared_kernel          _dia_pair_shared_kernel_carry
+//    u = A(vec * c1) - c2 * y and z = A' u in one pass: the staged pair of
+//    csrc/dia_pair_staged.cuh on this layout (row stride Lp, row base H),
+//    or, where no staged tile fits (many diagonals), the unstaged kernel.
 //
 // What bounds them on the H100: bytes. Each does ~2 flops per stripe
 // element it reads (4 bytes, 2 in bf16), far below the card's ~20 flop/byte
@@ -42,23 +44,29 @@
 //   addresses, so every load is coalesced and every stripe byte is read
 //   from device memory once per product;
 // * the pair replaces the TPU's carry scheme (z block t-1 written at grid
-//   step t, which needs grid steps in order) by halo recompute: a block
-//   owning indices [r0, r0 + T) computes u for rows [r0 - H, r0 + T + H)
-//   into shared memory, writes its own rows of u, synchronises, and forms
-//   z for its columns from shared u. The stripes the second half reads are
-//   the ones the first half just read (same rows, shifted by k), so they
-//   come from L1/L2, and one pass over device memory serves both products.
-//   The recomputed halo is a 2H/T share of the stripe reads (~1% at H = 5,
-//   T = 1024). No atomics: the result is deterministic.
+//   step t, which needs grid steps in order) by halo recompute. Its main
+//   route is the staged pair (csrc/dia_pair_staged.cuh): one-sided halos
+//   lo = max(0, -k_min), hi = max(0, k_max) (not H on both sides), each
+//   tile's stripe rows [c0 - hi, c0 + T + lo) staged in shared memory by
+//   16-byte cp.async copies (in this layout they are one window of each
+//   stripe row, whose 16-byte phase is H % V for every diagonal, since Lp
+//   is a multiple of 1024), a persistent grid two stages deep. Where no
+//   tile's two stages fit (many diagonals), the unstaged kernel below: a
+//   block owning indices [r0, r0 + T) computes u for rows
+//   [r0 - H, r0 + T + H) into shared memory, writes its own rows of u,
+//   synchronises, and forms z for its columns from shared u, reading the
+//   stripes again (from L1/L2). Both sum in the same order: the same bits.
+//   No atomics: the result is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dia_pair_staged.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPairTile = 1024;     // T: output indices one pair block owns
-constexpr int kPairMaxHalo = 1024;  // largest H the pair kernel accepts
+constexpr int kPairTile = 1024;  // T: output indices one unstaged pair block owns
 
 inline unsigned grid_for(long long count) {
   long long g = (count + kThreads - 1) / kThreads;
@@ -120,9 +128,9 @@ __global__ void dia_shared_axpy_kernel(
   }
 }
 
-// One block owns indices [r0, r0 + kPairTile) of BOTH u (rows) and z
-// (columns); the grid covers max(m, n). Dynamic shared memory holds u for
-// rows [r0 - H, r0 + kPairTile + H), zero outside [0, m).
+// The unstaged pair. One block owns indices [r0, r0 + kPairTile) of BOTH u
+// (rows) and z (columns); the grid covers max(m, n). Dynamic shared memory
+// holds u for rows [r0 - H, r0 + kPairTile + H), zero outside [0, m).
 template <typename S>
 __global__ void dia_pair_shared_kernel(
     const S* __restrict__ dp, const float* __restrict__ vec,
@@ -251,6 +259,19 @@ const char* lsqr_cuda_error_string(int code) {
                           stream);                                              \
   }
 
+// The staged pair on this layout: tile T from lsqr_dia_pair_tile_* (the
+// staged bytes are those of the packed layout).
+#define LSQR_PAIR_STAGED(SUFFIX, S)                                             \
+  int lsqr_dia_pair_shared_staged_##SUFFIX(                                     \
+      const void* dp, const void* vec, const void* y, const void* c1,           \
+      const void* c2, void* u, void* z, const void* offsets, int nd,            \
+      long long Lp, int H, long long m, long long n, int lo, int hi, int T,     \
+      void* stream) {                                                           \
+    if (lo > H || hi > H) return static_cast<int>(cudaErrorInvalidValue);      \
+    return launch_pair_staged<S>(dp, Lp, H, vec, y, c1, c2, u, z, offsets, nd,  \
+                                 m, n, lo, hi, T, stream);                      \
+  }
+
 LSQR_PRODUCT(f32, float, float)
 LSQR_PRODUCT(f64, double, double)
 LSQR_PRODUCT(bf16, __nv_bfloat16, float)
@@ -258,9 +279,12 @@ LSQR_AXPY(f32, float)
 LSQR_AXPY(bf16, __nv_bfloat16)
 LSQR_PAIR(f32, float)
 LSQR_PAIR(bf16, __nv_bfloat16)
+LSQR_PAIR_STAGED(f32, float)
+LSQR_PAIR_STAGED(bf16, __nv_bfloat16)
 
 #undef LSQR_PRODUCT
 #undef LSQR_AXPY
 #undef LSQR_PAIR
+#undef LSQR_PAIR_STAGED
 
 }  // extern "C"

@@ -10,40 +10,36 @@
 // 0.641 ms at 3.35 TB/s.
 //
 // What the design does about it: the TPU grid of VMEM blocks becomes one
-// block per 16 KB, each thread four 16-byte (float4) loads in flight before
-// its four stores, neighbouring threads on neighbouring addresses, the
-// shape of PyTorch's own elementwise kernel (a grid-stride loop with
-// streaming cache hints was slower on the H100); a second small launch
-// multiplies the last len % 4 floats (the pointer must be
-// 16-byte aligned; the wrapper checks). The multiply is the same single f32
-// rounding as the TPU kernel's and the plain version's, so all three agree
-// bit for bit.
+// block per kThreads float4s, each thread one 16-byte (float4) load and
+// store, neighbouring threads on neighbouring addresses; a second small
+// launch multiplies the last len % 4 floats (the pointer must be 16-byte
+// aligned; the wrapper checks). Of the launch shapes that
+// tools/stream_copy_designs.py builds and times against x.mul_, PyTorch's
+// vectorized elementwise kernel (128 threads, two float4 a thread), blocks
+// of 1024 threads with one float4 a thread were the fastest on the H100:
+// ~0.7% under x.mul_, where four float4 a thread in 256-thread blocks
+// trailed it by ~0.6%; streaming cache hints and a reversed block order
+// were slower (PERF.md). The multiply is the same single f32 rounding as
+// the TPU kernel's, the plain version's and x.mul_'s, so all agree bit for
+// bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // float4s a thread: a block covers 4096 floats
+constexpr int kThreads = 1024;
 constexpr float kScale = 1.0000001f;
 
 __global__ void __launch_bounds__(kThreads) stream_copy_kernel(float4* __restrict__ x4,
                                                                long long len4) {
-  const long long base = static_cast<long long>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
-  float4 v[kUnroll];
-#pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
-    if (base + k * kThreads < len4) v[k] = x4[base + k * kThreads];
-  }
-#pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
-    if (base + k * kThreads < len4) {
-      v[k].x *= kScale;
-      v[k].y *= kScale;
-      v[k].z *= kScale;
-      v[k].w *= kScale;
-      x4[base + k * kThreads] = v[k];
-    }
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < len4) {
+    float4 v = x4[i];
+    v.x *= kScale;
+    v.y *= kScale;
+    v.z *= kScale;
+    v.w *= kScale;
+    x4[i] = v;
   }
 }
 
@@ -60,9 +56,8 @@ extern "C" {
 int lsqr_stream_copy_f32(void* x, long long len, void* stream) {
   const long long len4 = len / 4;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long per_block = static_cast<long long>(kThreads) * kUnroll;
   if (len4 > 0) {
-    stream_copy_kernel<<<static_cast<unsigned>((len4 + per_block - 1) / per_block), kThreads, 0,
+    stream_copy_kernel<<<static_cast<unsigned>((len4 + kThreads - 1) / kThreads), kThreads, 0,
                          s>>>(static_cast<float4*>(x), len4);
   }
   if (len > 4 * len4) stream_copy_tail<<<1, 4, 0, s>>>(static_cast<float*>(x), 4 * len4, len);

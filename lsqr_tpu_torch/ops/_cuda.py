@@ -42,6 +42,10 @@ _SIGNATURES = {
     # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, stream
     **{f"lsqr_dia_pair_shared_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _P)
        for s in ("f32", "bf16")},
+    # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, lo, hi, T, stream
+    **{f"lsqr_dia_pair_shared_staged_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L,
+                                            _L, _I, _I, _I, _P)
+       for s in ("f32", "bf16")},
     # csrc/dia_packed.cu
     # data, vec, out, offsets, nd, dim_out, dim_in, column, stream
     **{f"lsqr_dia_matvec_{s}": (_P, _P, _P, _P, _I, _L, _L, _I, _P)

@@ -9,7 +9,8 @@ wrapper                    computes                           source
 =========================  =================================  ==================
 dia_product_shared         A x or A' y (f32, f64, bf16)       csrc/dia_shared.cu
 dia_product_shared_axpy    (A or A')(vec*c1) - c2*y           csrc/dia_shared.cu
-dia_pair_shared            u = A(vec*c1) - c2*y, z = A' u     csrc/dia_shared.cu
+dia_pair_shared            u = A(vec*c1) - c2*y, z = A' u     csrc/dia_shared.cu,
+                                                              dia_pair_staged.cuh
 dia_matvec                 A x, packed (f32, f64, bf16)       csrc/dia_packed.cu
 dia_matvec_axpy            A(win*c1) - c2*y, packed           csrc/dia_packed.cu
 dia_fused_halfstep         as dia_matvec_axpy, and sum(out^2) csrc/dia_packed.cu
@@ -17,7 +18,8 @@ dia_fused_halfstep_v2      the same in f32 or bf16, the sum   csrc/dia_packed.cu
                            reduced in the launch
 dia_fused_halfstep_v3      the same, one partial sum per      csrc/dia_packed.cu
                            block, added by the wrapper
-dia_pair                   the pair on packed stripes         csrc/dia_packed.cu
+dia_pair                   the pair on packed stripes         csrc/dia_packed.cu,
+                                                              dia_pair_staged.cuh
 zdia_pair                  the complex pair on two stripe     csrc/zdia.cu
                            planes: u = A(win*c1) - c2*y,
                            z = A^H u
@@ -27,7 +29,8 @@ Each replaces the Pallas kernel of the same name. A wrapper given CPU
 tensors runs the twin. Given CUDA tensors it launches its kernel or raises:
 there is no fallback. Each wrapper counts its launches in its ``launches``
 attribute (a plain integer), and per stripe dtype in ``variants``
-(:func:`launch_counts`, :func:`reset_launch_counts`).
+(:func:`launch_counts`, :func:`reset_launch_counts`); ``dia_pair_shared``
+counts its unstaged route apart (``UNSTAGED``).
 
 Stripes are f32, f64 where the kernel says so, or bf16: bf16 is a storage
 format, so vectors, c1, c2 and the accumulation are f32, and so are the
@@ -81,13 +84,21 @@ __all__ = [
     "register",
     "PAIR_MAX_HALO",
     "pair_tile",
+    "pair_shared_route",
+    "UNSTAGED",
 ]
 
-#: the largest halo the one-pass pair kernels take (the shared pair's tile
-#: holds 1024 + 2H floats; the packed pair stages T + lo + hi rows, see
-#: :func:`pair_tile`); above it the pair is two launches, the axpy kernel
-#: then the product.
+#: the largest halo the one-pass pair kernels take (the staged pairs stage
+#: T + lo + hi rows, see :func:`pair_tile`; the unstaged shared pair's tile
+#: holds 1024 + 2H floats); above it the pair is two launches, the axpy
+#: kernel then the product.
 PAIR_MAX_HALO = 1024
+
+#: the variant under which :func:`dia_pair_shared` counts a launch of its
+#: unstaged kernel, by stripe dtype: ``launch_counts(by_variant=True)``
+#: names them ``dia_pair_shared[unstaged]`` and
+#: ``dia_pair_shared[bf16_unstaged]``
+UNSTAGED = {torch.float32: "unstaged", torch.bfloat16: "bf16_unstaged"}
 
 #: kernel-name suffix of each stripe dtype
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
@@ -335,14 +346,15 @@ def _kernel(name, stripes, dtypes, offsets, tail=""):
     return getattr(_cuda.library(), f"lsqr_{name}_{_SUFFIX[stripes.dtype]}{tail}")
 
 
-def _launch(wrapper, fn, stripes, *args):
-    """Run a launcher, raise on its CUDA error, count the launch."""
+def _launch(wrapper, fn, stripes, *args, variant=None):
+    """Run a launcher, raise on its CUDA error, count the launch (under
+    ``variant``, by default the stripes' dtype)."""
     from . import _cuda
 
     _cuda.check(fn(*args, torch.cuda.current_stream(stripes.device).cuda_stream),
                 wrapper.kernel_name)
     wrapper.launches += 1
-    wrapper.variants[_SUFFIX[stripes.dtype]] += 1
+    wrapper.variants[variant or _SUFFIX[stripes.dtype]] += 1
 
 
 def _device_scalar(c, device):
@@ -414,37 +426,86 @@ def dia_product_shared_axpy(dp, vec, y, c1, c2, *, offsets: Sequence[int],
     return out
 
 
+def pair_shared_route(H, tile):
+    """The route :func:`dia_pair_shared` takes on the card for a band of
+    halo H (max |k|) and a staged tile (:func:`pair_tile`, 0 where none
+    fits): "two launches" where H > PAIR_MAX_HALO, else "staged" where a
+    tile fits, else "unstaged"."""
+    if H > PAIR_MAX_HALO:
+        return "two launches"
+    return "staged" if tile else "unstaged"
+
+
 def dia_pair_shared(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int,
                     n: int, offsets_t: Optional[torch.Tensor] = None):
     """Both bidiagonalization products in one pass over the stripes:
     u = A(vec*c1) - c2*y with vec (n,), y (m,), and z = A' u. Returns
-    (u (m,), z (n,)). On CUDA: f32 or bf16 stripes, f32 vectors. For
-    H > PAIR_MAX_HALO the pair is two launches:
-    :func:`dia_product_shared_axpy`, then :func:`dia_product_shared` (each
-    counts its own launch)."""
+    (u (m,), z (n,)). On CUDA: f32 or bf16 stripes, f32 vectors, and one of
+    three routes (:func:`pair_shared_route`), each counted:
+
+    * staged, where :func:`pair_tile` gives a tile for the diagonals, the
+      one-sided halos lo = max(0, -min k), hi = max(0, max k) and the
+      stripes' dtype: the staged pair of csrc/dia_pair_staged.cuh on this
+      layout (``dp`` 16-byte aligned; vector views off the 16-byte grid are
+      copied);
+    * unstaged, where no tile fits and H <= PAIR_MAX_HALO (many diagonals):
+      the one-block-per-1024-indices kernel of csrc/dia_shared.cu, counted
+      under ``UNSTAGED``; it gives the staged route's bits (same order, same
+      expressions);
+    * two launches, where H > PAIR_MAX_HALO:
+      :func:`dia_product_shared_axpy`, then :func:`dia_product_shared`
+      (each counts its own launch)."""
     offsets = tuple(int(k) for k in offsets)
     if not dp.is_cuda:
         return dia_pair_shared_plain(dp, vec, y, c1, c2, offsets=offsets, m=m, n=n)
-    fn = _kernel("dia_pair_shared", dp, (torch.float32, torch.bfloat16), offsets)
-    _check_shared(dp, offsets, m, n)
-    H, Lp = _geometry(offsets, m, n)
-    offsets_t = _offsets_on(dp, offsets, offsets_t)
-    if H > PAIR_MAX_HALO:
+    _kernel("dia_pair_shared", dp, (torch.float32, torch.bfloat16), offsets)  # the checks
+    H, _ = _geometry(offsets, m, n)
+    tile = pair_tile(dp.device, dp.dtype, len(offsets), *_halos(offsets))
+    if pair_shared_route(H, tile) == "two launches":
+        _check_shared(dp, offsets, m, n)
+        offsets_t = _offsets_on(dp, offsets, offsets_t)
         u = dia_product_shared_axpy(dp, vec, y, c1, c2, offsets=offsets, m=m,
                                     n=n, adjoint=False, offsets_t=offsets_t)
         return u, dia_product_shared(dp, u, offsets=offsets, m=m, n=n,
                                      adjoint=True, offsets_t=offsets_t)
+    return _dia_pair_shared_launch(dp, vec, y, c1, c2, offsets=offsets, m=m, n=n,
+                                   offsets_t=offsets_t, tile=tile)
+
+
+def _dia_pair_shared_launch(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int,
+                            n: int, offsets_t: Optional[torch.Tensor] = None,
+                            tile: int):
+    """One launch of the shared pair on CUDA tensors (the kernels refuse
+    H > PAIR_MAX_HALO): the staged kernel in tiles of ``tile``
+    (:func:`pair_tile`), or the unstaged kernel where ``tile`` is 0,
+    counted under ``UNSTAGED``.
+    :func:`dia_pair_shared` picks the tile; a comparison of the two kernels
+    passes 0 for the unstaged one."""
+    offsets = tuple(int(k) for k in offsets)
+    fn = _kernel("dia_pair_shared_staged" if tile else "dia_pair_shared", dp,
+                 (torch.float32, torch.bfloat16), offsets)
+    _check_shared(dp, offsets, m, n)
+    H, Lp = _geometry(offsets, m, n)
+    offsets_t = _offsets_on(dp, offsets, offsets_t)
     _check("vec", vec, torch.float32, dp.device, n)
     _check("y", y, torch.float32, dp.device, m)
     c1 = _device_scalar(c1, dp.device)
     c2 = _device_scalar(c2, dp.device)
+    if tile:
+        if dp.data_ptr() % 16:
+            raise ValueError("dp must be 16-byte aligned (the pair stages it in 16-byte "
+                             "copies)")
+        vec, y = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (vec, y))
     u = torch.empty(m, dtype=torch.float32, device=dp.device)
     z = torch.empty(n, dtype=torch.float32, device=dp.device)
     if max(m, n) == 0:
         return u, z
-    _launch(dia_pair_shared, fn, dp, dp.data_ptr(), vec.data_ptr(), y.data_ptr(),
-            c1.data_ptr(), c2.data_ptr(), u.data_ptr(), z.data_ptr(),
-            offsets_t.data_ptr(), len(offsets), Lp, H, m, n)
+    args = (dp.data_ptr(), vec.data_ptr(), y.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+            u.data_ptr(), z.data_ptr(), offsets_t.data_ptr(), len(offsets), Lp, H, m, n)
+    if tile:
+        _launch(dia_pair_shared, fn, dp, *args, *_halos(offsets), tile)
+    else:
+        _launch(dia_pair_shared, fn, dp, *args, variant=UNSTAGED[dp.dtype])
     return u, z
 
 
@@ -653,12 +714,15 @@ def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int
 
 @functools.lru_cache(maxsize=None)
 def pair_tile(device, dtype, nd, lo, hi):
-    """The tile of :func:`dia_pair`'s staged kernel on ``device`` for nd
-    diagonals, halos lo, hi and stripes of ``dtype``: T = 1024 k - (lo + hi
-    rounded up to 4) indices for the least k in 1, 2, 4, 8 with T >= 256
-    and T >= lo + hi whose two stages fit two blocks an SM (else one); 0
-    where none fits or a halo exceeds PAIR_MAX_HALO (the two-launch
-    route)."""
+    """The tile of the staged pair (:func:`dia_pair`, and
+    :func:`dia_pair_shared`'s staged route: both stage the same bytes) on
+    ``device`` for nd diagonals, halos lo, hi and stripes of ``dtype``:
+    T = 1024 k - (lo + hi rounded up to 4) indices for the least k in 1, 2,
+    4, 8 with T >= 256 and T >= lo + hi whose two stages fit two blocks an
+    SM (else one); 0 where none fits or a halo exceeds PAIR_MAX_HALO. The
+    packed pair then takes two launches; the shared pair takes its unstaged
+    kernel where H <= PAIR_MAX_HALO and two launches above it
+    (:func:`pair_shared_route`)."""
     from . import _cuda
 
     with torch.cuda.device(device):
@@ -712,7 +776,7 @@ def zdia_pair(dr, di, y, win, c1, c2, *, offsets: Sequence[int], m: int, n: int,
 
 #: every kernel wrapper and the stripe dtypes its kernel takes
 KERNELS = {
-    dia_pair_shared: ("f32", "bf16"),
+    dia_pair_shared: ("f32", "bf16", *UNSTAGED.values()),
     dia_product_shared: ("f32", "f64", "bf16"),
     dia_product_shared_axpy: ("f32", "bf16"),
     dia_pair: ("f32", "bf16"),
@@ -748,7 +812,8 @@ reset_launch_counts()
 def launch_counts(by_variant: bool = False) -> dict:
     """{kernel name: launches since the last reset}. With ``by_variant``,
     one entry per stripe dtype a kernel takes: the name for f32,
-    ``name[bf16]`` and ``name[f64]`` for the others."""
+    ``name[bf16]`` and ``name[f64]`` for the others (and the shared pair's
+    unstaged route, ``UNSTAGED``)."""
     if not by_variant:
         return {fn.kernel_name: fn.launches for fn in KERNELS}
     return {(fn.kernel_name if s == "f32" else f"{fn.kernel_name}[{s}]"): count

@@ -9,6 +9,7 @@ machine, without the suite's conftest (which imports JAX):
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -257,31 +258,119 @@ def test_cuda_packed_kernels_match_twins(rng, cuda_device, m, n, ks, storage):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "packed"])
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,n,ks", [(300_001, 200_003, (-60, -3, 0, 5)),
                                     (2 ** 18 + 3, 2 ** 18 + 3, tuple(range(-5, 6)))])
 def test_cuda_staged_pair_is_bit_stable_and_takes_any_vectors(rng, cuda_device, m, n, ks,
-                                                              storage):
-    """Each u and z element of the staged pair comes from one tile in a
-    fixed order: two calls give the same bits, as do vectors that are views
-    off the 16-byte grid (the wrapper copies them)."""
+                                                              storage, layout):
+    """Each u and z element of the staged pair (either stripe layout) comes
+    from one tile in a fixed order: two calls give the same bits, as do
+    vectors that are views off the 16-byte grid (the wrapper copies them)."""
     data, _ = banded(rng, m, n, ks, np.float32, dense=False)
-    Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
-    d = Ah.data.to(cuda_device)
     v, y = (t.to(cuda_device) for t in _vectors(rng, m, n))
     kw = dict(offsets=ks, m=m, n=n)
     c1 = torch.tensor(0.8, device=cuda_device)
+    if layout == "packed":
+        d = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV).data.to(
+            cuda_device)
+        name = "dia_pair"
+
+        def pair(v, y, kernel=spmv.dia_pair):
+            return kernel(d, y, v, c1, 1.1, **kw)
+        plain = functools.partial(pair, kernel=spmv.dia_pair_plain)
+    else:
+        d = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage, device=DEV).dp.to(
+            cuda_device)
+        name = "dia_pair_shared"
+
+        def pair(v, y, kernel=spmv.dia_pair_shared):
+            return kernel(d, v, y, c1, 1.1, **kw)
+        plain = functools.partial(pair, kernel=spmv.dia_pair_shared_plain)
+    assert spmv.pair_tile(d.device, d.dtype, len(ks), *spmv._halos(ks)) > 0
     spmv.reset_launch_counts()
-    (u1, z1), (u2, z2) = (spmv.dia_pair(d, y, v, c1, 1.1, **kw) for _ in range(2))
+    (u1, z1), (u2, z2) = (pair(v, y) for _ in range(2))
     vo, yo = (torch.cat([t.new_zeros(1), t])[1:] for t in (v, y))
     assert vo.data_ptr() % 16 and yo.data_ptr() % 16
-    u3, z3 = spmv.dia_pair(d, yo, vo, c1, 1.1, **kw)
-    u_ref, z_ref = spmv.dia_pair_plain(d, y, v, c1, 1.1, **kw)
+    u3, z3 = pair(vo, yo)
+    u_ref, z_ref = plain(v, y)
     torch.cuda.synchronize()
     assert torch.equal(u1, u2) and torch.equal(z1, z2)
     assert torch.equal(u1, u3) and torch.equal(z1, z3)
     assert rel_err(u1, u_ref) < TOL and rel_err(z1, z_ref) < TOL
-    assert spmv.launch_counts() == _only(dia_pair=3)
+    assert spmv.launch_counts() == _only(**{name: 3})
+    suffix = "" if storage == "float32" else "[bf16]"
+    assert spmv.launch_counts(by_variant=True)[name + suffix] == 3
+
+
+#: the shared pair's staged and unstaged routes on the same inputs: CASES and
+#: PAIR_CASES, one-sided bands (lower and upper), odd halos (stripe windows
+#: and x windows off the 16-byte grid), m != n both ways
+ROUTE_CASES = CASES + PAIR_CASES + [
+    (5003, 3001, (-17, -4, 0)),
+    (3001, 5003, (0, 2, 9, 17)),
+    (4097, 4097, (-7, 0, 3)),
+    (2 ** 16 + 1, 2 ** 16 - 3, (-5, -3, 0, 1, 5)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,ks", ROUTE_CASES)
+def test_cuda_shared_pair_routes_give_the_same_bits(rng, cuda_device, m, n, ks, storage):
+    """The staged shared pair sums in the unstaged kernel's order with its
+    expressions: u and z are bit-equal, and within TOL of the twin."""
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    Ah = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
+    dp = Ah.dp.to(cuda_device)
+    v, y = _vectors(rng, m, n)
+    dv, dy = v.to(cuda_device), y.to(cuda_device)
+    kw = dict(offsets=ks, m=m, n=n)
+    tile = spmv.pair_tile(dp.device, dp.dtype, len(ks), *spmv._halos(ks))
+    spmv.reset_launch_counts()
+    u1, z1 = spmv.dia_pair_shared(dp, dv, dy, 0.8, 1.1, **kw)
+    u2, z2 = spmv._dia_pair_shared_launch(dp, dv, dy, 0.8, 1.1, tile=0, **kw)
+    ur, zr = spmv.dia_pair_shared_plain(Ah.dp, v, y, 0.8, 1.1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(u1, u2) and torch.equal(z1, z2)
+    assert rel_err(u1, ur) < TOL and rel_err(z1, zr) < TOL
+    suffix = "" if storage == "float32" else "[bf16]"
+    unstaged = f"dia_pair_shared[{spmv.UNSTAGED[dp.dtype]}]"
+    counts = spmv.launch_counts(by_variant=True)
+    assert counts["dia_pair_shared" + suffix] == int(tile > 0)
+    assert counts[unstaged] == 2 - int(tile > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_shared_pair_routes_are_counted(rng, cuda_device, storage):
+    """Each route where it is stated: staged where a tile fits, unstaged
+    where none fits (81 diagonals) though H <= PAIR_MAX_HALO, two launches
+    above it; every band with H <= PAIR_MAX_HALO takes one launch."""
+    suffix = "" if storage == "float32" else "[bf16]"
+    unstaged = f"dia_pair_shared[{spmv.UNSTAGED[getattr(torch, storage)]}]"
+    for (m, n, ks), route, expect in (
+            ((4099, 2053, (-7, -1, 0, 2, 9)), "staged", {"dia_pair_shared" + suffix: 1}),
+            ((3001, 3001, (-1000, 0, 1000)), "staged", {"dia_pair_shared" + suffix: 1}),
+            ((3001, 2001, tuple(range(-40, 41))), "unstaged", {unstaged: 1}),
+            (PAIR_CASES[-1], "unstaged", {unstaged: 1}),
+            (WIDE[1], "two launches", {"dia_product_shared_axpy" + suffix: 1,
+                                       "dia_product_shared" + suffix: 1})):
+        data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+        Ah = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
+        dp = Ah.dp.to(cuda_device)
+        v, y = _vectors(rng, m, n)
+        kw = dict(offsets=ks, m=m, n=n)
+        tile = spmv.pair_tile(dp.device, dp.dtype, len(ks), *spmv._halos(ks))
+        assert spmv.pair_shared_route(Ah.H, tile) == route
+        spmv.reset_launch_counts()
+        u, z = spmv.dia_pair_shared(dp, v.to(cuda_device), y.to(cuda_device), 0.8, 1.1, **kw)
+        ur, zr = spmv.dia_pair_shared_plain(Ah.dp, v, y, 0.8, 1.1, **kw)
+        torch.cuda.synchronize()
+        assert rel_err(u, ur) < TOL and rel_err(z, zr) < TOL
+        counts = spmv.launch_counts(by_variant=True)
+        assert {k: c for k, c in counts.items() if c} == expect, (m, n, len(ks))
+        assert sum(spmv.launch_counts().values()) == (2 if route == "two launches" else 1)
 
 
 @pytest.mark.cuda

@@ -31,6 +31,13 @@ PAIR_CASES = [
     (3000, 2000, (-5, -1, 0, 2)),
     (2000, 3000, (0, 1, 7)),
 ]
+# one-sided bands (lower, upper, and lower without the main diagonal) on
+# ragged m != n both ways: the halos the card's staged pair takes one-sided
+ONE_SIDED = [
+    (3001, 2003, (-9, -4, 0)),
+    (1999, 2501, (-6, -1)),
+    (2501, 1803, (0, 3, 11)),
+]
 IDS = [f"{m}x{n}_nd{len(ks)}" for m, n, ks in CASES]
 TOL = 5e-6  # f32, relative to the max: the two sides differ in rounding only
 
@@ -91,7 +98,7 @@ def test_axpy_twin_matches_pallas(rng, m, n, ks, adjoint):
     assert rel_err(got, ref) < TOL
 
 
-@pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3])
+@pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3] + ONE_SIDED)
 def test_pair_twin_matches_pallas(rng, m, n, ks):
     _, dense, Aj, At = _ops(rng, m, n, ks)
     v = rng.standard_normal(n).astype(np.float32)
@@ -193,6 +200,40 @@ def test_cpu_wrappers_run_twins_and_count_nothing(rng):
     assert {"dia_pair_shared", "dia_product_shared", "dia_product_shared_axpy"} <= set(counts)
     assert not any(counts.values())
     assert not At.prefers_pair and not At.prefers_fused
+
+
+@pytest.mark.parametrize("H,tile,route", [
+    (5, 1012, "staged"), (5, 0, "unstaged"), (spmv.PAIR_MAX_HALO, 0, "unstaged"),
+    (spmv.PAIR_MAX_HALO, 2048, "staged"), (spmv.PAIR_MAX_HALO + 1, 0, "two launches"),
+])
+def test_shared_pair_route(H, tile, route):
+    """The card's route of dia_pair_shared: a halo past PAIR_MAX_HALO takes
+    two launches, any other band one, staged where a tile fits."""
+    assert spmv.pair_shared_route(H, tile) == route
+
+
+#: bands of each of the card's routes: staged (one-sided), unstaged (81
+#: diagonals: no staged tile fits), two launches (a halo past PAIR_MAX_HALO)
+ROUTE_BANDS = ONE_SIDED + [(1201, 997, tuple(range(-40, 41))),
+                           (2501, 1803, (-1100, 0, 5))]
+
+
+@pytest.mark.parametrize("m,n,ks", ROUTE_BANDS)
+def test_cpu_pair_takes_the_twin_on_either_route(rng, m, n, ks):
+    """On the CPU the wrapper runs the twin whichever route the card would
+    take for the band, and counts nothing; the unstaged route has counters
+    of its own."""
+    _, _, _, At = _ops(rng, m, n, ks)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    kw = dict(offsets=ks, m=m, n=n)
+    ref = spmv.dia_pair_shared_plain(At.dp, v, y, 0.8, 1.1, **kw)
+    spmv.reset_launch_counts()
+    for a, b in zip(spmv.dia_pair_shared(At.dp, v, y, 0.8, 1.1, **kw), ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    counts = spmv.launch_counts(by_variant=True)
+    assert {"dia_pair_shared[unstaged]", "dia_pair_shared[bf16_unstaged]"} <= set(counts)
+    assert not any(counts.values())
 
 
 def test_auto_operator_routes_banded_like_jax(rng):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the WCOO/WWCOO and packed-pair kernels of one or more
+"""Device times of the WCOO/WWCOO and DIA pair kernels of one or more
 checkouts.
 
-    python3 tools/coo_kernel_times.py [ROOT ...] [--out FILE]
+    python3 tools/coo_kernel_times.py [ROOT ...] [--no-coo] [--out FILE]
 
 Each ROOT (default: this checkout) is a checkout of the repository whose
 ``lsqr_tpu_torch`` is imported and whose kernels are built, in a process of
@@ -18,9 +18,13 @@ the WCOO forward, adjoint and pair; RWCOO's hot forward and adjoint and
 its cold forward, adjoint and pair; each forward again on its packing with
 every row emptied (gpe = -1: the per-row work alone, gpe, y and u); and
 ``torch.sparse_csr_tensor`` products of the same matrices (A, A', the cold
-stream's A and A'). Then ``spmv.dia_pair`` on ``bench.py``'s banded
-shape (m = n = 2^23, 11 diagonals, ``chip_smoke.random_stripes``) and at
-2^19, f32 and bf16 stripes; its u and z at 2^23 go to
+stream's A and A'; ``--no-coo`` skips all of these). Then ``spmv.dia_pair``
+and ``spmv.dia_pair_shared`` on ``bench.py``'s banded shape (m = n = 2^23,
+11 diagonals, ``chip_smoke.random_stripes``) and at 2^19, f32 and bf16
+stripes, beside the two-call CSR time of the same matrix (``A @ x``, then
+the CSR of A' ``@ u``); and the shared layout's f32 pair solve of
+``chip_smoke.py`` phase 2 (b) (2^23, damped, to atol = btol = 1e-6): its
+istop and itn. The pairs' u and z at 2^23 and the solve's x go to
 ``build/coo_kernel_times/<run>.pt``, and this process prints the largest
 |difference| of each run's from the first run's (the same inputs on the
 same card). Last, ``stream_copy`` and ``x.mul_`` on ``bench.py``'s roofline
@@ -57,27 +61,48 @@ def yardstick():
 
 
 def pair_times(smoke, dev, reps, dump):
-    """dia_pair's times at 2^23 and 2^19 x 11 diagonals, f32 and bf16
-    stripes; the 2^23 results saved to ``dump``."""
+    """dia_pair's and dia_pair_shared's times at 2^23 and 2^19 x 11
+    diagonals, f32 and bf16 stripes, and the two-call CSR time of each
+    shape; the 2^23 results, and the shared pair solve's, saved to
+    ``dump``."""
     import torch
 
+    import lsqr_tpu_torch as lt
     from lsqr_tpu_torch.ops import spmv
 
     out, saved = {}, {}
+    ks = smoke.OFFSETS
     for m in (2 ** 23, 2 ** 19):
-        data, y, g = smoke.random_stripes(m, m, smoke.OFFSETS, dev, seed=100, boost=12.0)
+        data, y, g = smoke.random_stripes(m, m, ks, dev, seed=100, boost=12.0)
         v = torch.randn(m, generator=g, device=dev)
         c1, c2 = torch.tensor(0.8, device=dev), torch.tensor(1.1, device=dev)
-        offsets_t = torch.tensor(smoke.OFFSETS, dtype=torch.int32, device=dev)
-        for tag, d in (("f32", data), ("bf16", data.bfloat16())):
-            def call(d=d):
-                return spmv.dia_pair(d, y, v, c1, c2, offsets=smoke.OFFSETS, m=m, n=m,
-                                     offsets_t=offsets_t)
-            out[f"dia_pair_{tag}_{m}"] = smoke.time_ms(call, reps)
-            if m == 2 ** 23:
-                saved[tag] = [t.cpu() for t in call()]
+        rows, cols, vals = smoke.stripe_triplets(data, ks, m, m)
+        a, at = smoke.csr_of(rows, cols, vals, m, m), smoke.csr_of(cols, rows, vals, m, m)
+        out[f"csr_two_calls_{m}"] = smoke.time_ms(lambda: (a @ v, at @ y), reps)
+        del a, at, rows, cols, vals
+        for tag, storage in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            packed = lt.dia_operator_device(m, m, ks, data, storage_dtype=storage)
+            shared = lt.dia_shared_operator(m, m, ks, data, storage_dtype=storage)
+            calls = {
+                "dia_pair": lambda p=packed: spmv.dia_pair(
+                    p.data, y, v, c1, c2, offsets=ks, m=m, n=m, offsets_t=p.offsets_t),
+                "dia_pair_shared": lambda s=shared: spmv.dia_pair_shared(
+                    s.dp, v, y, c1, c2, offsets=ks, m=m, n=m, offsets_t=s.offsets_t)}
+            for name, call in calls.items():
+                out[f"{name}_{tag}_{m}"] = smoke.time_ms(call, reps)
+                if m == 2 ** 23:
+                    saved[f"{name}_{tag}"] = [t.cpu() for t in call()]
+            del packed, shared
         del data, y, v
         torch.cuda.empty_cache()
+    m = 2 ** 23
+    data, b, _ = smoke.random_stripes(m, m, ks, dev, seed=100, boost=12.0)
+    res = lt.lsqr(lt.dia_shared_operator(m, m, ks, data), b, smoke.DAMP, atol=1e-6,
+                  btol=1e-6)
+    out["shared_solve"] = dict(istop=int(res.istop), itn=int(res.itn))
+    saved["shared_solve_x"] = [res.x.cpu()]
+    del data, b, res
+    torch.cuda.empty_cache()
     Path(dump).parent.mkdir(parents=True, exist_ok=True)
     torch.save(saved, dump)
     return out
@@ -99,8 +124,9 @@ def stream_turns(smoke, dev, reps):
     return {"stream_copy_turns": copy, "mul_turns": mul}
 
 
-def one(root, reps, dump):
-    """Times of the kernels of the checkout at ``root`` (this process)."""
+def one(root, reps, dump, coo=True):
+    """Times of the kernels of the checkout at ``root`` (this process); the
+    WCOO/WWCOO ones only with ``coo``."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -120,7 +146,7 @@ def one(root, reps, dump):
     def t(fn):
         return smoke.time_ms(fn, reps)
 
-    for label, n in (("wcoo", N), ("rwcoo", N_WIDE)):
+    for label, n in (("wcoo", N), ("rwcoo", N_WIDE)) if coo else ():
         trip = zipf_column_coo(M, n, NNZ, seed=0)
         A = lt.auto_operator(M, n, *trip, device=dev)
         y = torch.randn(M, generator=g, device=dev)
@@ -158,12 +184,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", default=[str(HERE)])
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--no-coo", action="store_true",
+                    help="skip the WCOO/WWCOO kernels and their CSR products")
     ap.add_argument("--out", help="write the runs to this JSON file too")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(one(args.one, args.reps, args.dump)), flush=True)
+        print(json.dumps(one(args.one, args.reps, args.dump, not args.no_coo)), flush=True)
         return 0
     import torch
 
@@ -178,16 +206,17 @@ def main():
     for i, root in enumerate(args.roots):
         root = str(Path(root).resolve())
         proc = subprocess.run([sys.executable, __file__, "--one", root, "--reps",
-                               str(args.reps), "--dump", str(dumps / f"{i}.pt")],
+                               str(args.reps), "--dump", str(dumps / f"{i}.pt"),
+                               *(["--no-coo"] if args.no_coo else [])],
                               capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": root})
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return proc.returncode
         runs.append({"root": root, "card": card, **json.loads(proc.stdout.splitlines()[-1])})
-        if i:  # dia_pair's u and z against the first run's, on the same inputs
+        if i:  # the pairs' u and z, the solve's x, against the first run's
             first, this = (torch.load(dumps / f"{k}.pt") for k in (0, i))
-            runs[-1]["dia_pair_max_abs_diff_to_first"] = {
+            runs[-1]["max_abs_diff_to_first"] = {
                 tag: [float((a.double() - b.double()).abs().max())
                       for a, b in zip(this[tag], first[tag])] for tag in this}
         print(json.dumps(runs[-1]), flush=True)
