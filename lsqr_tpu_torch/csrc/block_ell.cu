@@ -4,21 +4,26 @@
 // Layout (the JAX package's). blocks (mb, kb, bh, bw) f32, row-major, kb
 // blocks per block row (zero blocks pad the short rows); bcols (mb, kb)
 // int32 block columns. Block (r, j) covers rows [r*bh, (r+1)*bh) and columns
-// [bcols[r,j]*bw, +bw); x is padded to nb*bw, y and u to mb*bh.
+// [bcols[r,j]*bw, +bw); x is padded to nb*bw, y and u to mb*bh. The adjoint
+// takes the transpose packing (tblocks, tbrows) through the same kernels.
 //
 // Kernels and the TPU kernels they replace (lsqr_tpu/ops/pallas_spmv.py):
 //
-// 1. block_ell_matvec_kernel   <- block_ell_matvec / _block_ell_kernel
-//    y_r = sum_j blocks[r,j] @ x[bcols[r,j]]; one CTA per block row, the x
-//    segments read from global memory (L1/L2).
-// 2. block_ell_win_kernel      <- block_ell_matvec_windowed /
-//                                 _block_ell_win_kernel
-//    The same function in the TPU kernel's design: persistent CTAs walk
-//    tiles of tr block rows, and each tile's tr*kb x segments are staged in
-//    shared memory with cp.async, double-buffered, so the next tile's
-//    copies fly while this one computes.
-// 3. block_ell_pair_kernel     <- block_ell_pair_windowed /
-//                                 _block_ell_pair_kernel
+// 1. block_ell_rows_kernel   <- block_ell_matvec / _block_ell_kernel, and
+//                               block_ell_matvec_windowed /
+//                               _block_ell_win_kernel
+//    y_r = sum_j blocks[r,j] @ x[bcols[r,j]]: each warp streams kRows
+//    rows of a block at once straight into registers (one 16-byte load a
+//    lane and row, all issued before the products), x segments through
+//    __ldg from L1/L2. Both TPU kernels compute this function; the
+//    windowed one staged x windows in VMEM, a TPU answer: here x (at most
+//    a few MB) lives in L2, and both wrappers launch this kernel through
+//    one entry point. Staging the block stream instead, through a ring of
+//    bulk asynchronous copies (cp.async.bulk on an mbarrier), lost at three
+//    of the four packings the solves take and gained under 2% at the
+//    fourth (tools/block_ell_designs.py, PERF.md).
+// 2. block_ell_pair_kernel   <- block_ell_pair_windowed /
+//                               _block_ell_pair_kernel
 //    u_r = sum_j blocks[r,j] @ (x[bcols[r,j]] * c1) - c2 * y_r and the
 //    per-block adjoint partials zp[r,j] = blocks[r,j]' @ u_r, one CTA per
 //    block row. When the row's blocks fit in shared memory (kb*bh*bw*4
@@ -31,12 +36,17 @@
 // MB at m = n = 2^18 with 3 blocks per block row), plus x and y. No tensor
 // cores: a matvec has no operand reuse for wgmma.
 //
-// What the designs do about it: the blocks are row-major, so a warp walks
-// one block row along bw with 16-byte loads (lane l takes columns 4l..4l+3,
-// 128 columns per warp step) and reduces with shuffles; every block byte
-// comes from device memory once (streamed with __ldcs, evict-first, so x
-// stays in L2). Sums are in f32, in a fixed order (no atomics):
-// deterministic. c1 and c2 are device scalars read through pointers.
+// What kernel 1 does about it: enough work units to fill the card and
+// enough bytes in flight on each SM. A work unit (one CTA) is a slice of a
+// block row's blocks: where mb block rows alone give too few CTAs (a tall
+// matrix's transpose: 12 block rows of 164 blocks) the wrapper splits each
+// row's kb blocks into S slices (ops/spmv_sparse.py: block_ell_plan; slice
+// s covers [s*kb/S, (s+1)*kb/S)), each unit writes its partial y slice to
+// scratch, and a second small pass adds a row's S partials in slice order.
+// Where S = 1 a unit writes y itself. Sums are in f32, in a fixed order,
+// with no atomics: the same bits in every run. Kernel 2 streams its blocks
+// with __ldcs (evict-first, so x stays in L2). c1 and c2 are device scalars
+// read through pointers.
 
 #include <cstdint>
 
@@ -45,6 +55,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Rows a warp streams at once: 4 was the fastest of 2, 4 and 8 at every
+// packing the solves take (tools/block_ell_designs.py)
+constexpr int kRows = 4;
 constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -113,97 +126,89 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// 1. block_ell_matvec: one CTA per block row, x from global memory
+// Work units: slice s of block row r, blocks [j0, j1)
 // ---------------------------------------------------------------------------
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads) block_ell_matvec_kernel(
+struct Unit {
+  long long r;
+  int s, j0, j1;
+};
+
+__device__ __forceinline__ Unit unit_of(int kb, int S) {
+  Unit u;
+  u.r = blockIdx.x / S;
+  u.s = static_cast<int>(blockIdx.x % S);
+  u.j0 = static_cast<int>(static_cast<long long>(u.s) * kb / S);
+  u.j1 = static_cast<int>(static_cast<long long>(u.s + 1) * kb / S);
+  return u;
+}
+
+// out[r*bh + i] = sum_s partial[(r*S + s)*bh + i], s = 0, 1, ..., S-1 in
+// that order: the row's slices added in a fixed order
+__global__ void __launch_bounds__(kThreads) sum_slices_kernel(
+    const float* __restrict__ partial, float* __restrict__ out, long long len, int bh,
+    int S) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= len) return;
+  const long long r = e / bh;
+  const float* p = partial + r * S * bh + (e - r * bh);
+  float acc = 0.0f;
+  for (int s = 0; s < S; ++s) acc += p[static_cast<long long>(s) * bh];
+  out[e] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// 1. the products: kRows rows a warp, straight into registers
+// ---------------------------------------------------------------------------
+
+// The unit's y slice, to out + (r*S + s)*bh (y itself where S = 1).
+template <int VEC, int R>
+__global__ void __launch_bounds__(kThreads) block_ell_rows_kernel(
     const float* __restrict__ blocks, const int* __restrict__ bcols,
-    const float* __restrict__ x, float* __restrict__ out, int kb, int bh, int bw) {
-  const long long r = blockIdx.x;
+    const float* __restrict__ x, float* __restrict__ out, int kb, int bh, int bw, int S) {
+  const Unit u = unit_of(kb, S);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nvec = bw / VEC;
-  for (int i = warp; i < bh; i += kWarps) {
-    float acc = 0.0f;
-    for (int j = 0; j < kb; ++j) {
-      const long long c = __ldg(bcols + r * kb + j);
-      const float* brow = blocks + ((r * kb + j) * bh + i) * bw;
-      const float* xs = x + c * bw;
+  float* dst = out + (u.r * S + u.s) * bh;
+  for (int i0 = warp * R; i0 < bh; i0 += kWarps * R) {
+    float acc[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) acc[t] = 0.0f;
+    for (int j = u.j0; j < u.j1; ++j) {
+      const long long rj = u.r * kb + j;
+      const float* b0 = blocks + (rj * bh + i0) * bw;
+      const float* xs = x + static_cast<long long>(__ldg(bcols + rj)) * bw;
       for (int q = lane; q < nvec; q += 32) {
         if constexpr (VEC == 4) {
-          const float4 av = __ldcs(reinterpret_cast<const float4*>(brow) + q);
-          const float4 bv = __ldg(reinterpret_cast<const float4*>(xs) + q);
-          acc += av.x * bv.x + av.y * bv.y + av.z * bv.z + av.w * bv.w;
+          const float4 xv = __ldg(reinterpret_cast<const float4*>(xs) + q);
+          float4 av[R];
+#pragma unroll
+          for (int t = 0; t < R; ++t)
+            av[t] = i0 + t < bh ? __ldcs(reinterpret_cast<const float4*>(b0 + t * bw) + q)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int t = 0; t < R; ++t)
+            acc[t] += av[t].x * xv.x + av[t].y * xv.y + av[t].z * xv.z + av[t].w * xv.w;
         } else {
-          acc += __ldcs(brow + q) * __ldg(xs + q);
+          const float xv = __ldg(xs + q);
+          float av[R];
+#pragma unroll
+          for (int t = 0; t < R; ++t) av[t] = i0 + t < bh ? __ldcs(b0 + t * bw + q) : 0.0f;
+#pragma unroll
+          for (int t = 0; t < R; ++t) acc[t] += av[t] * xv;
         }
       }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) out[r * bh + i] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2. block_ell_matvec_windowed: tiles of tr block rows, x segments staged
-//    in shared memory with cp.async, double-buffered across tiles
-// ---------------------------------------------------------------------------
-
-template <int VEC>
-__device__ __forceinline__ void stage_tile(float* buf, const int* __restrict__ bcols,
-                                           const float* __restrict__ x, long long r0,
-                                           int tr, int kb, int bw) {
-  const int nvec = bw / VEC;
-  const int count = tr * kb * nvec;
-  for (int e = threadIdx.x; e < count; e += kThreads) {
-    const int rj = e / nvec, q = e - rj * nvec;  // rj = r_local * kb + j
-    const long long c = __ldg(bcols + r0 * kb + rj);
-    cp_async<VEC>(buf + rj * bw + q * VEC, x + c * bw + q * VEC);
-  }
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads) block_ell_win_kernel(
-    const float* __restrict__ blocks, const int* __restrict__ bcols,
-    const float* __restrict__ x, float* __restrict__ out, int kb, int bh, int bw,
-    int tr, int nt) {
-  extern __shared__ float4 smem4[];
-  float* bufs[2] = {reinterpret_cast<float*>(smem4),
-                    reinterpret_cast<float*>(smem4) + tr * kb * bw};
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nvec = bw / VEC;
-  int t = blockIdx.x;
-  if (t >= nt) return;
-  stage_tile<VEC>(bufs[0], bcols, x, static_cast<long long>(t) * tr, tr, kb, bw);
-  cp_async_commit();
-  for (int s = 0; t < nt; t += gridDim.x, s ^= 1) {
-    const int next = t + gridDim.x;
-    if (next < nt)
-      stage_tile<VEC>(bufs[s ^ 1], bcols, x, static_cast<long long>(next) * tr, tr, kb, bw);
-    cp_async_commit();  // an empty group on the last tile keeps the count
-    cp_async_wait<1>(); // every group but the newest: this tile's segments
-    __syncthreads();
-    const float* buf = bufs[s];
-    const long long r0 = static_cast<long long>(t) * tr;
-    for (int q0 = warp; q0 < tr * bh; q0 += kWarps) {
-      const int rl = q0 / bh, i = q0 - rl * bh;
-      const long long r = r0 + rl;
-      float acc = 0.0f;
-      for (int j = 0; j < kb; ++j) {
-        const float* brow = blocks + ((r * kb + j) * bh + i) * bw;
-        const float* xs = buf + (rl * kb + j) * bw;
-        for (int q = lane; q < nvec; q += 32) acc += dot_stream<VEC>(brow, xs, q, 1.0f);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) out[r * bh + i] = acc;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const float v = warp_sum(acc[t]);
+      if (lane == 0 && i0 + t < bh) dst[i0 + t] = v;
     }
-    __syncthreads();  // the buffer is refilled two tiles on
   }
-  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
-// 3. block_ell_pair_windowed: u and the per-block adjoint partials
+// 2. block_ell_pair_windowed: u and the per-block adjoint partials
 // ---------------------------------------------------------------------------
 
 template <int VEC, bool KEEP>
@@ -279,43 +284,41 @@ int max_smem_attr(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// The plan's units (one CTA each) write y, or with S > 1 their partial y
+// slices to ``partial``, which the sum pass then adds into y in slice order.
+// A packing without blocks gives y = 0.
+int rows_product(const void* blocks, const void* bcols, const void* x, void* out,
+                 void* partial, int mb, int kb, int bh, int bw, int S, cudaStream_t stream) {
+  if (kb == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, static_cast<size_t>(mb) * bh * sizeof(float), stream));
+  const bool vec = bw % 4 == 0 && aligned16(blocks) && aligned16(x);
+  auto kernel = vec ? block_ell_rows_kernel<4, kRows> : block_ell_rows_kernel<1, kRows>;
+  kernel<<<static_cast<unsigned>(static_cast<long long>(mb) * S), kThreads, 0, stream>>>(
+      static_cast<const float*>(blocks), static_cast<const int*>(bcols),
+      static_cast<const float*>(x), static_cast<float*>(S > 1 ? partial : out), kb, bh, bw,
+      S);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err || S == 1) return err;
+  const long long len = static_cast<long long>(mb) * bh;
+  sum_slices_kernel<<<static_cast<unsigned>((len + kThreads - 1) / kThreads), kThreads, 0,
+                      stream>>>(static_cast<const float*>(partial), static_cast<float*>(out),
+                                len, bh, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
+// Both products (ops/spmv_sparse.py: block_ell_matvec and
+// block_ell_matvec_windowed). partial: mb*S*bh floats of scratch where
+// S > 1 (else unused)
 int lsqr_block_ell_matvec_f32(const void* blocks, const void* bcols, const void* x,
-                              void* out, int mb, int kb, int bh, int bw, int nb,
-                              void* stream) {
-  (void)nb;
-  const bool vec = bw % 4 == 0 && aligned16(blocks) && aligned16(x);
-  auto kernel = vec ? block_ell_matvec_kernel<4> : block_ell_matvec_kernel<1>;
-  kernel<<<mb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(blocks), static_cast<const int*>(bcols),
-      static_cast<const float*>(x), static_cast<float*>(out), kb, bh, bw);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int lsqr_block_ell_matvec_windowed_f32(const void* blocks, const void* bcols,
-                                       const void* x, void* out, int mb, int kb,
-                                       int bh, int bw, int nb, int tr, void* stream) {
-  (void)nb;
-  const bool vec = bw % 4 == 0 && aligned16(blocks) && aligned16(x);
-  auto kernel = vec ? block_ell_win_kernel<4> : block_ell_win_kernel<1>;
-  const size_t smem = 2ull * tr * kb * bw * sizeof(float);
-  int err = max_smem_attr(reinterpret_cast<const void*>(kernel), smem);
-  if (err) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev))) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)))
-    return err;
-  const int nt = mb / tr;
-  long long grid = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-  if (grid > nt) grid = nt;
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(blocks), static_cast<const int*>(bcols),
-      static_cast<const float*>(x), static_cast<float*>(out), kb, bh, bw, tr, nt);
-  return static_cast<int>(cudaGetLastError());
+                              void* out, void* partial, int mb, int kb, int bh, int bw,
+                              int S, void* stream) {
+  return rows_product(blocks, bcols, x, out, partial, mb, kb, bh, bw, S,
+                      static_cast<cudaStream_t>(stream));
 }
 
 int lsqr_block_ell_pair_f32(const void* blocks, const void* bcols, const void* x,

@@ -21,8 +21,11 @@
 // u and v are carried unnormalized, scaled through the state coefficients.
 //
 // What bounds them on the H100: bytes per iteration, the stripes (data and
-// tdata once each) and ~8 vector passes, plus one grid-wide barrier per
-// phase. The JAX design keeps the vectors resident in VMEM; a CUDA block
+// tdata once each) and the vector passes (f32, m = n long) that the
+// barriers leave: the adjoint's 3 (u, v read; v written), and the update's
+// with the next forward's, which share one read of v (LSQR 7: u, v, x, w
+// read, u, x, w written; LSMR 9; CRAIG 5): 10, 12 and 8 an iteration; plus
+// one grid-wide barrier per phase. The JAX design keeps the vectors resident in VMEM; a CUDA block
 // has no such room, so this design is:
 // * a persistent cooperative grid (cudaLaunchCooperativeKernel) sized at
 //   the co-resident limit, each phase a grid-stride loop (one thread per

@@ -75,10 +75,8 @@ _SIGNATURES = {
     # data, eoff, base, x, out, ns, m_pad, nt_p, m, n, tm, p_lo, stream
     "lsqr_jdia_matvec_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _P),
     # csrc/block_ell.cu
-    # blocks, bcols, x, out, mb, kb, bh, bw, nb, stream
-    "lsqr_block_ell_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # blocks, bcols, x, out, mb, kb, bh, bw, nb, tr, stream
-    "lsqr_block_ell_matvec_windowed_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # blocks, bcols, x, out, partial, mb, kb, bh, bw, slices, stream
+    "lsqr_block_ell_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # blocks, bcols, x, y, c1, c2, u, zp, mb, kb, bh, bw, nb, keep, stream
     "lsqr_block_ell_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P),

@@ -160,6 +160,12 @@ def _slices(dp, vec, offsets, m, n, adjoint):
         yield dp[s:s + dim_out].to(acc), vecp[sv:sv + dim_out]
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    """The SM count of CUDA card ``index`` (the kernels' plans follow it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _scalar(c, dtype, device):
     if isinstance(c, torch.Tensor):
         return c.to(device=device, dtype=dtype)

@@ -9,7 +9,7 @@ wrapper                     computes                                     source
 ==========================  ===========================================  ==================
 jdia_matvec                 y[i] = sum_s data[s,i] x[i + d(s,tile) + e]  csrc/jdia.cu
 block_ell_matvec            y_r = sum_j blocks[r,j] @ x[bcols[r,j]]      csrc/block_ell.cu
-block_ell_matvec_windowed   the same, x segments staged per tile         csrc/block_ell.cu
+block_ell_matvec_windowed   the same (the same kernel)                   csrc/block_ell.cu
 block_ell_pair_windowed     u = A(x c1) - c2 y, zp[r,j] = blocks[r,j]' u  csrc/block_ell.cu
 ==========================  ===========================================  ==================
 
@@ -19,11 +19,16 @@ with no fallback. The kernels take f32 only (f64 operators call the twins
 themselves on every device, as the JAX operators take their XLA forms).
 The wrappers count their launches with :mod:`.spmv`'s counters
 (:func:`~lsqr_tpu_torch.ops.spmv.launch_counts`).
+
+The two BlockELL products share a work plan (:func:`block_ell_plan`): one
+CTA per block row, or, where the block rows alone leave the card short of
+CTAs (a tall matrix's transpose packing), one per slice of a block row's
+blocks, the slices' partial rows added in slice order by a second pass.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,13 +45,19 @@ __all__ = [
     "block_ell_pair_plain",
     "windowed_rows_per_tile",
     "pair_keeps_blocks",
+    "block_ell_plan",
+    "BlockELLPlan",
 ]
 
 #: |e| budget of the jitter offsets (the JAX package's JDIA_JITTER)
 JITTER = 32
-#: shared memory the windowed kernel's two x-segment buffers may take (its
-#: tile size follows from it; the launcher sizes the CTA's shared memory)
+#: the window of the windowed Pallas kernel's two x-segment buffers: the
+#: packings whose block rows fit it take block_ell_matvec_windowed, the others
+#: block_ell_matvec (the JAX operator's routing, kept)
 WIN_SMEM_BYTES = 96 * 1024
+#: the BlockELL products' work units (CTAs) per SM below which a block row's
+#: blocks are split into slices (:func:`block_ell_plan`)
+UNITS_PER_SM = 4
 #: the dynamic shared memory a CTA may have on the H100; the pair kernel keeps
 #: a block row's blocks there when they fit beside its x segments and u
 PAIR_SMEM_BYTES = 232_448
@@ -141,28 +152,65 @@ def _check_blocks(blocks, bcols, x, x_len):
     return mb, kb, bh, bw
 
 
-def block_ell_matvec(blocks, bcols, x):
-    """y = A x for a BlockELL matrix: blocks (mb, kb, bh, bw), bcols
-    (mb, kb) int32 block columns, x (nb*bw,); returns y (mb*bh,). One CTA
-    per block row reads the x segments from global memory (L1/L2). On CUDA:
-    f32 only."""
-    if not blocks.is_cuda:
-        return block_ell_matvec_plain(blocks, bcols, x)
+class BlockELLPlan(NamedTuple):
+    """How the BlockELL products cut a packing into work units (one CTA
+    each): ``slices`` S per block row, slice s covering blocks
+    ``bounds[s]`` = [s*kb // S, (s+1)*kb // S) of every block row (the
+    kernels compute the same bounds), and ``scratch`` floats of partial y
+    (mb*S*bh; 0 where S = 1 and each unit writes y itself)."""
+
+    slices: int
+    bounds: tuple
+    scratch: int
+
+
+def block_ell_plan(mb: int, kb: int, bh: int, sms: int) -> BlockELLPlan:
+    """The work plan of :func:`block_ell_matvec` and
+    :func:`block_ell_matvec_windowed` for mb block rows of kb (bh-row)
+    blocks on a card of ``sms`` SMs: S = 1 where mb already gives
+    UNITS_PER_SM CTAs per SM, else the fewest slices (at most kb) that
+    do, so a tall matrix's transpose (12 block rows of 164 blocks) is read
+    by hundreds of CTAs and not 12. The slices' partial rows are added in
+    slice order (no atomics: the same bits in every run)."""
+    target = UNITS_PER_SM * sms
+    S = 1 if mb >= target or kb <= 1 else min(kb, -(-target // mb))
+    bounds = tuple((s * kb // S, (s + 1) * kb // S) for s in range(S))
+    return BlockELLPlan(S, bounds, mb * S * bh if S > 1 else 0)
+
+
+def _product(wrapper, blocks, bcols, x):
+    """Launch the BlockELL product kernel on its plan for one of its two
+    wrappers (each counts its own launches): y (mb*bh,)."""
     mb, kb, bh, bw = _check_blocks(blocks, bcols, x, x.shape[0])
     out = torch.empty(mb * bh, dtype=torch.float32, device=blocks.device)
     if out.numel() == 0:
         return out
-    spmv._launch(block_ell_matvec, _fn("lsqr_block_ell_matvec_f32"), blocks,
-                 blocks.data_ptr(), bcols.data_ptr(), x.data_ptr(), out.data_ptr(), mb,
-                 kb, bh, bw, x.shape[0] // bw)
+    plan = block_ell_plan(mb, kb, bh, spmv._sm_count(blocks.device.index))
+    partial = (torch.empty(plan.scratch, dtype=torch.float32, device=blocks.device)
+               if plan.scratch else None)
+    spmv._launch(wrapper, _fn("lsqr_block_ell_matvec_f32"), blocks, blocks.data_ptr(), bcols.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), 0 if partial is None else partial.data_ptr(),
+                 mb, kb, bh, bw, plan.slices)
     return out
 
 
+def block_ell_matvec(blocks, bcols, x):
+    """y = A x for a BlockELL matrix: blocks (mb, kb, bh, bw), bcols
+    (mb, kb) int32 block columns, x (nb*bw,); returns y (mb*bh,). Each CTA
+    takes a block row, or a slice of one (:func:`block_ell_plan`), and
+    streams its blocks straight into registers, several rows a warp at
+    once; x segments come from L1/L2. On CUDA: f32 only."""
+    if not blocks.is_cuda:
+        return block_ell_matvec_plain(blocks, bcols, x)
+    return _product(block_ell_matvec, blocks, bcols, x)
+
+
 def windowed_rows_per_tile(mb: int, kb: int, bw: int, tr: Optional[int] = None) -> int:
-    """The windowed kernel's block rows per tile: ``tr`` (by default 8, or
-    1 below 8 block rows, as in JAX) lowered until the two x-segment buffers
-    fit WIN_SMEM_BYTES and ``tr`` divides mb. 0 when one block row's
-    segments do not fit (the operator then takes :func:`block_ell_matvec`)."""
+    """The windowed Pallas kernel's block rows per tile: ``tr`` (by default
+    8, or 1 below 8 block rows, as in JAX) lowered until the two x-segment
+    buffers fit WIN_SMEM_BYTES and ``tr`` divides mb. 0 when one block
+    row's segments do not fit: the operator then takes
+    :func:`block_ell_matvec`, as the JAX operator takes its simple kernel."""
     tr = tr or (8 if mb >= 8 else 1)
     while tr > 0 and 2 * tr * kb * bw * 4 > WIN_SMEM_BYTES:
         tr -= 1
@@ -172,27 +220,23 @@ def windowed_rows_per_tile(mb: int, kb: int, bw: int, tr: Optional[int] = None) 
 
 
 def block_ell_matvec_windowed(blocks, bcols, x, *, tr: Optional[int] = None):
-    """y = A x for a BlockELL matrix, the design of the windowed Pallas
-    kernel: persistent CTAs walk tiles of ``tr`` block rows; each tile's
-    tr*kb x segments are staged in shared memory with cp.async,
-    double-buffered so the next tile's copies fly while this one computes.
-    Same arguments and result as :func:`block_ell_matvec`. On CUDA: f32
-    only; raises ValueError when one block row's segments overflow the
-    shared-memory window."""
+    """y = A x for a BlockELL matrix, the packings whose x segments fit the
+    windowed Pallas kernel's window (:func:`windowed_rows_per_tile` with
+    ``tr``, JAX's tile). The TPU kernel staged x windows in VMEM; on the
+    card x lives in L2, and this entry point runs :func:`block_ell_matvec`'s
+    kernel and plan, counted under its own name (staging the blocks through
+    a shared-memory ring of bulk copies lost at three of the four packings
+    the solves take, by 4-13%, and gained under 2% at the fourth: PERF.md).
+    Same arguments and result as :func:`block_ell_matvec`; ``tr`` only
+    chooses JAX's tile, so it does not move the refusal. On CUDA: f32 only;
+    raises ValueError where one block row's segments overflow the window."""
     if not blocks.is_cuda:
         return block_ell_matvec_plain(blocks, bcols, x)
-    mb, kb, bh, bw = _check_blocks(blocks, bcols, x, x.shape[0])
-    tr = windowed_rows_per_tile(mb, kb, bw, tr)
-    if tr == 0:
+    mb, kb, _, bw = blocks.shape
+    if windowed_rows_per_tile(mb, kb, bw, tr) == 0:
         raise ValueError(f"{kb} x-segments of {bw} floats per block row do not fit "
                          f"the windowed kernel's {WIN_SMEM_BYTES}-byte window")
-    out = torch.empty(mb * bh, dtype=torch.float32, device=blocks.device)
-    if out.numel() == 0:
-        return out
-    spmv._launch(block_ell_matvec_windowed, _fn("lsqr_block_ell_matvec_windowed_f32"),
-                 blocks, blocks.data_ptr(), bcols.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 mb, kb, bh, bw, x.shape[0] // bw, tr)
-    return out
+    return _product(block_ell_matvec_windowed, blocks, bcols, x)
 
 
 def block_ell_pair_windowed(blocks, bcols, x, y, c1, c2):

@@ -214,11 +214,6 @@ def _lists_args(packed, wide):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def wwcoo_adjoint_plan(index, d_pad, eb, nc):
     """The WWCOO adjoint's plan on card ``index`` for nc chunks of eb
     subtiles and d_pad positions: (groups of 8 warps a block, positions a
@@ -245,7 +240,7 @@ def _scratch(packed, dev, wide):
         partials = torch.empty((packed.nc * plan[3], packed.js * 128), dtype=torch.float32,
                                device=dev)
         return (partials.data_ptr(), *plan), partials
-    blocks = min(packed.nc * packed.eb, ADJOINT_BLOCKS_PER_SM * _sm_count(dev.index))
+    blocks = min(packed.nc * packed.eb, ADJOINT_BLOCKS_PER_SM * spmv._sm_count(dev.index))
     partials = torch.empty((blocks, packed.n), dtype=torch.float32, device=dev)
     return (partials.data_ptr(), blocks), partials
 

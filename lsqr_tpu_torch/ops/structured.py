@@ -535,10 +535,11 @@ class BlockELLOperator(LinearOperator):
     (nb, kt): the transpose packing, padded to the most blocks in one block
     column (kt), so a scattered pattern stores more there than in blocks.
 
-    Products: on CUDA an f32 operator runs, for each packing, the windowed
-    kernel (``block_ell_matvec_windowed``, x segments staged in shared
-    memory) where one block row's segments fit its window, else
-    ``block_ell_matvec`` (x segments from L1/L2): with 128-wide blocks, a
+    Products: on CUDA an f32 operator runs, for each packing,
+    ``block_ell_matvec_windowed`` where one block row's x segments fit the
+    Pallas kernel's window, else ``block_ell_matvec``, as JAX routes its two
+    kernels (on the card both run one kernel, which splits long block rows
+    across CTAs: ``spmv_sparse.block_ell_plan``). With 128-wide blocks, a
     packing of more than 96 blocks per block row (such as the transpose of
     a tall pattern, kt > 96) takes the latter.
     ``fused_pair`` runs ``block_ell_pair_windowed``. On the CPU and for f64

@@ -1,7 +1,9 @@
 """The port's BlockELL path against the JAX package: the block packing byte
 for byte (native and numpy), the three kernel twins against the Pallas
 kernels in interpret mode (block_ell_matvec, block_ell_matvec_windowed with
-tr in {1, 8}, block_ell_pair_windowed), the operator's products and pair,
+tr in {1, 8}, block_ell_pair_windowed), the products' work plan (long
+block rows split into slices whose partial rows are added in order, held
+against JAX's kernel), the operator's products and pair,
 ``operator_from_arrays("block_ell")`` and solves with the pair off and on.
 
 Inputs come from numpy seeds and go through both packages. JAX runs on the
@@ -193,6 +195,60 @@ def test_windowed_tile_rule():
     assert spmv_sparse.windowed_rows_per_tile(64, 200, 128) == 0
     assert spmv_sparse.pair_keeps_blocks(3, 128, 128)
     assert not spmv_sparse.pair_keeps_blocks(4, 128, 128)
+
+
+@pytest.mark.parametrize("mb,kb,bh,sms,slices", [
+    (12, 164, 128, 132, 44),     # the tall transpose: 528 units for 132 SMs
+    (600, 3, 128, 132, 1),       # the tall forward packing fills the card
+    (2048, 10, 128, 132, 1),     # the 2^18 transpose
+    (3, 40, 128, 132, 40),       # at most one slice a block
+    (1, 7, 24, 4, 7),
+    (5, 9, 16, 2, 2),            # uneven slices
+    (7, 1, 32, 132, 1),          # one block a row: nothing to split
+])
+def test_block_ell_plan(mb, kb, bh, sms, slices):
+    """The products' work plan: S slices of a block row's blocks, in order,
+    without gaps or empty slices, S = 1 where mb already gives
+    UNITS_PER_SM CTAs an SM, and mb*S*bh floats of scratch where S > 1."""
+    plan = spmv_sparse.block_ell_plan(mb, kb, bh, sms)
+    assert plan.slices == slices == len(plan.bounds)
+    assert plan.bounds[0][0] == 0 and plan.bounds[-1][1] == kb
+    assert all(a[1] == b[0] for a, b in zip(plan.bounds, plan.bounds[1:]))
+    assert all(j1 - j0 >= kb // slices >= 1 for j0, j1 in plan.bounds)
+    assert (slices == 1) == (mb >= spmv_sparse.UNITS_PER_SM * sms or kb <= 1)
+    if slices > 1:
+        assert mb * slices >= spmv_sparse.UNITS_PER_SM * sms or slices == kb
+    assert plan.scratch == (mb * slices * bh if slices > 1 else 0)
+
+
+@pytest.mark.parametrize("sms", [132, 4])
+def test_block_ell_slices_summed_in_order_match_jax(rng, sms):
+    """A tall pattern's transpose packing (3 block rows of many blocks), as
+    the kernels take it on a card of ``sms`` SMs: each slice's partial rows
+    (the twin on the slice's blocks) laid out as the scratch, (block row,
+    slice, row), and added in slice order as the sum pass adds them,
+    against JAX's block_ell_matvec in interpret mode. The layout and the
+    order are built here, in Python: this holds block_ell_plan's bounds and
+    the twin's arithmetic, not the kernel's scratch indexing or
+    sum_slices_kernel, which only the card tests reach
+    (test_cuda_block_ell_kernels_match_twins at split shapes)."""
+    m, n, block = 1600, 48, 16
+    _, A = _jax_operator(m, n, block, 1, seed=5)
+    tb, tc = _t(np.asarray(A.tblocks)), _t(np.asarray(A.tbrows))
+    nb, kt = tc.shape
+    assert nb == 3 and kt >= 30
+    y = rng.standard_normal(A.bcols.shape[0] * block).astype(np.float32)
+    plan = spmv_sparse.block_ell_plan(nb, kt, block, sms)
+    assert plan.slices > 1
+    parts = torch.stack([spmv_sparse.block_ell_matvec_plain(tb[:, j0:j1], tc[:, j0:j1], _t(y))
+                         .reshape(nb, block) for j0, j1 in plan.bounds], dim=1)
+    scratch = parts.reshape(-1)
+    assert scratch.numel() == plan.scratch
+    got = scratch.reshape(nb, plan.slices, block)[:, 0].clone()
+    for s in range(1, plan.slices):
+        got += scratch.reshape(nb, plan.slices, block)[:, s]
+    ref = np.asarray(j_matvec(A.tblocks, A.tbrows, jnp.asarray(y), interpret=True))
+    np.testing.assert_allclose(to_np(got.reshape(-1)), ref, **TOL)
 
 
 def test_block_ell_routes_each_packing_by_its_window(rng, monkeypatch):

@@ -599,24 +599,36 @@ def _random_blocks(rng, mb, kb, bh, bw, nb, device):
     (64, 5, 128, 128, 40),     # it reads them again from L2
     (37, 3, 24, 30, 11),       # bw not a multiple of 4: scalar loads
     (12, 2, 32, 32, 9),        # tr = 6 divides mb
+    (12, 164, 128, 128, 12),   # a tall transpose: long rows split, past the window
+    (3, 40, 128, 128, 50),     # few long rows, split, inside the window
+    (1, 7, 24, 30, 9),         # one row split, scalar loads
 ])
 def test_cuda_block_ell_kernels_match_twins(rng, cuda_device, mb, kb, bh, bw, nb):
+    """Both products and the pair against their twins; each product called
+    twice gives the same bits (its slices are added in a fixed order)."""
     blocks, bcols, x, y = _random_blocks(rng, mb, kb, bh, bw, nb, cuda_device)
     ref = spmv_sparse.block_ell_matvec_plain(blocks, bcols, x)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = spmv_sparse.block_ell_plan(mb, kb, bh, sms)
+    assert (plan.slices > 1) == (kb > 1 and mb < spmv_sparse.UNITS_PER_SM * sms)
+    windowed = spmv_sparse.windowed_rows_per_tile(mb, kb, bw) > 0
     spmv.reset_launch_counts()
     got = spmv_sparse.block_ell_matvec(blocks, bcols, x)
+    again = spmv_sparse.block_ell_matvec(blocks, bcols, x)
     torch.cuda.synchronize()
-    assert rel_err(got, ref) < TOL
-    for tr in (None, 1, 8):
+    assert rel_err(got, ref) < TOL and torch.equal(got, again)
+    for tr in (None, 1, 8) if windowed else ():
         got = spmv_sparse.block_ell_matvec_windowed(blocks, bcols, x, tr=tr)
+        again = spmv_sparse.block_ell_matvec_windowed(blocks, bcols, x, tr=tr)
         torch.cuda.synchronize()
-        assert rel_err(got, ref) < TOL
+        assert rel_err(got, ref) < TOL and torch.equal(got, again)
     c1 = torch.tensor(0.7, device=cuda_device)
     u, zp = spmv_sparse.block_ell_pair_windowed(blocks, bcols, x, y, c1, -1.3)
     u_ref, zp_ref = spmv_sparse.block_ell_pair_plain(blocks, bcols, x, y, c1, -1.3)
     torch.cuda.synchronize()
     assert rel_err(u, u_ref) < TOL and rel_err(zp, zp_ref) < TOL
-    assert spmv.launch_counts() == _only(block_ell_matvec=1, block_ell_matvec_windowed=3,
+    assert spmv.launch_counts() == _only(block_ell_matvec=2,
+                                         block_ell_matvec_windowed=6 if windowed else 0,
                                          block_ell_pair_windowed=1)
 
 
@@ -926,8 +938,10 @@ def test_cuda_wcoo_adjoint_and_pair_are_bit_stable(rng, cuda_device, kind, m, n,
 
 
 #: the products whose sums by destination ran through index_add_ (float
-#: atomics on the card) and now run in a fixed order
-FIXED_ORDER = ["coo", "coo complex", "jdia remainder", "block pair"]
+#: atomics on the card) and now run in a fixed order; and BlockELL's two
+#: products on a tall pattern, whose transpose rows are split across CTAs
+#: and their slices added in a fixed order
+FIXED_ORDER = ["coo", "coo complex", "jdia remainder", "block pair", "block tall"]
 
 
 def _fixed_order_case(rng, kind, device):
@@ -946,11 +960,16 @@ def _fixed_order_case(rng, kind, device):
                                                       diag=12.0), device=device)
         assert A.rem_vals.shape[0] > 1000
         kw = {}
-    else:
+    elif kind == "block pair":
         m, n = 5000, 4100
         A = lt.block_ell_operator(m, n, *random_block_coo(m, n, seed=23, diag=2.0),
                                   device=device)
         kw = dict(pair=True)
+    else:  # 120 block rows over 3 block columns: the transpose has kt = 120
+        m, n = 15_355, 364
+        A = lt.block_ell_operator(m, n, *random_block_coo(m, n, seed=24, diag=2.0),
+                                  device=device)
+        kw = {}
     b = rng.standard_normal(m).astype(np.complex64 if A.dtype.is_complex else np.float32)
     return A, torch.from_numpy(b).to(device), kw
 
