@@ -27,8 +27,11 @@ raises on failure:
 4. ``auto_operator`` on the COO triplets of a 2^20 banded f32 matrix and a
    short solve, against the same solve on the host; solves at 2^20 on 81
    diagonals (f32 and bf16 stripes), whose shared pair takes the unstaged
-   kernel (no staged tile fits), checked in f64, after that pair at those
-   stripes against its twin and the unstaged kernel called directly;
+   route, the ring kernel (no staged tile fits), checked in f64 and against
+   the same solves with the pair as two launches (the same istop and itn),
+   after that pair at those stripes against its twin and the ring kernel
+   called directly (the same bits over two calls), timed beside its bound
+   and, f32, the two CSR calls (the kernel's row in the last lines);
 5. f64 conformance at 2^16 against ``scipy.sparse.linalg.lsqr``, on the
    shared layout and through ``auto_operator`` (the packed layout), and the
    README 3x3 system through ``LSQRSolver(device="cuda")``;
@@ -63,9 +66,10 @@ raises on failure:
    100,003 x 70,001 and at a tall 76,763 x 1,485 whose transpose packing
    (kt > 96 blocks per block column) overflows the windowed kernel's
    window (the products split its 12 long block rows across CTAs); each
-   product called twice must give the same bits; kernel, twin and
-   ``torch.sparse_csr_tensor`` times (A @ x, or the CSR of A' for a
-   transpose packing), the bytes each must move, at every packing the
+   product and the pair called twice must give the same bits; kernel, twin
+   and ``torch.sparse_csr_tensor`` times (A @ x, or the CSR of A' for a
+   transpose packing; beside the pair, CSR A @ x plus the CSR of A' @ u),
+   the bytes each must move, at every packing the
    solves take: the products' own rows at the 2^18 forward packing, and
    ``block_ell_matvec_windowed[kt10]`` (the 2^18 transpose),
    ``block_ell_matvec_windowed[tall]`` and ``block_ell_matvec[tall_t]``
@@ -603,7 +607,8 @@ def phase_kernels(dev, shapes, errs, paths):
             calls = kernel_calls(dev, data, v, y, m, n, ks, storage)
             hold(calls, errs, m, n, ks, TOL)
             tile = spmv.pair_tile(data.device, storage, len(ks), *spmv._halos(ks))
-            route = spmv.pair_shared_route(max(abs(k) for k in ks), tile)
+            ring = spmv._ring_fits(data.device, storage, len(ks), *spmv._halos(ks))
+            route = spmv.pair_shared_route(max(abs(k) for k in ks), tile, ring)
             log(f"  dia_pair m={m} n={n} nd={len(ks)} {str(storage)[6:]} stripes: "
                 + (f"staged tiles of {tile}" if tile else "the two-launch route")
                 + f"; dia_pair_shared: {route}")
@@ -831,10 +836,13 @@ def phase_auto_operator(dev, m, paths):
 
 def phase_unstaged_solves(dev, errs, card, paths):
     """Phase 4: solves on the shared layout whose pair takes the unstaged
-    kernel (MANY: no staged tile's two stages fit one SM), f32 and bf16
-    stripes, to atol = btol = 1e-6, checked in f64. First the pair at these
-    stripes: the wrapper (one launch, on the unstaged route) and the
-    unstaged kernel called directly against the twin, and the same bits."""
+    route, the ring kernel (MANY: no staged tile's two stages fit one SM),
+    f32 and bf16 stripes, to atol = btol = 1e-6, checked in f64 and against
+    the same solve with the pair as two launches (istop and itn equal).
+    First the pair at these stripes: the wrapper (one launch, on the
+    unstaged route) and the ring kernel called directly against the twin,
+    the same bits over two calls, and its time beside its bound (f32: and
+    the two CSR calls). Returns (solves, {variant: perf entry})."""
     import torch
 
     import lsqr_tpu_torch as lt
@@ -846,12 +854,13 @@ def phase_unstaged_solves(dev, errs, card, paths):
     c1 = torch.tensor(0.8, device=dev)
     c2 = torch.tensor(1.1, device=dev)
     seg = lt.LSQROptions().loop_segment
-    out = {}
+    out, perf = {}, {}
     for storage in (torch.float32, torch.bfloat16):
         A = lt.dia_shared_operator(m, m, ks, data, storage_dtype=storage)
         tag = str(storage)[6:]
         tile = spmv.pair_tile(dev, storage, len(ks), *spmv._halos(ks))
-        check(spmv.pair_shared_route(A.H, tile) == "unstaged",
+        ring = spmv._ring_fits(dev, storage, len(ks), *spmv._halos(ks))
+        check(spmv.pair_shared_route(A.H, tile, ring) == "unstaged",
               f"{len(ks)} diagonals, {tag}: expected the unstaged route (tile {tile})")
         sfx = "" if storage == torch.float32 else "[bf16]"
         kw = dict(offsets=ks, m=m, n=m)
@@ -866,24 +875,56 @@ def phase_unstaged_solves(dev, errs, card, paths):
               f"{len(ks)} diagonals {tag}: the wrapper must launch the unstaged kernel "
               f"once: {delta}")
         pair_routes_agree(calls, storage, f"m={m} n={m} nd={len(ks)}")
+        unstaged = f"dia_pair_shared[{spmv.UNSTAGED[storage]}]"
+        kernel, plain = calls[unstaged][0]
+        lib = None
+        if storage == torch.float32:  # CSR A @ x, then the CSR of A' @ u
+            r_, c_, v_ = stripe_triplets(data, ks, m, m)
+            csr, csr_t = csr_of(r_, c_, v_, m, m), csr_of(c_, r_, v_, m, m)
+            u, z = kernel()
+            parts = (library_ms(csr, v * c1, u + c2 * b), library_ms(csr_t, u, z))
+            lib = sum(parts)
+            log(f"  library: two calls, CSR A @ x {parts[0]:.4f} ms plus the CSR of A' @ u "
+                f"{parts[1]:.4f} ms")
+            del r_, c_, v_, csr, csr_t, u, z
+        perf[unstaged] = dia_perf(unstaged, time_ms(kernel), time_ms(plain, reps=3), m, m,
+                                  len(ks), storage.itemsize, lib)
+        report(f"{unstaged} m={m} nd={len(ks)}", perf[unstaged], card)
         del calls
         res, delta, secs = timed_solve(A, b, f"{len(ks)} diagonals {tag} (b)", card,
                                        atol=1e-6, btol=1e-6)
         paths.append(delta)
         body = iterations_run(int(res.itn), seg)
-        unstaged = f"dia_pair_shared[{spmv.UNSTAGED[storage]}]"
         check(int(res.istop) in (1, 2, 3), f"{len(ks)} diagonals {tag}: bad stop")
         check(delta[unstaged] == body and delta["dia_pair_shared" + sfx] == 0,
               f"{len(ks)} diagonals {tag}: expected {body} unstaged pair launches: {delta}")
         ratio = shared_optimality(A, b, res.x)  # bf16: against the rounded operator
         log(f"  {len(ks)} diagonals {tag}: independent check {ratio:.3e}")
         check(ratio <= 1e-4, f"{len(ks)} diagonals {tag}: optimality check {ratio:.3e}")
+        # the same solve with the pair as two launches (rows 2-3's kernels,
+        # which sum in the order of the ring kernel and of the kernel it
+        # replaced): the same istop and itn
+        kw2 = dict(kw, offsets_t=A.offsets_t)
+
+        def two_launches(*, y, win, c1, c2):
+            u = spmv.dia_product_shared_axpy(A.dp, win, y, c1, c2, adjoint=False, **kw2)
+            return u, spmv.dia_product_shared(A.dp, u, adjoint=True, **kw2)
+
+        object.__setattr__(A, "fused_pair", two_launches)
+        ref = lt.lsqr(A, b, DAMP, atol=1e-6, btol=1e-6)
+        object.__delattr__(A, "fused_pair")
+        same = bool(torch.equal(res.x, ref.x))
+        log(f"  {len(ks)} diagonals {tag}: istop {int(res.istop)} itn {int(res.itn)}; with "
+            f"the pair as two launches istop {int(ref.istop)} itn {int(ref.itn)}, x "
+            f"bit-equal {same} (rel diff {rel(res.x, ref.x):.3e})")
+        check((int(res.istop), int(res.itn)) == (int(ref.istop), int(ref.itn)),
+              f"{len(ks)} diagonals {tag}: istop/itn differ from the two-launch solve")
         out[tag] = dict(istop=int(res.istop), itn=int(res.itn), ms=secs * 1e3,
-                        optimality=ratio)
-        del A
+                        optimality=ratio, x_bit_equal_to_two_launches=same)
+        del A, ref
     del data, b, v
     torch.cuda.empty_cache()
-    return out
+    return out, perf
 
 
 def scipy_istop(istop, damped):
@@ -1523,9 +1564,12 @@ def phase_general_kernels(dev, errs, card):
             for kernel, _ in calls[name]:  # slices added in a fixed order
                 check(torch.equal(kernel(), kernel()),
                       f"{name} m={m} n={n}: two calls give different bits")
-        log(f"  BlockELL m={m} n={n}: both products bit-equal over two calls")
+        pair = calls["block_ell_pair_windowed"][0][0]  # ranks added in a fixed order
+        check(all(torch.equal(a, b) for a, b in zip(pair(), pair())),
+              f"block_ell_pair_windowed m={m} n={n}: two calls give different bits")
+        log(f"  BlockELL m={m} n={n}: both products and the pair bit-equal over two calls")
         if m == M_BELL or (m, n) == BELL_TALL:
-            perf.update(bell_perf(A, trip, calls, x, y, errs, card))
+            perf.update(bell_perf(A, trip, calls, x, y, errs, card, (c1, c2)))
         if (m, n) in ((M_BELL, M_BELL), BELL_TALL):
             bell[m, n] = (A, trip)
         del A, calls, x, y
@@ -1544,14 +1588,16 @@ BELL_PACKINGS = {
 }
 
 
-def bell_perf(A, trip, calls, x, y, errs, card):
+def bell_perf(A, trip, calls, x, y, errs, card, pair_scalars):
     """Perf entries of the BlockELL kernels on A's packings: at 2^18 the two
     products at the forward packing (their own rows), the windowed one at
     the transpose (kt = 10) and the pair; on the tall pattern the windowed
     product at the forward packing and block_ell_matvec at the transpose
     (kt = 164), the packings the solves take. Each with the bytes it must
-    move and the CSR product of the same matrix (A, or A' for a transpose);
-    a packing's row records its own error against the twin in ``errs``."""
+    move and the CSR product of the same matrix (A, or A' for a transpose;
+    the pair: CSR A @ x plus the CSR of A' @ u, ``pair_scalars`` its c1 and
+    c2); a packing's row records its own error against the twin in
+    ``errs``."""
     import torch
 
     dev = x.device
@@ -1584,10 +1630,18 @@ def bell_perf(A, trip, calls, x, y, errs, card):
         pair = calls["block_ell_pair_windowed"][0]
         # reads x and y, writes u (y's length) and zp
         io = (A.bcols.numel() + x.numel() + 2 * y.numel() + mb * kb * A.bw) * 4
+        # the library: CSR A @ x, then the CSR of A' @ u (two calls)
+        c1, c2 = pair_scalars
+        u = pair[0]()[0][:m]
+        parts = (library_ms(sides["forward"][4], x[:n] * c1, u + c2 * y[:m]),
+                 library_ms(sides["transpose"][4], u, A.rmatvec(u)))
         perf["block_ell_pair_windowed"] = perf_entry(
             time_ms(pair[0]), time_ms(pair[1], reps=3), A.blocks.numel() * 4 + io,
-            4 * A.blocks.numel())
+            4 * A.blocks.numel(), library_ms=sum(parts))
         report("block_ell_pair_windowed", perf["block_ell_pair_windowed"], card)
+        log(f"  library: two calls, CSR A @ x {parts[0]:.4f} ms plus the CSR of A' @ u "
+            f"{parts[1]:.4f} ms")
+        del u
     else:
         perf = {"block_ell_matvec_windowed[tall]": entry("block_ell_matvec_windowed[tall]",
                                                          win[0], "forward"),
@@ -2591,7 +2645,8 @@ def main():
     solves["pair_shared_m" + str(M_SMALL)] = pair_small
     phase("phase 4: auto_operator; the shared pair's unstaged route")
     phase_auto_operator(dev, 2 ** 20, paths)
-    solves["unstaged_pair"] = phase_unstaged_solves(dev, errs, card, paths)
+    solves["unstaged_pair"], many = phase_unstaged_solves(dev, errs, card, paths)
+    perf.update(many)  # the ring kernel's rows at the shape its solves take
     phase("phase 5: f64 conformance")
     phase_f64(dev, 2 ** 16, paths)
     phase("phase 6: launches per iteration")

@@ -25,11 +25,18 @@
 // 2. block_ell_pair_kernel   <- block_ell_pair_windowed /
 //                               _block_ell_pair_kernel
 //    u_r = sum_j blocks[r,j] @ (x[bcols[r,j]] * c1) - c2 * y_r and the
-//    per-block adjoint partials zp[r,j] = blocks[r,j]' @ u_r, one CTA per
-//    block row. When the row's blocks fit in shared memory (kb*bh*bw*4
-//    bytes and the x segments and u, within 227 KB) they are copied there
-//    once and serve both products; otherwise the transposed product reads
-//    them a second time, from L2. The caller sums the zp rows by bcols.
+//    per-block adjoint partials zp[r,j] = blocks[r,j]' @ u_r. A cluster of
+//    `ranks` CTAs (at most 8, the portable cluster size) per block row;
+//    rank s holds the row's blocks [s*kb/ranks, (s+1)*kb/ranks) (one each
+//    where kb <= 8). When a rank's blocks fit in shared memory (beside
+//    their x segments, its partial u_r and u_r) it copies them there once,
+//    in row chunks whose products start while the later chunks land, and
+//    serves both products from that copy; otherwise the transposed product
+//    reads them a second time, from L2. Each rank forms its partial u_r
+//    from its own blocks; the ranks' partials are added in rank order
+//    through distributed shared memory, so every rank holds the same u_r
+//    and forms zp for its own blocks. The caller sums the zp rows by bcols
+//    (ops/spmv_sparse.py: block_ell_pair_plan gives ranks and the rule).
 //
 // What bounds them on the H100: bytes. A matvec does 2 flops per stored
 // value (4 bytes): the block stream is the floor (mb*kb*bh*bw*4 bytes, 403
@@ -44,12 +51,18 @@
 // s covers [s*kb/S, (s+1)*kb/S)), each unit writes its partial y slice to
 // scratch, and a second small pass adds a row's S partials in slice order.
 // Where S = 1 a unit writes y itself. Sums are in f32, in a fixed order,
-// with no atomics: the same bits in every run. Kernel 2 streams its blocks
-// with __ldcs (evict-first, so x stays in L2). c1 and c2 are device scalars
-// read through pointers.
+// with no atomics: the same bits in every run. c1 and c2 are device
+// scalars read through pointers.
+//
+// What kernel 2 does about it: one CTA holding a whole block row (198,656
+// bytes at kb = 3 and 128 x 128) would be alone on its SM, its loads and
+// products unable to overlap. A rank holds kb/ranks blocks (67 KB there):
+// three CTAs an SM, one rank's copies in flight while another multiplies,
+// and every block byte crosses from device memory once.
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,6 +72,11 @@ constexpr int kThreads = 256;
 // packing the solves take (tools/block_ell_designs.py)
 constexpr int kRows = 4;
 constexpr int kWarps = kThreads / 32;
+// Row chunks a pair rank's copy is committed in: its forward product
+// starts on the first chunk while the others land
+constexpr int kPairChunks = 4;
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -66,24 +84,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sum_k a[VEC*q + k] * b[VEC*q + k] * scale, a streamed from device memory.
+// sum_k a[VEC*q + k] * b[VEC*q + k] * scale, a from device memory (kept in
+// L2: the pair's transposed product reads it again)
 template <int VEC>
-__device__ __forceinline__ float dot_stream(const float* a, const float* b, int q,
+__device__ __forceinline__ float dot_global(const float* a, const float* b, int q,
                                             float scale);
 
 template <>
-__device__ __forceinline__ float dot_stream<4>(const float* a, const float* b,
+__device__ __forceinline__ float dot_global<4>(const float* a, const float* b,
                                                int q, float scale) {
-  const float4 av = __ldcs(reinterpret_cast<const float4*>(a) + q);
-  const float4 bv = reinterpret_cast<const float4*>(b)[q];
+  const float4 av = __ldg(reinterpret_cast<const float4*>(a) + q);
+  const float4 bv = __ldg(reinterpret_cast<const float4*>(b) + q);
   return av.x * (bv.x * scale) + av.y * (bv.y * scale) + av.z * (bv.z * scale) +
          av.w * (bv.w * scale);
 }
 
 template <>
-__device__ __forceinline__ float dot_stream<1>(const float* a, const float* b,
+__device__ __forceinline__ float dot_global<1>(const float* a, const float* b,
                                                int q, float scale) {
-  return __ldcs(a + q) * (b[q] * scale);
+  return __ldg(a + q) * (__ldg(b + q) * scale);
 }
 
 // The same, a from shared memory (16-byte reads: no bank conflicts).
@@ -123,6 +142,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// cp.async.wait_group with a count known at run time (< kPairChunks)
+__device__ __forceinline__ void cp_async_wait_upto(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<kPairChunks - 1>(); break;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -211,68 +240,99 @@ __global__ void __launch_bounds__(kThreads) block_ell_rows_kernel(
 // 2. block_ell_pair_windowed: u and the per-block adjoint partials
 // ---------------------------------------------------------------------------
 
+// Block row r = blockIdx.x / ranks, rank s = its place in the cluster.
+// Shared memory, the same layout in every rank (G = ceil(kb / ranks)
+// blocks at most): KEEP: G blocks and G x segments; then the rank's
+// partial u_r and u_r (bh floats each).
 template <int VEC, bool KEEP>
 __global__ void __launch_bounds__(kThreads) block_ell_pair_kernel(
     const float* __restrict__ blocks, const int* __restrict__ bcols,
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ c1p, const float* __restrict__ c2p,
-    float* __restrict__ u, float* __restrict__ zp, int kb, int bh, int bw) {
+    float* __restrict__ u, float* __restrict__ zp, int kb, int bh, int bw, int ranks) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const long long r = blockIdx.x;
-  const long long row_len = static_cast<long long>(kb) * bh * bw;
-  const float* brow0 = blocks + r * row_len;
-  float* sblk = smem;                               // KEEP: the row's blocks
-  float* sx = smem + (KEEP ? row_len : 0);          // KEEP: its x segments
-  float* su = sx + (KEEP ? kb * bw : 0);            // u_r
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = static_cast<int>(cluster.block_rank());
+  const long long r = blockIdx.x / ranks;
+  const int j0 = static_cast<int>(static_cast<long long>(s) * kb / ranks);
+  const int nj = static_cast<int>(static_cast<long long>(s + 1) * kb / ranks) - j0;
+  const int G = (kb + ranks - 1) / ranks;
+  const long long blk = static_cast<long long>(bh) * bw;
+  const float* brow0 = blocks + (r * kb + j0) * blk;  // the rank's first block
+  float* sblk = smem;                                 // KEEP: the rank's blocks
+  float* sx = smem + (KEEP ? G * blk : 0);            // KEEP: their x segments
+  float* spart = sx + (KEEP ? G * bw : 0);            // the rank's partial u_r
+  float* su = spart + bh;                             // u_r
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nvec = bw / VEC;
   const float c1 = *c1p, c2 = *c2p;
 
-  if constexpr (KEEP) {
-    for (long long e = threadIdx.x; e < row_len / VEC; e += kThreads)
-      cp_async<VEC>(sblk + e * VEC, brow0 + e * VEC);
-    for (int e = threadIdx.x; e < kb * nvec; e += kThreads) {
-      const int j = e / nvec, q = e - j * nvec;
-      const long long c = __ldg(bcols + r * kb + j);
-      cp_async<VEC>(sx + j * bw + q * VEC, x + c * bw + q * VEC);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-
-  // forward: u_r[i] = sum_j blocks[r,j][i, :] . (x_seg_j * c1) - c2 * y_r[i]
-  for (int i = warp; i < bh; i += kWarps) {
-    float acc = 0.0f;
-    for (int j = 0; j < kb; ++j) {
-      if constexpr (KEEP) {
-        const float* brow = sblk + (static_cast<long long>(j) * bh + i) * bw;
-        for (int q = lane; q < nvec; q += 32)
-          acc += dot_shared<VEC>(brow, sx + j * bw, q, c1);
-      } else {
-        const float* brow = brow0 + (static_cast<long long>(j) * bh + i) * bw;
-        const float* xs = x + static_cast<long long>(__ldg(bcols + r * kb + j)) * bw;
-        for (int q = lane; q < nvec; q += 32) acc += dot_stream<VEC>(brow, xs, q, c1);
+  if constexpr (KEEP) {  // chunk g: rows [g*bh/kPairChunks, (g+1)*bh/kPairChunks) of each block
+    for (int g = 0; g < kPairChunks; ++g) {
+      const int i0 = g * bh / kPairChunks, len = ((g + 1) * bh / kPairChunks - i0) * nvec;
+      for (int e = threadIdx.x; e < nj * len; e += kThreads) {
+        const int jj = e / len, q = e - jj * len;
+        const long long off = jj * blk + static_cast<long long>(i0) * bw + q * VEC;
+        cp_async<VEC>(sblk + off, brow0 + off);
       }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const float ui = acc - c2 * y[r * bh + i];
-      su[i] = ui;
-      u[r * bh + i] = ui;
+      if (g == 0) {
+        for (int e = threadIdx.x; e < nj * nvec; e += kThreads) {
+          const int jj = e / nvec, q = e - jj * nvec;
+          const long long c = __ldg(bcols + r * kb + j0 + jj);
+          cp_async<VEC>(sx + jj * bw + q * VEC, x + c * bw + q * VEC);
+        }
+      }
+      cp_async_commit();
     }
   }
-  __syncthreads();
 
-  // adjoint partials: zp[r, j, c] = sum_i blocks[r,j][i, c] * u_r[i]; a
-  // thread per (j, c), neighbouring threads on neighbouring columns
-  for (int p = threadIdx.x; p < kb * bw; p += kThreads) {
-    const int j = p / bw, c = p - j * bw;
-    const float* col = (KEEP ? sblk : brow0) + static_cast<long long>(j) * bh * bw + c;
+  // the rank's partial: spart[i] = sum over its blocks j of
+  // blocks[r,j][i, :] . (x_seg_j * c1), chunk by chunk as the copies land
+  for (int g = 0; g < kPairChunks; ++g) {
+    const int i0 = g * bh / kPairChunks, i1 = (g + 1) * bh / kPairChunks;
+    if constexpr (KEEP) {
+      cp_async_wait_upto(kPairChunks - 1 - g);
+      __syncthreads();
+    }
+    for (int i = i0 + warp; i < i1; i += kWarps) {
+      float acc = 0.0f;
+      for (int jj = 0; jj < nj; ++jj) {
+        if constexpr (KEEP) {
+          const float* brow = sblk + jj * blk + static_cast<long long>(i) * bw;
+          for (int q = lane; q < nvec; q += 32) acc += dot_shared<VEC>(brow, sx + jj * bw, q, c1);
+        } else {
+          const float* brow = brow0 + jj * blk + static_cast<long long>(i) * bw;
+          const float* xs = x + static_cast<long long>(__ldg(bcols + r * kb + j0 + jj)) * bw;
+          for (int q = lane; q < nvec; q += 32) acc += dot_global<VEC>(brow, xs, q, c1);
+        }
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) spart[i] = acc;
+    }
+  }
+  cluster.sync();  // every rank's partial is in its shared memory
+
+  // u_r[i] = the ranks' partials added in rank order - c2 * y_r[i], in
+  // every rank; rank 0 writes u
+  for (int i = threadIdx.x; i < bh; i += kThreads) {
+    float acc = *cluster.map_shared_rank(spart + i, 0);
+    for (int t = 1; t < ranks; ++t) acc += *cluster.map_shared_rank(spart + i, t);
+    const float ui = acc - c2 * y[r * bh + i];
+    su[i] = ui;
+    if (s == 0) u[r * bh + i] = ui;
+  }
+  cluster.sync();  // no rank reads another's partial after this; su is complete
+
+  // adjoint partials of the rank's blocks: zp[r, j, c] = sum_i
+  // blocks[r,j][i, c] * u_r[i]; a thread per (j, c), neighbouring threads
+  // on neighbouring columns
+  for (int p = threadIdx.x; p < nj * bw; p += kThreads) {
+    const int jj = p / bw, c = p - jj * bw;
+    const float* col = (KEEP ? sblk : brow0) + jj * blk + c;
     float acc = 0.0f;
     for (int i = 0; i < bh; ++i) acc += col[static_cast<long long>(i) * bw] * su[i];
-    zp[(r * kb + j) * bw + c] = acc;
+    zp[(r * kb + j0 + jj) * bw + c] = acc;
   }
 }
 
@@ -321,26 +381,43 @@ int lsqr_block_ell_matvec_f32(const void* blocks, const void* bcols, const void*
                       static_cast<cudaStream_t>(stream));
 }
 
+// The pair: a cluster of `ranks` (1 to 8, at most kb where kb > 0) CTAs
+// per block row (ops/spmv_sparse.py: block_ell_pair_plan); keep: each
+// rank holds its blocks in shared memory.
 int lsqr_block_ell_pair_f32(const void* blocks, const void* bcols, const void* x,
                             const void* y, const void* c1, const void* c2, void* u,
-                            void* zp, int mb, int kb, int bh, int bw, int nb, int keep,
+                            void* zp, int mb, int kb, int bh, int bw, int ranks, int keep,
                             void* stream) {
-  (void)nb;
+  if (ranks < 1 || ranks > 8 || (kb > 0 && ranks > kb))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = bw % 4 == 0 && aligned16(blocks) && aligned16(x);
   void (*kernel)(const float*, const int*, const float*, const float*, const float*,
-                 const float*, float*, float*, int, int, int);
+                 const float*, float*, float*, int, int, int, int);
   if (keep) kernel = vec ? block_ell_pair_kernel<4, true> : block_ell_pair_kernel<1, true>;
   else kernel = vec ? block_ell_pair_kernel<4, false> : block_ell_pair_kernel<1, false>;
+  const size_t G = static_cast<size_t>((kb + ranks - 1) / ranks);
   const size_t smem = sizeof(float) *
-      (keep ? static_cast<size_t>(kb) * bh * bw + static_cast<size_t>(kb) * bw + bh
-            : static_cast<size_t>(bh));
-  const int err = max_smem_attr(reinterpret_cast<const void*>(kernel), smem);
+      ((keep ? G * bh * bw + G * bw : 0) + 2 * static_cast<size_t>(bh));
+  int err = max_smem_attr(reinterpret_cast<const void*>(kernel), smem);
   if (err) return err;
-  kernel<<<mb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(blocks), static_cast<const int*>(bcols),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(static_cast<long long>(mb) * ranks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(ranks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(blocks), static_cast<const int*>(bcols),
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(c1), static_cast<const float*>(c2),
-      static_cast<float*>(u), static_cast<float*>(zp), kb, bh, bw);
+      static_cast<float*>(u), static_cast<float*>(zp), kb, bh, bw, ranks));
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,10 +26,10 @@
 //                                   _dia_shared_axpy_kernel
 //    (A or A')(vec * c1) - c2 * y: the pair=False half-step.
 // 3. dia_pair_kernel (staged)    <- dia_pair_shared /
-//    dia_pair_shared_kernel          _dia_pair_shared_kernel_carry
+//    dia_pair_ring_kernel            _dia_pair_shared_kernel_carry
 //    u = A(vec * c1) - c2 * y and z = A' u in one pass: the staged pair of
 //    csrc/dia_pair_staged.cuh on this layout (row stride Lp, row base H),
-//    or, where no staged tile fits (many diagonals), the unstaged kernel.
+//    or, where no staged tile fits (many diagonals), the ring kernel.
 //
 // What bounds them on the H100: bytes. Each does ~2 flops per stripe
 // element it reads (4 bytes, 2 in bf16), far below the card's ~20 flop/byte
@@ -51,12 +51,16 @@
 //   16-byte cp.async copies (in this layout they are one window of each
 //   stripe row, whose 16-byte phase is H % V for every diagonal, since Lp
 //   is a multiple of 1024), a persistent grid two stages deep. Where no
-//   tile's two stages fit (many diagonals), the unstaged kernel below: a
-//   block owning indices [r0, r0 + T) computes u for rows
-//   [r0 - H, r0 + T + H) into shared memory, writes its own rows of u,
-//   synchronises, and forms z for its columns from shared u, reading the
-//   stripes again (from L1/L2). Both sum in the same order: the same bits.
-//   No atomics: the result is deterministic.
+//   tile's two stages fit (many diagonals: at 81 the stripe rows of one
+//   tile of 1024 are 358 KB in f32), the ring kernel below: each block
+//   walks a long run of indices in chunks, copies each chunk's stripe rows
+//   into a ring in shared memory and forms u for the chunk and then z for
+//   the columns whose rows are all in the ring; several blocks share an
+//   SM, so one block's copies overlap the others' sums, and each stripe
+//   byte is read from device memory once (reading a tile's stripes twice,
+//   for u and again for z, costs 0.23 ms at 2^20 x 81 in f32, above half
+//   the bound, 0.21 ms). Both sum in the same order: the same bits. No
+//   atomics: the result is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +70,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPairTile = 1024;  // T: output indices one unstaged pair block owns
 
 inline unsigned grid_for(long long count) {
   long long g = (count + kThreads - 1) / kThreads;
@@ -128,53 +131,257 @@ __global__ void dia_shared_axpy_kernel(
   }
 }
 
-// The unstaged pair. One block owns indices [r0, r0 + kPairTile) of BOTH u
-// (rows) and z (columns); the grid covers max(m, n). Dynamic shared memory
-// holds u for rows [r0 - H, r0 + kPairTile + H), zero outside [0, m).
+// The many-diagonal pair (the route counted as "unstaged": no staged
+// tile's two stages fit). A persistent grid; block b owns the indices
+// [a, b) of BOTH u (rows) and z (columns), whole chunks of kRingChunk, and
+// walks its rows in steps: step k stages the stripe rows of chunk k +
+// kRingAhead (rows [s0 + (k + kRingAhead) C, + C) of every diagonal) into
+// a ring of W rows in shared memory with 16-byte cp.async copies, and the
+// x window of chunk k, computes u for chunk k's rows from the rings (-c2 y
+// first, then the diagonals in offset order) into a ring of u, and then z
+// for the columns [c0 - lo, c0 + C - lo), whose rows j - k (in
+// [c0 - lo - hi, c0 + C)) all sit in the rings: the lo + hi rows before
+// the chunk stay there from the steps before. So each stripe byte crosses
+// from device memory once (plus the lo + hi rows in front of a block's
+// first index), and no halo is recomputed except there. W = (kRingAhead +
+// 1) C + lo + hi, rounded up to 16 bytes' worth (RingLayout; ops/spmv.py:
+// pair_ring_bytes mirrors it). Row r of every diagonal sits at 16-byte
+// phase (ph + r) % V (Lp is a multiple of 1024), and s0 is on that grid, so
+// a chunk's copies are aligned pieces of V rows, each at one place in the
+// ring. The shape below was the fastest of those tools/pair_designs.py
+// times (PERF.md): no chunk in flight and small blocks, so that several
+// blocks share an SM (at 81 diagonals three in f32, six in bf16) and one
+// block's copies overlap the others' sums; a deeper ring allows fewer
+// blocks an SM and lost by 10-28%.
+constexpr int kRingThreads = 128;
+constexpr int kRingChunk = 128;  // C: rows a step adds (a multiple of kRingThreads)
+constexpr int kRingAhead = 0;    // chunks in flight ahead of the one a step computes
+constexpr int kRingBatch = 4;    // diagonals whose loads a thread issues together
+static_assert(kRingChunk % kRingThreads == 0 && kRingBatch % 4 == 0, "ring shape");
+
+// The ring's shared memory: nd rows of W stripe elements, u for W rows,
+// a step's x window (C + lo + hi floats, rounded up to 4), then the
+// offsets and the z places (nd rounded up to 4 ints each).
+struct RingLayout {
+  int W, LX, nd4;
+  long long u_at, bytes;
+  __host__ __device__ RingLayout(int nd, int lo, int hi, int esize) {
+    const int v = 16 / esize;
+    W = ((kRingAhead + 1) * kRingChunk + lo + hi + v - 1) / v * v;
+    LX = (kRingChunk + lo + hi + 3) / 4 * 4;
+    nd4 = (nd + 3) / 4 * 4;
+    u_at = round_up(static_cast<long long>(nd) * W * esize, 16);
+    bytes = u_at + 4LL * W + 4LL * LX + 8LL * nd4;
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ int wrap(int p, int W) { return p >= W ? p - W : p; }
+
+// rows = dp + H (diagonal d's row r at rows[d * stride + r]); `units`
+// chunks of kRingChunk cover max(m, n). Each thread takes R rows (columns)
+// of a step, kRingThreads apart, their sums side by side, and issues the
+// loads of kRingBatch diagonals before it adds them (in offset order).
 template <typename S>
-__global__ void dia_pair_shared_kernel(
-    const S* __restrict__ dp, const float* __restrict__ vec,
+__global__ void __launch_bounds__(kRingThreads) dia_pair_ring_kernel(
+    const S* __restrict__ rows, long long stride, const float* __restrict__ vec,
     const float* __restrict__ y, const float* __restrict__ c1p,
-    const float* __restrict__ c2p, float* __restrict__ u,
-    float* __restrict__ z, const int* __restrict__ offsets, int nd,
-    long long Lp, int H, long long m, long long n) {
-  extern __shared__ float u_s[];
+    const float* __restrict__ c2p, float* __restrict__ u, float* __restrict__ z,
+    const int* __restrict__ offsets, int nd, long long m, long long n, int lo, int hi,
+    long long units) {
+  constexpr int V = 16 / sizeof(S);
+  constexpr int C = kRingChunk;
+  constexpr int R = C / kRingThreads;
+  constexpr int B = kRingBatch;
+  constexpr int kPieces = C / V;  // 16-byte copies a chunk and diagonal
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RingLayout lay(nd, lo, hi, sizeof(S));
+  const int W = lay.W;
+  S* const ring = reinterpret_cast<S*>(smem);
+  float* const u_s = reinterpret_cast<float*>(smem + lay.u_at);
+  float* const x_s = u_s + W;  // x[c0 - lo + e] at e
+  int* const ks = reinterpret_cast<int*>(x_s + lay.LX);  // 16-byte aligned: W % 4 == 0
+  int* const zoff = ks + lay.nd4;  // this step's: where row c0 - lo - k_d sits in the ring
+  const int tid = threadIdx.x;
+  const long long dim = m > n ? m : n;
+  const long long a = static_cast<long long>(blockIdx.x) * units / gridDim.x * C;
+  long long b = (static_cast<long long>(blockIdx.x) + 1) * units / gridDim.x * C;
+  b = b < dim ? b : dim;
+  if (a >= b) return;
+  for (int d = tid; d < nd; d += kRingThreads) ks[d] = __ldg(offsets + d);
   const float c1 = __ldg(c1p);
   const float c2 = __ldg(c2p);
-  const long long r0 = static_cast<long long>(blockIdx.x) * kPairTile;
-  const int span = kPairTile + 2 * H;
+  const int ph = static_cast<int>((reinterpret_cast<uintptr_t>(rows) / sizeof(S)) % V);
+  const long long t0 = ph + a - hi;  // s0: at or below a - hi, on the 16-byte grid
+  const long long s0 = (t0 >= 0 ? t0 / V : -((V - 1 - t0) / V)) * V - ph;
+  const int steps = static_cast<int>((b + lo - s0 + C - 1) / C);
+  const int nb = nd / B * B;  // diagonals taken in whole batches
 
-  // 1-2. u for the tile and its halo; the tile's own rows go to u.
-  for (int t = threadIdx.x; t < span; t += blockDim.x) {
-    const long long r = r0 - H + t;
-    float acc = 0.0f;
-    if (r >= 0 && r < m) {
-      acc = (-c2) * __ldg(y + r);
-      for (int d = 0; d < nd; ++d) {
-        const int k = __ldg(offsets + d);
-        const long long c = r + k;
-        if (c >= 0 && c < n) {
-          acc += widen(dp + d * Lp + H + r) * (__ldg(vec + c) * c1);
+  // chunk k's stripe rows in [0, m), to ring places (k C) mod W onwards
+  auto stage = [&](int k) {
+    const long long c0 = s0 + static_cast<long long>(k) * C;
+    const int p0 = static_cast<int>(static_cast<long long>(k) * C % W);
+    for (int e = tid; e < nd * kPieces; e += kRingThreads) {
+      const int d = e / kPieces, q = (e % kPieces) * V;
+      const long long r = c0 + q;
+      if (r + V > 0 && r < m) {
+        cp_async16(ring + static_cast<long long>(d) * W + wrap(p0 + q, W),
+                   rows + d * stride + r);
+      }
+    }
+    cp_async_commit();
+  };
+
+  __syncthreads();  // ks
+  for (int k = 0; k < kRingAhead; ++k) {
+    if (k < steps) stage(k);
+    else cp_async_commit();
+  }
+  int p0 = 0;  // the ring place of this step's first row
+  for (int k = 0; k < steps; ++k) {
+    if (k + kRingAhead < steps) stage(k + kRingAhead);
+    else cp_async_commit();
+    const long long c0 = s0 + static_cast<long long>(k) * C;
+    for (int e = tid; e < C + lo + hi; e += kRingThreads) {  // zero outside [0, n): never read
+      const long long c = c0 - lo + e;
+      x_s[e] = c >= 0 && c < n ? __ldg(vec + c) : 0.0f;
+    }
+    cp_async_wait_group<kRingAhead>();  // chunk k's copies
+    __syncthreads();
+    for (int d = tid; d < nd; d += kRingThreads) {
+      const int p = p0 - lo - ks[d];
+      zoff[d] = p < 0 ? p + W : p;
+    }
+    // 1. u for rows [c0, c0 + C): -c2 y, then the diagonals in offset
+    // order; when all the thread's rows have their whole band inside
+    // [0, n), without the mask
+    {
+      float acc[R];
+      int p[R];
+      bool ok[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long r = c0 + tid + i * kRingThreads;
+        p[i] = wrap(p0 + tid + i * kRingThreads, W);
+        ok[i] = r >= 0 && r < m;
+        acc[i] = ok[i] ? (-c2) * __ldg(y + r) : 0.0f;
+      }
+      const long long r0 = c0 + tid, rl = r0 + (R - 1) * kRingThreads;
+      const float* xr = x_s + lo + tid;  // x[r0 + k] at xr[k]
+      if (ok[0] && ok[R - 1] && r0 >= lo && rl + hi < n) {
+        for (int d = 0; d < nb; d += B) {
+          int kk[B];
+#pragma unroll
+          for (int q = 0; q < B; q += 4) {
+            const int4 k4 = *reinterpret_cast<const int4*>(ks + d + q);
+            kk[q] = k4.x, kk[q + 1] = k4.y, kk[q + 2] = k4.z, kk[q + 3] = k4.w;
+          }
+          float sv[R][B], xv[R][B];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+#pragma unroll
+            for (int q = 0; q < B; ++q) {
+              sv[i][q] = lds(ring + (d + q) * W + p[i]);
+              xv[i][q] = xr[i * kRingThreads + kk[q]];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+#pragma unroll
+            for (int q = 0; q < B; ++q) acc[i] += sv[i][q] * (xv[i][q] * c1);
+          }
+        }
+        for (int d = nb; d < nd; ++d) {
+          const int kd = ks[d];
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            acc[i] += lds(ring + d * W + p[i]) * (xr[i * kRingThreads + kd] * c1);
+        }
+      } else {
+        for (int d = 0; d < nd; ++d) {
+          const int kd = ks[d];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const long long c = r0 + i * kRingThreads + kd;
+            if (ok[i] && c >= 0 && c < n)
+              acc[i] += lds(ring + d * W + p[i]) * (xr[i * kRingThreads + kd] * c1);
+          }
         }
       }
-      if (t >= H && t < H + kPairTile) u[r] = acc;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long r = r0 + i * kRingThreads;
+        if (ok[i] && r >= a && r < b) u[r] = acc[i];
+        u_s[p[i]] = acc[i];  // zero outside [0, m)
+      }
     }
-    u_s[t] = acc;
-  }
-  // 3.
-  __syncthreads();
-  // 4. z[j] = sum_d dp[d*Lp + H + j - k] * u[j - k]; row j - k sits at
-  // t + H - k in u_s, inside [0, span) for every |k| <= H. Stripe rows
-  // outside [0, m) are zero padding, and so is u_s there.
-  for (int t = threadIdx.x; t < kPairTile; t += blockDim.x) {
-    const long long j = r0 + t;
-    if (j >= n) break;
-    float acc = 0.0f;
-    for (int d = 0; d < nd; ++d) {
-      const int k = __ldg(offsets + d);
-      acc += widen(dp + d * Lp + H + j - k) * u_s[t + H - k];
+    __syncthreads();
+    // 2. z[j] = sum_d A[j - k, j] * u[j - k] for the columns [c0 - lo,
+    // c0 + C - lo) of [a, b); when all the thread's columns have their rows
+    // inside [0, m), without the mask
+    {
+      const long long j0 = c0 - lo + tid, jl = j0 + (R - 1) * kRingThreads;
+      float acc[R];
+      bool ok[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long j = j0 + i * kRingThreads;
+        ok[i] = j >= a && j < b && j < n;
+        acc[i] = 0.0f;
+      }
+      if (ok[0] && ok[R - 1] && j0 >= hi && jl + lo < m) {
+        for (int d = 0; d < nb; d += B) {
+          int zz[B];
+#pragma unroll
+          for (int q = 0; q < B; q += 4) {
+            const int4 z4 = *reinterpret_cast<const int4*>(zoff + d + q);
+            zz[q] = z4.x, zz[q + 1] = z4.y, zz[q + 2] = z4.z, zz[q + 3] = z4.w;
+          }
+          float sv[R][B], uv[R][B];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+#pragma unroll
+            for (int q = 0; q < B; ++q) {
+              const int pq = wrap(zz[q] + tid + i * kRingThreads, W);
+              sv[i][q] = lds(ring + (d + q) * W + pq);
+              uv[i][q] = u_s[pq];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+#pragma unroll
+            for (int q = 0; q < B; ++q) acc[i] += sv[i][q] * uv[i][q];
+          }
+        }
+        for (int d = nb; d < nd; ++d) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int pq = wrap(zoff[d] + tid + i * kRingThreads, W);
+            acc[i] += lds(ring + d * W + pq) * u_s[pq];
+          }
+        }
+      } else {
+        for (int d = 0; d < nd; ++d) {
+          const int kd = ks[d];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const long long rr = j0 + i * kRingThreads - kd;
+            const int pq = wrap(zoff[d] + tid + i * kRingThreads, W);
+            if (ok[i] && rr >= 0 && rr < m) acc[i] += lds(ring + d * W + pq) * u_s[pq];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (ok[i]) z[j0 + i * kRingThreads] = acc[i];
+      }
     }
-    z[j] = acc;
+    __syncthreads();  // before the next step restages ring places and rewrites u_s
+    p0 = wrap(p0 + C, W);
   }
 }
 
@@ -206,21 +413,41 @@ int launch_axpy(const void* dp, const void* vec, const void* y, const void* c1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ring pair on the shared layout: halos lo = max(0, -k_min) and
+// hi = max(0, k_max), at most H; dp 16-byte aligned. A grid of as many
+// blocks as fit the SMs, each owning whole chunks.
 template <typename S>
-int launch_pair(const void* dp, const void* vec, const void* y, const void* c1,
-                const void* c2, void* u, void* z, const void* offsets, int nd,
-                long long Lp, int H, long long m, long long n, void* stream) {
-  if (H < 0 || H > kPairMaxHalo) return static_cast<int>(cudaErrorInvalidValue);
+int launch_pair_ring(const void* dp, const void* vec, const void* y, const void* c1,
+                     const void* c2, void* u, void* z, const void* offsets, int nd,
+                     long long Lp, int H, long long m, long long n, int lo, int hi,
+                     void* stream) {
+  if (H < 0 || H > kPairMaxHalo || lo < 0 || hi < 0 || lo > H || hi > H || Lp % 16 ||
+      !aligned16(dp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long dim = m > n ? m : n;
-  const unsigned blocks = static_cast<unsigned>((dim + kPairTile - 1) / kPairTile);
-  const size_t smem = sizeof(float) * static_cast<size_t>(kPairTile + 2 * H);
-  dia_pair_shared_kernel<S><<<blocks, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(dp), static_cast<const float*>(vec),
+  if (dim == 0) return 0;
+  const RingLayout lay(nd, lo, hi, sizeof(S));
+  auto kernel = dia_pair_ring_kernel<S>;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes)));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (!err) err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (!err) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kRingThreads, lay.bytes));
+  }
+  if (err) return err;
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long units = (dim + kRingChunk - 1) / kRingChunk;
+  const long long slots = static_cast<long long>(per_sm) * sms;
+  kernel<<<static_cast<unsigned>(units < slots ? units : slots), kRingThreads, lay.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(dp) + H, Lp, static_cast<const float*>(vec),
       static_cast<const float*>(y), static_cast<const float*>(c1),
-      static_cast<const float*>(c2), static_cast<float*>(u),
-      static_cast<float*>(z), static_cast<const int*>(offsets), nd, Lp, H, m,
-      n);
+      static_cast<const float*>(c2), static_cast<float*>(u), static_cast<float*>(z),
+      static_cast<const int*>(offsets), nd, m, n, lo, hi, units);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -254,9 +481,10 @@ const char* lsqr_cuda_error_string(int code) {
   int lsqr_dia_pair_shared_##SUFFIX(                                            \
       const void* dp, const void* vec, const void* y, const void* c1,           \
       const void* c2, void* u, void* z, const void* offsets, int nd,            \
-      long long Lp, int H, long long m, long long n, void* stream) {            \
-    return launch_pair<S>(dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n,   \
-                          stream);                                              \
+      long long Lp, int H, long long m, long long n, int lo, int hi,            \
+      void* stream) {                                                           \
+    return launch_pair_ring<S>(dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, \
+                               n, lo, hi, stream);                              \
   }
 
 // The staged pair on this layout: tile T from lsqr_dia_pair_tile_* (the

@@ -39,8 +39,9 @@ _SIGNATURES = {
     # dp, vec, y, c1, c2, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, stream
     **{f"lsqr_dia_shared_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P)
        for s in ("f32", "bf16")},
-    # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, stream
-    **{f"lsqr_dia_pair_shared_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _P)
+    # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, lo, hi, stream
+    **{f"lsqr_dia_pair_shared_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I,
+                                     _I, _P)
        for s in ("f32", "bf16")},
     # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, lo, hi, T, stream
     **{f"lsqr_dia_pair_shared_staged_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L,
@@ -77,7 +78,7 @@ _SIGNATURES = {
     # csrc/block_ell.cu
     # blocks, bcols, x, out, partial, mb, kb, bh, bw, slices, stream
     "lsqr_block_ell_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # blocks, bcols, x, y, c1, c2, u, zp, mb, kb, bh, bw, nb, keep, stream
+    # blocks, bcols, x, y, c1, c2, u, zp, mb, kb, bh, bw, ranks, keep, stream
     "lsqr_block_ell_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P),
     # csrc/wcoo.cu

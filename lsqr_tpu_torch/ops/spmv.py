@@ -30,7 +30,7 @@ tensors runs the twin. Given CUDA tensors it launches its kernel or raises:
 there is no fallback. Each wrapper counts its launches in its ``launches``
 attribute (a plain integer), and per stripe dtype in ``variants``
 (:func:`launch_counts`, :func:`reset_launch_counts`); ``dia_pair_shared``
-counts its unstaged route apart (``UNSTAGED``).
+counts its many-diagonal route apart (``UNSTAGED``).
 
 Stripes are f32, f64 where the kernel says so, or bf16: bf16 is a storage
 format, so vectors, c1, c2 and the accumulation are f32, and so are the
@@ -85,19 +85,25 @@ __all__ = [
     "PAIR_MAX_HALO",
     "pair_tile",
     "pair_shared_route",
+    "pair_ring_bytes",
     "UNSTAGED",
 ]
 
 #: the largest halo the one-pass pair kernels take (the staged pairs stage
-#: T + lo + hi rows, see :func:`pair_tile`; the unstaged shared pair's tile
-#: holds 1024 + 2H floats); above it the pair is two launches, the axpy
-#: kernel then the product.
+#: T + lo + hi rows, see :func:`pair_tile`; the shared pair's ring kernel
+#: keeps RING_CHUNK + lo + hi, see :func:`pair_ring_bytes`); above it the
+#: pair is two launches, the axpy kernel then the product.
 PAIR_MAX_HALO = 1024
 
+#: the shared pair's ring kernel (csrc/dia_shared.cu: kRingChunk,
+#: kRingAhead): rows a step adds to the ring, and chunks in flight ahead
+RING_CHUNK, RING_AHEAD = 128, 0
+
 #: the variant under which :func:`dia_pair_shared` counts a launch of its
-#: unstaged kernel, by stripe dtype: ``launch_counts(by_variant=True)``
+#: many-diagonal (ring) kernel, by stripe dtype: ``launch_counts(by_variant=True)``
 #: names them ``dia_pair_shared[unstaged]`` and
-#: ``dia_pair_shared[bf16_unstaged]``
+#: ``dia_pair_shared[bf16_unstaged]`` (the route's name: it does not take the
+#: staged tiles)
 UNSTAGED = {torch.float32: "unstaged", torch.bfloat16: "bf16_unstaged"}
 
 #: kernel-name suffix of each stripe dtype
@@ -432,33 +438,56 @@ def dia_product_shared_axpy(dp, vec, y, c1, c2, *, offsets: Sequence[int],
     return out
 
 
-def pair_shared_route(H, tile):
+def pair_ring_bytes(nd, lo, hi, esize):
+    """The dynamic shared memory of the shared pair's ring kernel
+    (csrc/dia_shared.cu: RingLayout) for nd diagonals, halos lo, hi and
+    stripes of ``esize`` bytes: a ring of W = (RING_AHEAD + 1) RING_CHUNK +
+    lo + hi rows (rounded up to 16 bytes' worth) of every diagonal, u for
+    those rows, a step's x window (RING_CHUNK + lo + hi floats, rounded up
+    to 4) and two ints a diagonal (nd rounded up to 4). It takes the pair
+    where this fits one block's shared memory."""
+    v = 16 // esize
+    W = -(-((RING_AHEAD + 1) * RING_CHUNK + lo + hi) // v) * v
+    LX = -(-(RING_CHUNK + lo + hi) // 4) * 4
+    return -(-nd * W * esize // 16) * 16 + 4 * W + 4 * LX + 8 * -(-nd // 4) * 4
+
+
+def pair_shared_route(H, tile, ring):
     """The route :func:`dia_pair_shared` takes on the card for a band of
-    halo H (max |k|) and a staged tile (:func:`pair_tile`, 0 where none
-    fits): "two launches" where H > PAIR_MAX_HALO, else "staged" where a
-    tile fits, else "unstaged"."""
-    if H > PAIR_MAX_HALO:
+    halo H (max |k|), a staged tile (:func:`pair_tile`, 0 where none fits)
+    and whether the ring kernel's shared memory fits (``ring``,
+    :func:`pair_ring_bytes`): "two launches" where H > PAIR_MAX_HALO or
+    neither kernel fits, else "staged" where a tile fits, else "unstaged"
+    (the ring kernel)."""
+    if H > PAIR_MAX_HALO or not (tile or ring):
         return "two launches"
     return "staged" if tile else "unstaged"
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_fits(device, dtype, nd, lo, hi):
+    """Whether the ring kernel's shared memory fits one block on ``device``."""
+    smem = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    return pair_ring_bytes(nd, lo, hi, dtype.itemsize) <= smem
 
 
 def dia_pair_shared(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int,
                     n: int, offsets_t: Optional[torch.Tensor] = None):
     """Both bidiagonalization products in one pass over the stripes:
     u = A(vec*c1) - c2*y with vec (n,), y (m,), and z = A' u. Returns
-    (u (m,), z (n,)). On CUDA: f32 or bf16 stripes, f32 vectors, and one of
-    three routes (:func:`pair_shared_route`), each counted:
+    (u (m,), z (n,)). On CUDA: f32 or bf16 stripes (``dp`` 16-byte
+    aligned), f32 vectors, and one of three routes
+    (:func:`pair_shared_route`), each counted:
 
     * staged, where :func:`pair_tile` gives a tile for the diagonals, the
       one-sided halos lo = max(0, -min k), hi = max(0, max k) and the
       stripes' dtype: the staged pair of csrc/dia_pair_staged.cuh on this
-      layout (``dp`` 16-byte aligned; vector views off the 16-byte grid are
-      copied);
-    * unstaged, where no tile fits and H <= PAIR_MAX_HALO (many diagonals):
-      the one-block-per-1024-indices kernel of csrc/dia_shared.cu, counted
-      under ``UNSTAGED``; it gives the staged route's bits (same order, same
-      expressions);
-    * two launches, where H > PAIR_MAX_HALO:
+      layout (vector views off the 16-byte grid are copied);
+    * unstaged, where no tile fits (many diagonals), H <= PAIR_MAX_HALO and
+      the ring kernel's shared memory fits (:func:`pair_ring_bytes`): the
+      ring kernel of csrc/dia_shared.cu, counted under ``UNSTAGED``; it
+      gives the staged route's bits (same order, same expressions);
+    * two launches, where H > PAIR_MAX_HALO or neither fits:
       :func:`dia_product_shared_axpy`, then :func:`dia_product_shared`
       (each counts its own launch)."""
     offsets = tuple(int(k) for k in offsets)
@@ -467,7 +496,8 @@ def dia_pair_shared(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int,
     _kernel("dia_pair_shared", dp, (torch.float32, torch.bfloat16), offsets)  # the checks
     H, _ = _geometry(offsets, m, n)
     tile = pair_tile(dp.device, dp.dtype, len(offsets), *_halos(offsets))
-    if pair_shared_route(H, tile) == "two launches":
+    ring = not tile and _ring_fits(dp.device, dp.dtype, len(offsets), *_halos(offsets))
+    if pair_shared_route(H, tile, ring) == "two launches":
         _check_shared(dp, offsets, m, n)
         offsets_t = _offsets_on(dp, offsets, offsets_t)
         u = dia_product_shared_axpy(dp, vec, y, c1, c2, offsets=offsets, m=m,
@@ -482,11 +512,11 @@ def _dia_pair_shared_launch(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: in
                             n: int, offsets_t: Optional[torch.Tensor] = None,
                             tile: int):
     """One launch of the shared pair on CUDA tensors (the kernels refuse
-    H > PAIR_MAX_HALO): the staged kernel in tiles of ``tile``
-    (:func:`pair_tile`), or the unstaged kernel where ``tile`` is 0,
-    counted under ``UNSTAGED``.
+    H > PAIR_MAX_HALO, and the ring kernel a ring past the card's shared
+    memory): the staged kernel in tiles of ``tile`` (:func:`pair_tile`), or
+    the ring kernel where ``tile`` is 0, counted under ``UNSTAGED``.
     :func:`dia_pair_shared` picks the tile; a comparison of the two kernels
-    passes 0 for the unstaged one."""
+    passes 0 for the ring kernel."""
     offsets = tuple(int(k) for k in offsets)
     fn = _kernel("dia_pair_shared_staged" if tile else "dia_pair_shared", dp,
                  (torch.float32, torch.bfloat16), offsets)
@@ -497,19 +527,20 @@ def _dia_pair_shared_launch(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: in
     _check("y", y, torch.float32, dp.device, m)
     c1 = _device_scalar(c1, dp.device)
     c2 = _device_scalar(c2, dp.device)
-    if tile:
-        if dp.data_ptr() % 16:
-            raise ValueError("dp must be 16-byte aligned (the pair stages it in 16-byte "
-                             "copies)")
+    if dp.data_ptr() % 16:
+        raise ValueError("dp must be 16-byte aligned (the pair stages it in 16-byte "
+                         "copies)")
+    if tile:  # the staged kernel stages the vectors too
         vec, y = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (vec, y))
     u = torch.empty(m, dtype=torch.float32, device=dp.device)
     z = torch.empty(n, dtype=torch.float32, device=dp.device)
     if max(m, n) == 0:
         return u, z
     args = (dp.data_ptr(), vec.data_ptr(), y.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-            u.data_ptr(), z.data_ptr(), offsets_t.data_ptr(), len(offsets), Lp, H, m, n)
+            u.data_ptr(), z.data_ptr(), offsets_t.data_ptr(), len(offsets), Lp, H, m, n,
+            *_halos(offsets))
     if tile:
-        _launch(dia_pair_shared, fn, dp, *args, *_halos(offsets), tile)
+        _launch(dia_pair_shared, fn, dp, *args, tile)
     else:
         _launch(dia_pair_shared, fn, dp, *args, variant=UNSTAGED[dp.dtype])
     return u, z
@@ -726,8 +757,8 @@ def pair_tile(device, dtype, nd, lo, hi):
     T = 1024 k - (lo + hi rounded up to 4) indices for the least k in 1, 2,
     4, 8 with T >= 256 and T >= lo + hi whose two stages fit two blocks an
     SM (else one); 0 where none fits or a halo exceeds PAIR_MAX_HALO. The
-    packed pair then takes two launches; the shared pair takes its unstaged
-    kernel where H <= PAIR_MAX_HALO and two launches above it
+    packed pair then takes two launches; the shared pair takes its ring
+    kernel where H <= PAIR_MAX_HALO and the ring fits, else two launches
     (:func:`pair_shared_route`)."""
     from . import _cuda
 

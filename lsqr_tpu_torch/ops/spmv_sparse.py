@@ -24,6 +24,9 @@ The two BlockELL products share a work plan (:func:`block_ell_plan`): one
 CTA per block row, or, where the block rows alone leave the card short of
 CTAs (a tall matrix's transpose packing), one per slice of a block row's
 blocks, the slices' partial rows added in slice order by a second pass.
+The pair runs a cluster of CTAs per block row (:func:`block_ell_pair_plan`),
+each rank holding some of the row's blocks, the ranks' partial rows added
+in rank order.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ __all__ = [
     "block_ell_matvec_plain",
     "block_ell_pair_plain",
     "windowed_rows_per_tile",
-    "pair_keeps_blocks",
     "block_ell_plan",
     "BlockELLPlan",
+    "block_ell_pair_plan",
+    "PairPlan",
 ]
 
 #: |e| budget of the jitter offsets (the JAX package's JDIA_JITTER)
@@ -58,9 +62,12 @@ WIN_SMEM_BYTES = 96 * 1024
 #: the BlockELL products' work units (CTAs) per SM below which a block row's
 #: blocks are split into slices (:func:`block_ell_plan`)
 UNITS_PER_SM = 4
-#: the dynamic shared memory a CTA may have on the H100; the pair kernel keeps
-#: a block row's blocks there when they fit beside its x segments and u
+#: the dynamic shared memory a CTA may have on the H100; a rank of the pair
+#: kernel keeps its blocks there when they fit beside their x segments, its
+#: partial u and u
 PAIR_SMEM_BYTES = 232_448
+#: the most CTAs of a pair cluster (the portable cluster size)
+PAIR_MAX_RANKS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -93,14 +100,20 @@ def block_ell_matvec_plain(blocks, bcols, x):
 
 
 def block_ell_pair_plain(blocks, bcols, x, y, c1, c2):
-    """Plain twin of :func:`block_ell_pair_windowed` (the JAX operator's
-    einsum form): (u (mb*bh,), zp (mb, kb, bw))."""
+    """Plain twin of :func:`block_ell_pair_windowed`, in the kernel's order
+    of sums: each rank's partial rows over its blocks
+    (:func:`block_ell_pair_plan`), added in rank order, then - c2*y:
+    (u (mb*bh,), zp (mb, kb, bw))."""
     mb, kb, bh, bw = blocks.shape
     dt = blocks.dtype
     c1 = spmv._scalar(c1, dt, blocks.device)
     c2 = spmv._scalar(c2, dt, blocks.device)
     xb = x.to(dt).reshape(-1, bw)[bcols.long()] * c1
-    ub = torch.einsum("rkij,rkj->ri", blocks, xb) - c2 * y.to(dt).reshape(mb, bh)
+    acc = None
+    for j0, j1 in block_ell_pair_plan(kb, bh, bw).bounds:
+        part = torch.einsum("rkij,rkj->ri", blocks[:, j0:j1], xb[:, j0:j1])
+        acc = part if acc is None else acc + part
+    ub = acc - c2 * y.to(dt).reshape(mb, bh)
     return ub.reshape(-1), torch.einsum("rkij,ri->rkj", blocks, ub)
 
 
@@ -244,11 +257,12 @@ def block_ell_pair_windowed(blocks, bcols, x, y, c1, c2):
         u = A (x*c1) - c2*y,     zp[r, j] = blocks[r, j]' @ u_r
     with x (nb*bw,), y (mb*bh,), c1, c2 numbers or 0-d tensors (read on the
     device); returns u (mb*bh,) and zp (mb, kb, bw). The caller assembles
-    A'u as the sum of the zp rows by bcols. One CTA per block row; the
-    row's blocks stay in shared memory between the two products when they
-    fit PAIR_SMEM_BYTES beside the row's x segments and u
-    (:func:`pair_keeps_blocks`), else the transposed product reads them a
-    second time (from L2). On CUDA: f32 only."""
+    A'u as the sum of the zp rows by bcols. A cluster of CTAs per block row
+    (:func:`block_ell_pair_plan`): each rank forms the partial rows of its
+    blocks, the partials are added in rank order through distributed shared
+    memory, and each rank forms zp for its blocks; a rank keeps its blocks
+    in shared memory between the two products where they fit, else reads
+    them a second time (from L2). On CUDA: f32 only."""
     if not blocks.is_cuda:
         return block_ell_pair_plain(blocks, bcols, x, y, c1, c2)
     mb, kb, bh, bw = _check_blocks(blocks, bcols, x, x.shape[0])
@@ -259,17 +273,37 @@ def block_ell_pair_windowed(blocks, bcols, x, y, c1, c2):
     zp = torch.empty((mb, kb, bw), dtype=torch.float32, device=blocks.device)
     if u.numel() == 0:
         return u, zp
+    smem = torch.cuda.get_device_properties(blocks.device).shared_memory_per_block_optin
+    plan = block_ell_pair_plan(kb, bh, bw, smem)
     spmv._launch(block_ell_pair_windowed, _fn("lsqr_block_ell_pair_f32"), blocks,
                  blocks.data_ptr(), bcols.data_ptr(), x.data_ptr(), y.data_ptr(),
                  c1.data_ptr(), c2.data_ptr(), u.data_ptr(), zp.data_ptr(), mb, kb, bh,
-                 bw, x.shape[0] // bw, int(pair_keeps_blocks(kb, bh, bw)))
+                 bw, plan.ranks, int(plan.keep))
     return u, zp
 
 
-def pair_keeps_blocks(kb: int, bh: int, bw: int) -> bool:
-    """Whether the pair kernel holds a block row's blocks in shared memory
-    (with its x segments and u) between the two products."""
-    return 4 * (kb * bh * bw + kb * bw + bh) <= PAIR_SMEM_BYTES
+class PairPlan(NamedTuple):
+    """How :func:`block_ell_pair_windowed` cuts a block row: a cluster of
+    ``ranks`` CTAs, rank s holding blocks ``bounds[s]`` = [s*kb // ranks,
+    (s+1)*kb // ranks) (the kernel computes the same bounds); ``keep``
+    where each rank holds its blocks in shared memory between the two
+    products (beside their x segments, its partial u row and the u row)."""
+
+    ranks: int
+    bounds: tuple
+    keep: bool
+
+
+def block_ell_pair_plan(kb: int, bh: int, bw: int, smem: int = PAIR_SMEM_BYTES) -> PairPlan:
+    """The pair's plan for block rows of kb (bh x bw) blocks on a card whose
+    CTAs may have ``smem`` bytes of dynamic shared memory: one rank a block
+    where kb <= PAIR_MAX_RANKS, else PAIR_MAX_RANKS ranks of contiguous
+    groups (at most ceil(kb / ranks) blocks each); one rank where kb = 0.
+    At kb = 3 and 128 x 128 a rank keeps 67,072 bytes: three CTAs an SM."""
+    ranks = max(1, min(kb, PAIR_MAX_RANKS))
+    bounds = tuple((s * kb // ranks, (s + 1) * kb // ranks) for s in range(ranks))
+    most = -(-kb // ranks)
+    return PairPlan(ranks, bounds, 4 * (most * bh * bw + most * bw + 2 * bh) <= smem)
 
 
 for _wrapper in (jdia_matvec, block_ell_matvec, block_ell_matvec_windowed,

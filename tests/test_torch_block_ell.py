@@ -193,8 +193,9 @@ def test_windowed_tile_rule():
     # and until the two x-segment buffers fit the shared-memory window
     assert spmv_sparse.windowed_rows_per_tile(64, 24, 128) == 4
     assert spmv_sparse.windowed_rows_per_tile(64, 200, 128) == 0
-    assert spmv_sparse.pair_keeps_blocks(3, 128, 128)
-    assert not spmv_sparse.pair_keeps_blocks(4, 128, 128)
+    # the pair's ranks keep their blocks in shared memory where they fit
+    assert spmv_sparse.block_ell_pair_plan(3, 128, 128).keep
+    assert not spmv_sparse.block_ell_pair_plan(4, 256, 256).keep
 
 
 @pytest.mark.parametrize("mb,kb,bh,sms,slices", [
@@ -219,6 +220,58 @@ def test_block_ell_plan(mb, kb, bh, sms, slices):
     if slices > 1:
         assert mb * slices >= spmv_sparse.UNITS_PER_SM * sms or slices == kb
     assert plan.scratch == (mb * slices * bh if slices > 1 else 0)
+
+
+@pytest.mark.parametrize("kb,bh,bw,smem,ranks,keep", [
+    (3, 128, 128, spmv_sparse.PAIR_SMEM_BYTES, 3, True),   # the 2^18 packing: 67,072 bytes
+    (1, 128, 128, spmv_sparse.PAIR_SMEM_BYTES, 1, True),   # one block a row: no partner
+    (0, 16, 16, spmv_sparse.PAIR_SMEM_BYTES, 1, True),     # no blocks: u = -c2 y
+    (10, 128, 128, spmv_sparse.PAIR_SMEM_BYTES, 8, True),  # groups of 1 and 2 blocks
+    (40, 128, 128, spmv_sparse.PAIR_SMEM_BYTES, 8, False),  # 5 blocks a rank: read twice
+    (164, 128, 128, spmv_sparse.PAIR_SMEM_BYTES, 8, False),
+    (3, 256, 256, spmv_sparse.PAIR_SMEM_BYTES, 3, False),  # one block past shared memory
+    (7, 24, 30, spmv_sparse.PAIR_SMEM_BYTES, 7, True),
+    (3, 128, 128, 48 * 1024, 3, False),                    # a card with less shared memory
+])
+def test_block_ell_pair_plan(kb, bh, bw, smem, ranks, keep):
+    """The pair's plan: one rank a block up to PAIR_MAX_RANKS, contiguous
+    groups above, in order and without gaps or empty ranks (sizes differ
+    by at most one); a rank keeps its blocks where they, their x segments,
+    its partial u row and the u row fit ``smem``."""
+    plan = spmv_sparse.block_ell_pair_plan(kb, bh, bw, smem)
+    assert plan.ranks == ranks == len(plan.bounds)
+    assert plan.bounds[0][0] == 0 and plan.bounds[-1][1] == kb
+    for (_, b0), (a1, _) in zip(plan.bounds, plan.bounds[1:]):
+        assert b0 == a1
+    sizes = [b - a for a, b in plan.bounds]
+    assert max(sizes) - min(sizes) <= 1 and (kb == 0 or min(sizes) >= 1)
+    most = max(sizes)
+    assert plan.keep == keep == (4 * (most * bh * bw + most * bw + 2 * bh) <= smem)
+
+
+@pytest.mark.parametrize("side", ["forward", "transpose"])
+def test_block_ell_pair_rank_partials_match_jax(rng, side):
+    """The pair's twin, whose u adds the ranks' partial rows in rank order
+    (kb > PAIR_MAX_RANKS: ranks of one and of several blocks; the forward
+    packing: one block a row, kb = 1), against JAX's block_ell_pair_windowed
+    in interpret mode, within TOL (summation order only)."""
+    m, n, block = 1600, 48, 16
+    _, A = _jax_operator(m, n, block, 1, seed=5)
+    blocks, bcols = (A.blocks, A.bcols) if side == "forward" else (A.tblocks, A.tbrows)
+    mb, kb = bcols.shape
+    nb = (A.tblocks if side == "forward" else A.blocks).shape[0]
+    plan = spmv_sparse.block_ell_pair_plan(kb, block, block)
+    assert (kb, plan.ranks) == (1, 1) if side == "forward" else (
+        kb > spmv_sparse.PAIR_MAX_RANKS and plan.ranks == spmv_sparse.PAIR_MAX_RANKS)
+    x = rng.standard_normal(nb * block).astype(np.float32)
+    y = rng.standard_normal(mb * block).astype(np.float32)
+    u_j, zp_j = j_pair(blocks, bcols, jnp.asarray(x), jnp.asarray(y), 0.7, -1.3,
+                       interpret=True)
+    u_t, zp_t = spmv_sparse.block_ell_pair_plain(
+        _t(np.asarray(blocks)), _t(np.asarray(bcols)), _t(x), _t(y), torch.tensor(0.7),
+        torch.tensor(-1.3))
+    np.testing.assert_allclose(to_np(u_t), np.asarray(u_j), **TOL)
+    np.testing.assert_allclose(to_np(zp_t), np.asarray(zp_j), **TOL)
 
 
 @pytest.mark.parametrize("sms", [132, 4])

@@ -311,6 +311,12 @@ ROUTE_CASES = CASES + PAIR_CASES + [
     (3001, 5003, (0, 2, 9, 17)),
     (4097, 4097, (-7, 0, 3)),
     (2 ** 16 + 1, 2 ** 16 - 3, (-5, -3, 0, 1, 5)),
+    # the ring kernel's own route (81 diagonals), and halos at and near
+    # PAIR_MAX_HALO (the ring wraps inside a chunk), m != n both ways
+    (3001, 2001, tuple(range(-40, 41))),
+    (2001, 3001, (-1000, -3, 0, 1000)),
+    (5000, 4000, (-1024, 0, 1024)),
+    (70_001, 90_003, (-1024, -1, 2, 700)),
 ]
 
 
@@ -345,15 +351,20 @@ def test_cuda_shared_pair_routes_give_the_same_bits(rng, cuda_device, m, n, ks, 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 def test_cuda_shared_pair_routes_are_counted(rng, cuda_device, storage):
     """Each route where it is stated: staged where a tile fits, unstaged
-    where none fits (81 diagonals) though H <= PAIR_MAX_HALO, two launches
-    above it; every band with H <= PAIR_MAX_HALO takes one launch."""
+    (the ring kernel) where none fits (81 diagonals) though H <=
+    PAIR_MAX_HALO, two launches above it or where neither kernel's shared
+    memory fits; each bit-equal to itself over two calls."""
     suffix = "" if storage == "float32" else "[bf16]"
     unstaged = f"dia_pair_shared[{spmv.UNSTAGED[getattr(torch, storage)]}]"
     for (m, n, ks), route, expect in (
             ((4099, 2053, (-7, -1, 0, 2, 9)), "staged", {"dia_pair_shared" + suffix: 1}),
             ((3001, 3001, (-1000, 0, 1000)), "staged", {"dia_pair_shared" + suffix: 1}),
             ((3001, 2001, tuple(range(-40, 41))), "unstaged", {unstaged: 1}),
+            ((2001, 3001, tuple(range(-40, 41))), "unstaged", {unstaged: 1}),
             (PAIR_CASES[-1], "unstaged", {unstaged: 1}),
+            # 81 diagonals over a halo of 1000: neither kernel's shared memory fits
+            ((3001, 3001, tuple(range(-1000, 1001, 25))), "two launches",
+             {"dia_product_shared_axpy" + suffix: 1, "dia_product_shared" + suffix: 1}),
             (WIDE[1], "two launches", {"dia_product_shared_axpy" + suffix: 1,
                                        "dia_product_shared" + suffix: 1})):
         data, _ = banded(rng, m, n, ks, np.float32, dense=False)
@@ -362,7 +373,8 @@ def test_cuda_shared_pair_routes_are_counted(rng, cuda_device, storage):
         v, y = _vectors(rng, m, n)
         kw = dict(offsets=ks, m=m, n=n)
         tile = spmv.pair_tile(dp.device, dp.dtype, len(ks), *spmv._halos(ks))
-        assert spmv.pair_shared_route(Ah.H, tile) == route
+        ring = spmv._ring_fits(dp.device, dp.dtype, len(ks), *spmv._halos(ks))
+        assert spmv.pair_shared_route(Ah.H, tile, ring) == route
         spmv.reset_launch_counts()
         u, z = spmv.dia_pair_shared(dp, v.to(cuda_device), y.to(cuda_device), 0.8, 1.1, **kw)
         ur, zr = spmv.dia_pair_shared_plain(Ah.dp, v, y, 0.8, 1.1, **kw)
@@ -371,6 +383,10 @@ def test_cuda_shared_pair_routes_are_counted(rng, cuda_device, storage):
         counts = spmv.launch_counts(by_variant=True)
         assert {k: c for k, c in counts.items() if c} == expect, (m, n, len(ks))
         assert sum(spmv.launch_counts().values()) == (2 if route == "two launches" else 1)
+        # each route is bit-equal to itself over two calls (no atomics)
+        u2, z2 = spmv.dia_pair_shared(dp, v.to(cuda_device), y.to(cuda_device), 0.8, 1.1,
+                                      **kw)
+        assert torch.equal(u, u2) and torch.equal(z, z2)
 
 
 @pytest.mark.cuda
@@ -602,10 +618,15 @@ def _random_blocks(rng, mb, kb, bh, bw, nb, device):
     (12, 164, 128, 128, 12),   # a tall transpose: long rows split, past the window
     (3, 40, 128, 128, 50),     # few long rows, split, inside the window
     (1, 7, 24, 30, 9),         # one row split, scalar loads
+    (50, 1, 128, 128, 60),     # the pair: one block a row, a cluster of one
+    (33, 10, 64, 64, 40),      # ranks of one and two blocks, kept
+    (5, 3, 256, 256, 7),       # a block past shared memory: read twice
+    (515, 3, 128, 128, 600),   # many block rows, the 2^18 packing's blocks
 ])
 def test_cuda_block_ell_kernels_match_twins(rng, cuda_device, mb, kb, bh, bw, nb):
-    """Both products and the pair against their twins; each product called
-    twice gives the same bits (its slices are added in a fixed order)."""
+    """Both products and the pair against their twins; each product and the
+    pair called twice give the same bits (slices and ranks are added in a
+    fixed order)."""
     blocks, bcols, x, y = _random_blocks(rng, mb, kb, bh, bw, nb, cuda_device)
     ref = spmv_sparse.block_ell_matvec_plain(blocks, bcols, x)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
@@ -624,12 +645,14 @@ def test_cuda_block_ell_kernels_match_twins(rng, cuda_device, mb, kb, bh, bw, nb
         assert rel_err(got, ref) < TOL and torch.equal(got, again)
     c1 = torch.tensor(0.7, device=cuda_device)
     u, zp = spmv_sparse.block_ell_pair_windowed(blocks, bcols, x, y, c1, -1.3)
+    u2, zp2 = spmv_sparse.block_ell_pair_windowed(blocks, bcols, x, y, c1, -1.3)
     u_ref, zp_ref = spmv_sparse.block_ell_pair_plain(blocks, bcols, x, y, c1, -1.3)
     torch.cuda.synchronize()
     assert rel_err(u, u_ref) < TOL and rel_err(zp, zp_ref) < TOL
+    assert torch.equal(u, u2) and torch.equal(zp, zp2)
     assert spmv.launch_counts() == _only(block_ell_matvec=2,
                                          block_ell_matvec_windowed=6 if windowed else 0,
-                                         block_ell_pair_windowed=1)
+                                         block_ell_pair_windowed=2)
 
 
 @pytest.mark.cuda

@@ -98,7 +98,8 @@ def test_axpy_twin_matches_pallas(rng, m, n, ks, adjoint):
     assert rel_err(got, ref) < TOL
 
 
-@pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3] + ONE_SIDED)
+@pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3] + ONE_SIDED
+                         + [(1201, 997, tuple(range(-40, 41)))])
 def test_pair_twin_matches_pallas(rng, m, n, ks):
     _, dense, Aj, At = _ops(rng, m, n, ks)
     v = rng.standard_normal(n).astype(np.float32)
@@ -202,14 +203,40 @@ def test_cpu_wrappers_run_twins_and_count_nothing(rng):
     assert not At.prefers_pair and not At.prefers_fused
 
 
-@pytest.mark.parametrize("H,tile,route", [
-    (5, 1012, "staged"), (5, 0, "unstaged"), (spmv.PAIR_MAX_HALO, 0, "unstaged"),
-    (spmv.PAIR_MAX_HALO, 2048, "staged"), (spmv.PAIR_MAX_HALO + 1, 0, "two launches"),
+@pytest.mark.parametrize("H,tile,ring,route", [
+    (5, 1012, True, "staged"), (5, 0, True, "unstaged"),
+    (spmv.PAIR_MAX_HALO, 0, True, "unstaged"), (spmv.PAIR_MAX_HALO, 2048, True, "staged"),
+    (spmv.PAIR_MAX_HALO, 2048, False, "staged"), (5, 0, False, "two launches"),
+    (spmv.PAIR_MAX_HALO + 1, 0, True, "two launches"),
 ])
-def test_shared_pair_route(H, tile, route):
+def test_shared_pair_route(H, tile, ring, route):
     """The card's route of dia_pair_shared: a halo past PAIR_MAX_HALO takes
-    two launches, any other band one, staged where a tile fits."""
-    assert spmv.pair_shared_route(H, tile) == route
+    two launches, any other band one, staged where a tile fits, else the
+    ring kernel where its ring fits, else two launches."""
+    assert spmv.pair_shared_route(H, tile, ring) == route
+
+
+@pytest.mark.parametrize("nd,lo,hi,esize,nbytes,fits", [
+    (81, 40, 40, 4, 69_728, True),      # chip_smoke's MANY band, f32: W = 208
+    (81, 40, 40, 2, 36_032, True),      # bf16: half the ring
+    (9, 1000, 1000, 4, 93_728, True),   # a wide sparse band (halo near PAIR_MAX_HALO)
+    (11, 5, 5, 4, 7_376, True),
+    (81, 1024, 1024, 4, 723_104, False),  # many diagonals and a wide halo: two launches
+    (400, 40, 40, 4, 337_664, False),
+    (1, 0, 0, 2, 1_312, True),
+])
+def test_pair_ring_bytes(nd, lo, hi, esize, nbytes, fits):
+    """The ring kernel's shared memory (csrc/dia_shared.cu: RingLayout):
+    nd rows of W = (RING_AHEAD + 1) * RING_CHUNK + lo + hi (rounded to 16
+    bytes' worth) in the stripes' dtype, u for W rows, a step's x window
+    (RING_CHUNK + lo + hi floats, rounded to 4) and two ints a diagonal (nd
+    rounded up to 4); it takes the many-diagonal bands whose ring fits one
+    block on the H100."""
+    v = 16 // esize
+    W = -(-((spmv.RING_AHEAD + 1) * spmv.RING_CHUNK + lo + hi) // v) * v
+    assert (spmv.RING_CHUNK, spmv.RING_AHEAD) == (128, 0) and W % v == 0
+    assert spmv.pair_ring_bytes(nd, lo, hi, esize) == nbytes
+    assert (nbytes <= 232_448) == fits
 
 
 #: bands of each of the card's routes: staged (one-sided), unstaged (81
