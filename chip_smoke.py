@@ -16,7 +16,9 @@ raises on failure:
    +-1500: the two-launch route); the kernels' and the twins' times; the
    shared pair's staged route (checked to be the one taken at the main
    shape) and its unstaged kernel, the same bits at every shape whose halo
-   one launch takes, both also timed at 2^19;
+   one launch takes, both also timed at 2^19; the half-step timed in both
+   directions at the main shape (the adjoint's row ``[adjoint]`` beside the
+   kernels line's forward one);
 2. the main-path solve at m = n = 2^23 on the shared-stripe layout: f32
    stripes from a seeded generator with 12 added to the main diagonal, damp
    0.01 — a run to the machine-precision guards within 64 iterations, a
@@ -31,7 +33,10 @@ raises on failure:
    the same solves with the pair as two launches (the same istop and itn),
    after that pair at those stripes against its twin and the ring kernel
    called directly (the same bits over two calls), timed beside its bound
-   and, f32, the two CSR calls (the kernel's row in the last lines);
+   and, f32, the two CSR calls (the kernel's row in the last lines), and
+   the half-step there (staged tiles) against its twin in both directions,
+   the same bits over two calls and from the direct kernel, timed beside
+   its bound;
 5. f64 conformance at 2^16 against ``scipy.sparse.linalg.lsqr``, on the
    shared layout and through ``auto_operator`` (the packed layout), and the
    README 3x3 system through ``LSQRSolver(device="cuda")``;
@@ -108,8 +113,9 @@ raises on failure:
    same itn with bit-equal x (no kernel of either path adds with atomics);
 16. the complex pair ``zdia_pair`` against its twin at the JAX package's
    complex benchmark shape (``bench.py``'s zdia stage: m = n = 2^21, 5
-   diagonals, N(0, 1) planes), a ragged rectangular shape and a +-1500 band
-   at 2^20 (two launches); the ZDIA products against the complex128 COO
+   diagonals, N(0, 1) planes), a ragged rectangular shape (the staged
+   kernel, the same bits over two calls) and a +-1500 band at 2^20 (two
+   launches); the ZDIA products against the complex128 COO
    triplets; ``torch.sparse_csr_tensor`` A @ x plus the CSR of A^H @ u;
 17. complex solves: the benchmark's triplets (+12 on the diagonal) through
    ``auto_operator`` (ZDIA), damped (DAMP) to 1e-6 through ``zdia_pair``,
@@ -591,7 +597,8 @@ def phase_kernels(dev, shapes, errs, paths):
     """Phase 1: every kernel against its twin on the card; returns
     {variant: (kernel ms, twin ms, m, n, nd, stripe bytes per element,
     library ms or None)} of the first call of each, at the first (main-path)
-    shape for f32 and bf16 and at the second for f64. The library call is
+    shape for f32 and bf16 and at the second for f64, and of the half-step's
+    adjoint call too (``<variant>[adjoint]``, with its (n, m)). The library call is
     ``torch.sparse_csr_tensor @ x`` of the same matrix, for the products.
     At the main shape the kernels no solver calls (DIRECT) run once more
     as a counted path of their own, the direct call."""
@@ -623,6 +630,10 @@ def phase_kernels(dev, shapes, errs, paths):
                         lib = library_ms(csr, v, pairs[0][0]())
                     times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
                                    len(ks), storage.itemsize, lib)
+                    if base(name) == "dia_product_shared_axpy":  # and its adjoint
+                        times[name + "[adjoint]"] = (time_ms(pairs[1][0]),
+                                                     time_ms(pairs[1][1]), n, m, len(ks),
+                                                     storage.itemsize, None)
                 direct = [fn for name, pairs in calls.items() if base(name) in DIRECT
                           for fn, _ in pairs]
                 _, delta = counted(lambda: [fn() for fn in direct])
@@ -834,6 +845,45 @@ def phase_auto_operator(dev, m, paths):
     check(err <= 1e-4 and bool(torch.isfinite(res.x).all()), "auto_operator solve: x differs")
 
 
+def halfstep_many(A, v, y, c1, c2, errs, card):
+    """Phase 4: the half-step (forward and adjoint) on the many-diagonal
+    shared stripes ``A`` against its twin, the same bits over two calls and
+    from the direct kernel (one thread an output), timed beside its bound:
+    {direction: perf entry with its bound}."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    m, ks = A.m, A.offsets
+    name = "dia_product_shared_axpy" + ("" if A.dp.dtype == torch.float32 else "[bf16]")
+    kw = dict(offsets=ks, m=m, n=m)
+    tile = spmv.axpy_tile(len(ks), *spmv._halos(ks), A.dp.dtype.itemsize,
+                          *spmv._smem_limits(A.dp.device))
+    log(f"  {name} m={m} nd={len(ks)}: staged tiles of {tile}")
+    check(tile > 0, f"{name} at {len(ks)} diagonals must take the staged kernel")
+    calls = {name: [
+        (lambda a=a: spmv.dia_product_shared_axpy(A.dp, y if a else v, v if a else y, c1, c2,
+                                                  adjoint=a, offsets_t=A.offsets_t, **kw),
+         lambda a=a: spmv.dia_product_shared_axpy_plain(A.dp, y if a else v, v if a else y,
+                                                        c1, c2, adjoint=a, **kw))
+        for a in (False, True)]}
+    hold(calls, errs, m, m, ks, TOL)
+    out = {}
+    for a, (kernel, plain) in zip(("forward", "adjoint"), calls[name]):
+        direct = spmv._axpy_launch(A.dp, y if a == "adjoint" else v, v if a == "adjoint" else y,
+                                   c1, c2, adjoint=a == "adjoint", offsets_t=A.offsets_t,
+                                   tile=0, **kw)
+        first, again = kernel(), kernel()
+        same = bool(torch.equal(first, again) and torch.equal(first, direct))
+        log(f"  {name} {a}: a second call and the direct kernel bit-equal {same}")
+        check(same, f"{name} m={m} nd={len(ks)} {a}: not the same bits")
+        entry = dia_perf(name, time_ms(kernel), time_ms(plain, reps=3), m, m, len(ks),
+                         A.dp.dtype.itemsize)
+        report(f"{name} m={m} nd={len(ks)} {a}", entry, card)
+        out[a] = dict(entry, bound_ms=bound(entry["bytes"], entry["flops"], entry["esize"])[0])
+    return out
+
+
 def phase_unstaged_solves(dev, errs, card, paths):
     """Phase 4: solves on the shared layout whose pair takes the unstaged
     route, the ring kernel (MANY: no staged tile's two stages fit one SM),
@@ -842,7 +892,8 @@ def phase_unstaged_solves(dev, errs, card, paths):
     First the pair at these stripes: the wrapper (one launch, on the
     unstaged route) and the ring kernel called directly against the twin,
     the same bits over two calls, and its time beside its bound (f32: and
-    the two CSR calls). Returns (solves, {variant: perf entry})."""
+    the two CSR calls); then the half-step there (``halfstep_many``).
+    Returns (solves, {variant: perf entry})."""
     import torch
 
     import lsqr_tpu_torch as lt
@@ -875,6 +926,7 @@ def phase_unstaged_solves(dev, errs, card, paths):
               f"{len(ks)} diagonals {tag}: the wrapper must launch the unstaged kernel "
               f"once: {delta}")
         pair_routes_agree(calls, storage, f"m={m} n={m} nd={len(ks)}")
+        out[f"halfstep {tag}"] = halfstep_many(A, v, b, c1, c2, errs, card)
         unstaged = f"dia_pair_shared[{spmv.UNSTAGED[storage]}]"
         kernel, plain = calls[unstaged][0]
         lib = None
@@ -2345,8 +2397,9 @@ def complex_products(A, trip, x, y):
 
 def phase_complex_kernels(dev, errs, card):
     """Phase 16: zdia_pair against its twin at the JAX package's complex
-    benchmark shape (2^21, 5 diagonals), a ragged rectangular shape and a
-    +-1500 band at 2^20 (two launches); the ZDIA products (four dia_matvec
+    benchmark shape (2^21, 5 diagonals), a ragged rectangular shape (both
+    the staged kernel, the same bits over two calls) and a +-1500 band at
+    2^20 (two launches); the ZDIA products (four dia_matvec
     launches each) against the complex128 COO triplets; beside the pair,
     torch.sparse_csr_tensor's A @ x plus the CSR of A^H @ u (two calls)."""
     import torch
@@ -2371,10 +2424,20 @@ def phase_complex_kernels(dev, errs, card):
                                        **kw),
                 lambda: spmv.zdia_pair_plain(A.dr, A.di, y, win, c1, c2, **kw))
         (u, z), delta = counted(pair[0])
-        wide_band = max(spmv._halos(ks)) > spmv.PAIR_MAX_HALO
-        check(delta["zdia_pair"] == (2 if wide_band else 1) and sum(delta.values())
+        lo, hi = spmv._halos(ks)
+        tile = spmv.zpair_tile(len(ks), lo, hi, *spmv._smem_limits(dev)) \
+            if max(lo, hi) <= spmv.PAIR_MAX_HALO else 0
+        check(delta["zdia_pair"] == (1 if tile else 2) and sum(delta.values())
               == delta["zdia_pair"], f"zdia_pair m={m} n={n}: launches {delta}")
+        check(si == 2 or tile > 0, f"zdia_pair m={m} n={n}: the staged kernel must take it")
         hold({"zdia_pair": [pair]}, errs, m, n, ks, TOL)
+        u2, z2 = pair[0]()
+        same = bool(torch.equal(u, u2) and torch.equal(z, z2))
+        log(f"  zdia_pair m={m} n={n} nd={len(ks)}: "
+            + (f"staged tiles of {tile}" if tile else "two launches")
+            + f"; a second call bit-equal {same}")
+        check(same, f"zdia_pair m={m} n={n}: a second call differs in u or z")
+        del u2, z2
         trip = stripe_triplets(stripes, ks, m, n)
         (e_f, e_a), delta = counted(lambda: complex_products(A, trip, win, y))
         launched = {k: v for k, v in delta.items() if v}
@@ -2638,11 +2701,15 @@ def main():
     for name, (ms, plain_ms, m, n, nd, esize, lib) in times.items():
         perf[name] = dia_perf(name, ms, plain_ms, m, n, nd, esize, lib)
         report(name, perf[name], card)
+    halfstep = {name: dict(perf[name], bound_ms=bound(perf[name]["bytes"], perf[name]["flops"],
+                                                     perf[name]["esize"])[0])
+                for name in perf if base(name) == "dia_product_shared_axpy"}
     pair_small = phase_pair_routes(dev, M_SMALL, errs, card)
 
     phase("phases 2-3: main-path solves, shared layout")
     A, b, x_shared, solves = phase_main_solve(dev, M_MAIN, card, paths)
     solves["pair_shared_m" + str(M_SMALL)] = pair_small
+    solves["halfstep_main"] = halfstep
     phase("phase 4: auto_operator; the shared pair's unstaged route")
     phase_auto_operator(dev, 2 ** 20, paths)
     solves["unstaged_pair"], many = phase_unstaged_solves(dev, errs, card, paths)

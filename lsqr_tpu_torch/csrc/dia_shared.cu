@@ -22,8 +22,9 @@
 //
 // 1. dia_product_shared_kernel   <- dia_product_shared / _dia_shared_kernel
 //    y = A x or x = A' y (f64 products on the card come here).
-// 2. dia_shared_axpy_kernel      <- dia_product_shared_axpy /
-//                                   _dia_shared_axpy_kernel
+// 2. dia_axpy_staged_kernel      <- dia_product_shared_axpy /
+//    (dia_shared_axpy_kernel where     _dia_shared_axpy_kernel
+//    no tile fits)
 //    (A or A')(vec * c1) - c2 * y: the pair=False half-step.
 // 3. dia_pair_kernel (staged)    <- dia_pair_shared /
 //    dia_pair_ring_kernel            _dia_pair_shared_kernel_carry
@@ -39,10 +40,21 @@
 // against 67-134 MB of vectors.
 //
 // What the design does about it:
-// * one thread per output element in a grid-stride loop; for each diagonal
-//   a warp reads 32 neighbouring dp addresses and 32 neighbouring vector
-//   addresses, so every load is coalesced and every stripe byte is read
-//   from device memory once per product;
+// * the product: one thread per output element in a grid-stride loop; for
+//   each diagonal a warp reads 32 neighbouring dp addresses and 32
+//   neighbouring vector addresses, so every load is coalesced and every
+//   stripe byte is read from device memory once per product;
+// * the half-step (row 3) streams: a persistent grid walks tiles of T
+//   outputs and keeps two of them in shared memory, the next one's 16-byte
+//   cp.async copies in flight while this one is summed (dia_axpy_staged_
+//   kernel below). A tile stages each diagonal's T stripe elements (in the
+//   adjoint each at a 16-byte phase of its own), the vector window and y,
+//   and recomputes nothing, so each stripe byte crosses once and the
+//   vector window's x is read from shared memory, not once per diagonal
+//   through L1/L2 as the direct kernel (one thread an output, kept for
+//   windows no tile fits) reads it. At 2^23 x 11 it takes 0.176 ms in f32
+//   and 0.108 ms in bf16, against the direct kernel's 0.231 / 0.211 on the
+//   H100 (PERF.md; tools/halfstep_designs.py times the designs);
 // * the pair replaces the TPU's carry scheme (z block t-1 written at grid
 //   step t, which needs grid steps in order) by halo recompute. Its main
 //   route is the staged pair (csrc/dia_pair_staged.cuh): one-sided halos
@@ -131,6 +143,203 @@ __global__ void dia_shared_axpy_kernel(
   }
 }
 
+// The staged half-step (row 3): out = (A or A')(vec * c1) - c2 * y on a
+// persistent grid. Block b walks the tiles b, b + grid, ... of T outputs
+// and keeps kAxpyStages of them in shared memory, each staged by 16-byte
+// cp.async copies while the tiles before it are summed: every diagonal's T
+// stripe elements (row indices c0 + s_d, s_d = 0 forward and -k_d in the
+// adjoint, so each diagonal's piece has a 16-byte phase of its own there,
+// read from its address), the vector window [c0 - lo', c0 + T + hi') and
+// y's T rows. No halo is recomputed: a tile stages nd (T + V) stripe
+// elements, V = 16 bytes' worth, for any band. Each thread sums R outputs
+// kAxpyThreads apart side by side, -c2 y first and then the diagonals in
+// offset order, issuing kAxpyBatch diagonals' loads before it adds them:
+// the direct kernel's order and expressions, so the same bits. T comes
+// from ops/spmv.py: axpy_tile (AxpyLayout's bytes, mirrored there as
+// axpy_stage_bytes: change both together); T = 0 (a vector window too
+// wide for any tile's stages) takes the direct kernel above.
+constexpr int kAxpyThreads = 256;
+constexpr int kAxpyStages = 2;       // tiles in shared memory, the one summed included
+constexpr int kAxpyBatch = 4;        // diagonals whose loads a thread issues together
+static_assert(kAxpyStages >= 2 && kAxpyBatch % 4 == 0, "axpy shape");
+
+// A stage: nd rows of L = T + V stripe elements, the vector window (T +
+// lo + hi floats and up to 3 in front, rounded up to 4) and T floats of y;
+// kAxpyStages of them, then the sign-adjusted offsets (nd rounded up to 4
+// ints). T is a multiple of 16, so every part starts on the 16-byte grid.
+struct AxpyLayout {
+  long long L, LX, stage, bytes;
+  __host__ __device__ AxpyLayout(int nd, int lo, int hi, int T, int esize) {
+    L = static_cast<long long>(T) + 16 / esize;
+    LX = round_up(static_cast<long long>(T) + lo + hi + 3, 4);
+    stage = static_cast<long long>(nd) * L * esize + (LX + T) * 4;
+    bytes = kAxpyStages * stage + 4 * round_up(nd, 4);
+  }
+};
+
+// Stage the tile of outputs [c0, c0 + T) into `buf` (no commit). kk[d]: the
+// offset in the direction taken (k_d forward, -k_d adjoint); the vector
+// index of output i on diagonal d is i + kk[d], its stripe row i + s_d;
+// lo, hi: the halos of that direction; ph: the 16-byte phase of row 0.
+template <typename S>
+__device__ __forceinline__ void axpy_stage(unsigned char* buf, const AxpyLayout& lay,
+                                           const S* __restrict__ rows, long long stride,
+                                           int ph, const float* __restrict__ vec,
+                                           const float* __restrict__ y, const int* kk,
+                                           int nd, long long dim_out, long long dim_in,
+                                           int lo, int hi, int T, long long c0,
+                                           int adjoint) {
+  constexpr int V = 16 / sizeof(S);
+  const int len = static_cast<int>(dim_out - c0 < T ? dim_out - c0 : T);
+  const int P = static_cast<int>(lay.L / V);  // 16-byte pieces a row holds
+  S* const st = reinterpret_cast<S*>(buf);
+  for (int e = threadIdx.x; e < nd * P; e += blockDim.x) {
+    const int d = e / P, q = (e - d * P) * V;
+    const long long s = c0 + (adjoint ? kk[d] : 0);
+    const int sh = static_cast<int>((ph + s) & (V - 1));
+    if (q < sh + len) cp_async16(st + d * lay.L + q, rows + d * stride + s - sh + q);
+  }
+  float* const xs = reinterpret_cast<float*>(buf + nd * lay.L * sizeof(S));
+  const long long xa = c0 - lo > 0 ? c0 - lo : 0;
+  const long long xb = c0 + len + hi < dim_in ? c0 + len + hi : dim_in;
+  if (xa < xb) {
+    const int shx = static_cast<int>(xa & 3);
+    for (int q = threadIdx.x * 4; q < shx + (xb - xa); q += blockDim.x * 4) {
+      cp_async16(xs + q, vec + xa - shx + q);
+    }
+  }
+  float* const ys = xs + lay.LX;
+  for (int q = threadIdx.x * 4; q < len; q += blockDim.x * 4) cp_async16(ys + q, y + c0 + q);
+}
+
+// Sum the staged tile [c0, c0 + T) into out: R outputs a thread,
+// kAxpyThreads apart; those whose whole band lies inside [0, dim_in) skip
+// the mask.
+template <typename S, int R>
+__device__ __forceinline__ void axpy_sum(const unsigned char* buf, const AxpyLayout& lay,
+                                         int ph, const int* kk, int nd, float c1, float c2,
+                                         float* __restrict__ out, long long dim_out,
+                                         long long dim_in, int lo, int hi, int T,
+                                         long long c0, int adjoint) {
+  constexpr int V = 16 / sizeof(S);
+  constexpr int kS = kAxpyThreads;
+  constexpr int B = kAxpyBatch;
+  const S* const st = reinterpret_cast<const S*>(buf);
+  const float* const xs = reinterpret_cast<const float*>(buf + nd * lay.L * sizeof(S));
+  const float* const ys = xs + lay.LX;
+  const long long xa = c0 - lo > 0 ? c0 - lo : 0;
+  const int sph = static_cast<int>((ph + c0) & (V - 1));  // row c0's phase
+  const int nb = nd / B * B;  // diagonals taken in whole batches
+  for (int g = 0; g < T; g += kS * R) {
+    const int t0 = g + threadIdx.x;  // this thread's outputs c0 + t0 + kS q
+    const long long i0 = c0 + t0;
+    const float* const xb = xs + (xa & 3) + (i0 - xa);  // x[i0 + kS q + k] at xb[kS q + k]
+    float acc[R];
+    bool ok[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int t = t0 + q * kS;
+      ok[q] = t < T && c0 + t < dim_out;
+      acc[q] = ok[q] ? (-c2) * ys[t] : 0.0f;
+    }
+    if (ok[R - 1] && i0 >= lo && i0 + (R - 1) * kS + hi < dim_in) {
+      for (int d = 0; d < nb; d += B) {
+        int kq[B];
+#pragma unroll
+        for (int b = 0; b < B; b += 4) {
+          const int4 k4 = *reinterpret_cast<const int4*>(kk + d + b);
+          kq[b] = k4.x, kq[b + 1] = k4.y, kq[b + 2] = k4.z, kq[b + 3] = k4.w;
+        }
+        float sv[R][B], xv[R][B];
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const S* sd = st + (d + b) * lay.L + t0 + (adjoint ? (sph + kq[b]) & (V - 1) : sph);
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            sv[q][b] = lds(sd + q * kS);
+            xv[q][b] = xb[q * kS + kq[b]];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+#pragma unroll
+          for (int b = 0; b < B; ++b) acc[q] += sv[q][b] * (xv[q][b] * c1);
+        }
+      }
+      for (int d = nb; d < nd; ++d) {
+        const int k = kk[d];
+        const S* sd = st + d * lay.L + t0 + (adjoint ? (sph + k) & (V - 1) : sph);
+#pragma unroll
+        for (int q = 0; q < R; ++q) acc[q] += lds(sd + q * kS) * (xb[q * kS + k] * c1);
+      }
+    } else {
+      for (int d = 0; d < nd; ++d) {
+        const int k = kk[d];
+        const S* sd = st + d * lay.L + t0 + (adjoint ? (sph + k) & (V - 1) : sph);
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const long long src = i0 + q * kS + k;
+          if (ok[q] && src >= 0 && src < dim_in) {
+            acc[q] += lds(sd + q * kS) * (xb[q * kS + k] * c1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (ok[q]) out[i0 + q * kS] = acc[q];
+    }
+  }
+}
+
+// rows = dp + H; lo, hi: the halos of the direction taken. Each iteration
+// waits for its tile's copies, synchronises (so every thread has also left
+// the tile before, whose stage the next copies reuse), stages the tile
+// kAxpyStages - 1 ahead and sums its own: one barrier a tile.
+template <typename S, int R>
+__global__ void __launch_bounds__(kAxpyThreads) dia_axpy_staged_kernel(
+    const S* __restrict__ rows, long long stride, const float* __restrict__ vec,
+    const float* __restrict__ y, const float* __restrict__ c1p,
+    const float* __restrict__ c2p, float* __restrict__ out,
+    const int* __restrict__ offsets, int nd, long long dim_out, long long dim_in, int lo,
+    int hi, int T, long long tiles, int adjoint) {
+  constexpr int V = 16 / sizeof(S);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const AxpyLayout lay(nd, lo, hi, T, sizeof(S));
+  int* const kk = reinterpret_cast<int*>(smem + kAxpyStages * lay.stage);
+  for (int d = threadIdx.x; d < nd; d += blockDim.x) {
+    const int k = __ldg(offsets + d);
+    kk[d] = adjoint ? -k : k;
+  }
+  const float c1 = __ldg(c1p);
+  const float c2 = __ldg(c2p);
+  const int ph = static_cast<int>((reinterpret_cast<uintptr_t>(rows) / sizeof(S)) % V);
+  const long long grid = gridDim.x;
+  __syncthreads();  // kk
+#pragma unroll
+  for (int s = 0; s < kAxpyStages - 1; ++s) {
+    const long long tile = blockIdx.x + s * grid;
+    if (tile < tiles) {
+      axpy_stage(smem + s * lay.stage, lay, rows, stride, ph, vec, y, kk, nd, dim_out,
+                 dim_in, lo, hi, T, tile * T, adjoint);
+    }
+    cp_async_commit();
+  }
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += grid, ++it) {
+    cp_async_wait_group<kAxpyStages - 2>();  // this tile's copies
+    __syncthreads();
+    const long long ahead = tile + (kAxpyStages - 1) * grid;
+    if (ahead < tiles) {
+      axpy_stage(smem + (it + kAxpyStages - 1) % kAxpyStages * lay.stage, lay, rows, stride,
+                 ph, vec, y, kk, nd, dim_out, dim_in, lo, hi, T, ahead * T, adjoint);
+    }
+    cp_async_commit();
+    axpy_sum<S, R>(smem + it % kAxpyStages * lay.stage, lay, ph, kk, nd, c1, c2, out, dim_out,
+                   dim_in, lo, hi, T, tile * T, adjoint);
+  }
+}
+
 // The many-diagonal pair (the route counted as "unstaged": no staged
 // tile's two stages fit). A persistent grid; block b owns the indices
 // [a, b) of BOTH u (rows) and z (columns), whole chunks of kRingChunk, and
@@ -174,11 +383,6 @@ struct RingLayout {
     bytes = u_at + 4LL * W + 4LL * LX + 8LL * nd4;
   }
 };
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ int wrap(int p, int W) { return p >= W ? p - W : p; }
 
@@ -398,19 +602,72 @@ int launch_product(const void* dp, const void* vec, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, int R>
+int launch_axpy_staged(const S* rows, long long Lp, const float* vec, const float* y,
+                       const float* c1, const float* c2, float* out, const int* offsets,
+                       int nd, long long dim_out, long long dim_in, int lo, int hi, int T,
+                       int adjoint, cudaStream_t stream) {
+  const AxpyLayout lay(nd, lo, hi, T, sizeof(S));
+  auto kernel = dia_axpy_staged_kernel<S, R>;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes)));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (!err) err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (!err) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kAxpyThreads, lay.bytes));
+  }
+  if (err) return err;
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long tiles = (dim_out + T - 1) / T;
+  const long long slots = static_cast<long long>(per_sm) * sms;
+  kernel<<<static_cast<unsigned>(tiles < slots ? tiles : slots), kAxpyThreads, lay.bytes,
+           stream>>>(rows, Lp, vec, y, c1, c2, out, offsets, nd, dim_out, dim_in, lo, hi, T,
+                     tiles, adjoint);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The half-step: the staged kernel in tiles of T (ops/spmv.py: axpy_tile;
+// lo = max(0, -k_min), hi = max(0, k_max), at most H; dp, vec and y
+// 16-byte aligned), or the direct kernel where T is 0.
 template <typename S>
 int launch_axpy(const void* dp, const void* vec, const void* y, const void* c1,
                 const void* c2, void* out, const void* offsets, int nd,
                 long long Lp, int H, long long dim_out, long long dim_in,
-                int adjoint, void* stream) {
-  dia_shared_axpy_kernel<S>
-      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const S*>(dp), static_cast<const float*>(vec),
-          static_cast<const float*>(y), static_cast<const float*>(c1),
-          static_cast<const float*>(c2), static_cast<float*>(out),
-          static_cast<const int*>(offsets), nd, Lp, H, dim_out, dim_in,
-          adjoint);
-  return static_cast<int>(cudaGetLastError());
+                int adjoint, int lo, int hi, int T, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    dia_shared_axpy_kernel<S><<<grid_for(dim_out), kThreads, 0, s>>>(
+        static_cast<const S*>(dp), static_cast<const float*>(vec),
+        static_cast<const float*>(y), static_cast<const float*>(c1),
+        static_cast<const float*>(c2), static_cast<float*>(out),
+        static_cast<const int*>(offsets), nd, Lp, H, dim_out, dim_in, adjoint);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (T < 16 || T % 16 || lo < 0 || hi < 0 || lo > H || hi > H || Lp % 16 ||
+      !aligned16(dp) || !aligned16(vec) || !aligned16(y)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dim_out == 0) return 0;
+  const int lo_ = adjoint ? hi : lo, hi_ = adjoint ? lo : hi;  // this direction's halos
+  const auto* rows = static_cast<const S*>(dp) + H;
+  const auto* vp = static_cast<const float*>(vec);
+  const auto* yp = static_cast<const float*>(y);
+  const auto* c1p = static_cast<const float*>(c1);
+  const auto* c2p = static_cast<const float*>(c2);
+  auto* op = static_cast<float*>(out);
+  const auto* off = static_cast<const int*>(offsets);
+  if (T >= 4 * kAxpyThreads) {
+    return launch_axpy_staged<S, 4>(rows, Lp, vp, yp, c1p, c2p, op, off, nd, dim_out, dim_in,
+                                    lo_, hi_, T, adjoint, s);
+  }
+  if (T >= 2 * kAxpyThreads) {
+    return launch_axpy_staged<S, 2>(rows, Lp, vp, yp, c1p, c2p, op, off, nd, dim_out, dim_in,
+                                    lo_, hi_, T, adjoint, s);
+  }
+  return launch_axpy_staged<S, 1>(rows, Lp, vp, yp, c1p, c2p, op, off, nd, dim_out, dim_in,
+                                  lo_, hi_, T, adjoint, s);
 }
 
 // The ring pair on the shared layout: halos lo = max(0, -k_min) and
@@ -472,9 +729,10 @@ const char* lsqr_cuda_error_string(int code) {
   int lsqr_dia_shared_axpy_##SUFFIX(                                            \
       const void* dp, const void* vec, const void* y, const void* c1,           \
       const void* c2, void* out, const void* offsets, int nd, long long Lp,     \
-      int H, long long dim_out, long long dim_in, int adjoint, void* stream) {  \
+      int H, long long dim_out, long long dim_in, int adjoint, int lo, int hi,  \
+      int T, void* stream) {                                                    \
     return launch_axpy<S>(dp, vec, y, c1, c2, out, offsets, nd, Lp, H,          \
-                          dim_out, dim_in, adjoint, stream);                    \
+                          dim_out, dim_in, adjoint, lo, hi, T, stream);         \
   }
 
 #define LSQR_PAIR(SUFFIX, S)                                                    \

@@ -36,8 +36,10 @@ _SIGNATURES = {
     # dp, vec, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, stream
     **{f"lsqr_dia_product_shared_{s}": (_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P)
        for s in ("f32", "f64", "bf16")},
-    # dp, vec, y, c1, c2, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, stream
-    **{f"lsqr_dia_shared_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P)
+    # dp, vec, y, c1, c2, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, lo,
+    # hi, T, stream
+    **{f"lsqr_dia_shared_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _I,
+                                     _I, _I, _P)
        for s in ("f32", "bf16")},
     # dp, vec, y, c1, c2, u, z, offsets, nd, Lp, H, m, n, lo, hi, stream
     **{f"lsqr_dia_pair_shared_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I,
@@ -70,8 +72,9 @@ _SIGNATURES = {
     # nd, lo, hi (returns the tile, 0 where none fits, -1 on a CUDA error)
     **{f"lsqr_dia_pair_tile_{s}": (_I, _I, _I) for s in ("f32", "bf16")},
     # csrc/zdia.cu
-    # dr, di, win, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, mode, stream
-    "lsqr_zdia_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P),
+    # dr, di, win, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, mode, T, stream
+    "lsqr_zdia_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
+                           _P),
     # csrc/jdia.cu
     # data, eoff, base, x, out, ns, m_pad, nt_p, m, n, tm, p_lo, stream
     "lsqr_jdia_matvec_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _P),

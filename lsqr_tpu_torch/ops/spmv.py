@@ -86,6 +86,10 @@ __all__ = [
     "pair_tile",
     "pair_shared_route",
     "pair_ring_bytes",
+    "axpy_stage_bytes",
+    "axpy_tile",
+    "zpair_stage_bytes",
+    "zpair_tile",
     "UNSTAGED",
 ]
 
@@ -98,6 +102,18 @@ PAIR_MAX_HALO = 1024
 #: the shared pair's ring kernel (csrc/dia_shared.cu: kRingChunk,
 #: kRingAhead): rows a step adds to the ring, and chunks in flight ahead
 RING_CHUNK, RING_AHEAD = 128, 0
+
+#: the staged half-step (csrc/dia_shared.cu: kAxpyStages): tiles in shared
+#: memory, the one summed included; and its tiles, best first, in two
+#: tiers: a tile of at least a block's 256 threads (kAxpyThreads) where one
+#: fits, else a smaller one
+AXPY_STAGES = 2
+AXPY_TILES = ((1024, 512, 256), (128, 64, 32, 16))
+
+#: the staged complex pair (csrc/zdia.cu: kZStages), and the spans
+#: T + lo + hi of its tiles, best first
+ZPAIR_STAGES = 2
+ZPAIR_SPANS = (512, 1024, 2048, 4096)
 
 #: the variant under which :func:`dia_pair_shared` counts a launch of its
 #: many-diagonal (ring) kernel, by stripe dtype: ``launch_counts(by_variant=True)``
@@ -414,11 +430,27 @@ def dia_product_shared_axpy(dp, vec, y, c1, c2, *, offsets: Sequence[int],
     """out = A(vec*c1) - c2*y (adjoint=False) or A'(vec*c1) - c2*y
     (adjoint=True). c1, c2 are numbers or 0-d tensors; on CUDA they stay on
     the device (the kernel reads them through pointers). On CUDA: f32 or
-    bf16 stripes, f32 vectors."""
+    bf16 stripes (``dp`` 16-byte aligned), f32 vectors; the staged kernel
+    in tiles of :func:`axpy_tile` (vectors off the 16-byte grid are
+    copied), or, where no tile fits, the direct kernel (one launch
+    either way)."""
     offsets = tuple(int(k) for k in offsets)
     if not dp.is_cuda:
         return dia_product_shared_axpy_plain(dp, vec, y, c1, c2, offsets=offsets,
                                              m=m, n=n, adjoint=adjoint)
+    tile = axpy_tile(len(offsets), *_halos(offsets), dp.dtype.itemsize,
+                     *_smem_limits(dp.device))
+    return _axpy_launch(dp, vec, y, c1, c2, offsets=offsets, m=m, n=n, adjoint=adjoint,
+                        offsets_t=offsets_t, tile=tile)
+
+
+def _axpy_launch(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int, n: int,
+                 adjoint: bool, offsets_t: Optional[torch.Tensor] = None, tile: int):
+    """One launch of the half-step on CUDA tensors: the staged kernel in
+    tiles of ``tile``, or the direct kernel where ``tile`` is 0.
+    :func:`dia_product_shared_axpy` picks the tile (:func:`axpy_tile`); a
+    comparison of the two kernels passes 0."""
+    offsets = tuple(int(k) for k in offsets)
     fn = _kernel("dia_shared_axpy", dp, (torch.float32, torch.bfloat16), offsets)
     _check_shared(dp, offsets, m, n)
     H, Lp = _geometry(offsets, m, n)
@@ -428,13 +460,19 @@ def dia_product_shared_axpy(dp, vec, y, c1, c2, *, offsets: Sequence[int],
     offsets_t = _offsets_on(dp, offsets, offsets_t)
     c1 = _device_scalar(c1, dp.device)
     c2 = _device_scalar(c2, dp.device)
+    lo, hi = _halos(offsets)
+    if tile:
+        if dp.data_ptr() % 16:
+            raise ValueError("dp must be 16-byte aligned (the half-step stages it in "
+                             "16-byte copies)")
+        vec, y = _aligned(vec, y)
     out = torch.empty(dim_out, dtype=torch.float32, device=dp.device)
     if dim_out == 0:
         return out
     _launch(dia_product_shared_axpy, fn, dp, dp.data_ptr(), vec.data_ptr(),
             y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
             offsets_t.data_ptr(), len(offsets), Lp, H, dim_out, dim_in,
-            int(adjoint))
+            int(adjoint), lo, hi, tile)
     return out
 
 
@@ -452,6 +490,87 @@ def pair_ring_bytes(nd, lo, hi, esize):
     return -(-nd * W * esize // 16) * 16 + 4 * W + 4 * LX + 8 * -(-nd // 4) * 4
 
 
+def _round_up(v, q):
+    return -(-v // q) * q
+
+
+def _fit_tile(tiers, nbytes, per_sm, optin):
+    """A tile from ``tiers`` (lists of tiles, best first): in the first tier
+    that has one, the first tile whose shared memory (``nbytes(T)``) fits
+    two blocks an SM (the card keeps 1 KB a block) or, where none in the
+    tier does, the first that fits one block; 0 where no tile fits."""
+    for tier in tiers:
+        for budget in (per_sm // 2 - 1024, optin):
+            for T in tier:
+                if nbytes(T) <= budget:
+                    return T
+    return 0
+
+
+def axpy_stage_bytes(nd, lo, hi, T, esize, stages=AXPY_STAGES):
+    """The dynamic shared memory of the staged half-step
+    (csrc/dia_shared.cu: AxpyLayout) in tiles of T for nd diagonals, halos
+    lo, hi (either direction: their sum counts) and stripes of ``esize``
+    bytes: ``stages`` stages of nd rows of T + 16/esize stripe elements,
+    the vector window (T + lo + hi floats and 3 in front, rounded up to 4)
+    and T floats of y; then nd ints (rounded up to 4)."""
+    stage = nd * (T + 16 // esize) * esize + (_round_up(T + lo + hi + 3, 4) + T) * 4
+    return stages * stage + 4 * _round_up(nd, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def axpy_tile(nd, lo, hi, esize, per_sm, optin):
+    """The staged half-step's tile for a card with ``per_sm`` bytes of
+    shared memory an SM and ``optin`` a block: of the tiers of AXPY_TILES,
+    the largest tile whose stages fit two blocks an SM, else one block (at
+    2^20 x 81 in f32 one block of T = 256 beat two of T = 128: PERF.md); 0
+    where none fits (a vector window too wide: lo + hi above about 29,000),
+    and :func:`dia_product_shared_axpy` then takes the direct kernel. At
+    lo + hi = 0 the rule takes every nd the kernels take (1024) in f32 and
+    bf16, with T = 16 from nd = 395 (f32) and 703 (bf16) on the H100."""
+    return _fit_tile(AXPY_TILES, lambda T: axpy_stage_bytes(nd, lo, hi, T, esize),
+                     per_sm, optin)
+
+
+def zpair_stage_bytes(nd, lo, hi, T, stages=ZPAIR_STAGES):
+    """The dynamic shared memory of the staged complex pair (csrc/zdia.cu:
+    ZPairLayout) in tiles of T for nd diagonals and halos lo, hi:
+    ``stages`` stages of 2 nd plane rows (the span T + lo + hi and 3 in
+    front, rounded up to 4 floats), win (span + lo + hi complex64 and 1 in
+    front, rounded up to 2) and y (span and 1, rounded up to 2); u for the
+    span (rounded up to 2) and two ints a diagonal (nd rounded up to 4)."""
+    span = T + lo + hi
+    stage = 2 * nd * _round_up(span + 3, 4) * 4 + (
+        _round_up(span + lo + hi + 1, 2) + _round_up(span + 1, 2)) * 8
+    return stages * stage + _round_up(span, 2) * 8 + 8 * _round_up(nd, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def zpair_tile(nd, lo, hi, per_sm, optin):
+    """The staged complex pair's tile on such a card: T = P - (lo + hi
+    rounded up to 4) for the first span P of ZPAIR_SPANS with T >= lo + hi
+    whose stages fit two blocks an SM, else one (the smaller span with more
+    blocks an SM was the faster at bench.py's zdia shape: PERF.md); 0 where
+    none fits (many diagonals, or halos near PAIR_MAX_HALO), and
+    :func:`zdia_pair` then takes two launches."""
+    halo = _round_up(lo + hi, 4)
+    tiles = [P - halo for P in ZPAIR_SPANS if P - halo >= max(lo + hi, 1)]
+    return _fit_tile([tiles], lambda T: zpair_stage_bytes(nd, lo, hi, T), per_sm, optin)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limits(device):
+    """(shared memory an SM, the most one block may opt in to) on ``device``."""
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_multiprocessor, props.shared_memory_per_block_optin
+
+
+def _aligned(*ts):
+    """The tensors, each copied where it lies off the 16-byte grid (the
+    staged kernels copy them in 16-byte pieces)."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
 def pair_shared_route(H, tile, ring):
     """The route :func:`dia_pair_shared` takes on the card for a band of
     halo H (max |k|), a staged tile (:func:`pair_tile`, 0 where none fits)
@@ -464,11 +583,9 @@ def pair_shared_route(H, tile, ring):
     return "staged" if tile else "unstaged"
 
 
-@functools.lru_cache(maxsize=None)
 def _ring_fits(device, dtype, nd, lo, hi):
     """Whether the ring kernel's shared memory fits one block on ``device``."""
-    smem = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    return pair_ring_bytes(nd, lo, hi, dtype.itemsize) <= smem
+    return pair_ring_bytes(nd, lo, hi, dtype.itemsize) <= _smem_limits(device)[1]
 
 
 def dia_pair_shared(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: int,
@@ -531,7 +648,7 @@ def _dia_pair_shared_launch(dp, vec, y, c1, c2, *, offsets: Sequence[int], m: in
         raise ValueError("dp must be 16-byte aligned (the pair stages it in 16-byte "
                          "copies)")
     if tile:  # the staged kernel stages the vectors too
-        vec, y = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (vec, y))
+        vec, y = _aligned(vec, y)
     u = torch.empty(m, dtype=torch.float32, device=dp.device)
     z = torch.empty(n, dtype=torch.float32, device=dp.device)
     if max(m, n) == 0:
@@ -737,8 +854,7 @@ def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int
     if data.data_ptr() % 16:
         raise ValueError("data must be 16-byte aligned (the pair stages it in 16-byte "
                          "copies)")
-    # the vectors are staged likewise: a view off the 16-byte grid is copied
-    win_vec, y = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (win_vec, y))
+    win_vec, y = _aligned(win_vec, y)  # the vectors are staged likewise
     u = torch.empty(m, dtype=torch.float32, device=data.device)
     z = torch.empty(n, dtype=torch.float32, device=data.device)
     if max(m, n) == 0:
@@ -769,8 +885,8 @@ def pair_tile(device, dtype, nd, lo, hi):
     return tile
 
 
-#: the modes of the zdia_pair kernel (csrc/zdia.cu): the one-pass pair with
-#: its halo recomputed; u alone; z = A^H u from u
+#: the modes of the zdia_pair kernel (csrc/zdia.cu): the staged one-pass pair
+#: with its halo recomputed; u alone; z = A^H u from u
 ZPAIR_FUSED, ZPAIR_FORWARD, ZPAIR_ADJOINT = 0, 1, 2
 
 
@@ -781,12 +897,28 @@ def zdia_pair(dr, di, y, win, c1, c2, *, offsets: Sequence[int], m: int, n: int,
         u = A (win*c1) - c2*y,     z = A^H u
     with y (m,) and win (n,) complex64 and REAL scalars c1, c2 (numbers or
     0-d tensors, read on the device). Returns (u (m,), z (n,)) complex64.
-    On CUDA: f32 planes. When lo = max(0, -min k) or hi = max(0, max k)
-    exceeds PAIR_MAX_HALO, the pair is two launches of the kernel (u, then
-    z from u), each counted."""
+    On CUDA: f32 planes (16-byte aligned), one launch of the staged pair in
+    tiles of :func:`zpair_tile` (vectors off the 16-byte grid are copied).
+    When lo = max(0, -min k) or hi = max(0, max k) exceeds PAIR_MAX_HALO,
+    or no tile fits, the pair is two launches of the kernel (u, then z
+    from u), each counted."""
     offsets = tuple(int(k) for k in offsets)
     if not dr.is_cuda:
         return zdia_pair_plain(dr, di, y, win, c1, c2, offsets=offsets, m=m, n=n)
+    lo, hi = _halos(offsets)
+    tile = zpair_tile(len(offsets), lo, hi, *_smem_limits(dr.device)) \
+        if max(lo, hi) <= PAIR_MAX_HALO else 0
+    return _zdia_pair_launch(dr, di, y, win, c1, c2, offsets=offsets, m=m, n=n,
+                             offsets_t=offsets_t, tile=tile)
+
+
+def _zdia_pair_launch(dr, di, y, win, c1, c2, *, offsets: Sequence[int], m: int, n: int,
+                      offsets_t: Optional[torch.Tensor] = None, tile: int):
+    """The complex pair on CUDA tensors: one launch of the staged kernel in
+    tiles of ``tile`` (the kernel refuses halos above PAIR_MAX_HALO), or two
+    launches (u, then z from u) where ``tile`` is 0. :func:`zdia_pair` picks
+    the tile (:func:`zpair_tile`); a comparison of the two routes passes 0."""
+    offsets = tuple(int(k) for k in offsets)
     fn = _kernel("zdia_pair", dr, (torch.float32,), offsets)
     _check("dr", dr, torch.float32, dr.device, (len(offsets), m))
     _check("di", di, torch.float32, dr.device, (len(offsets), m))
@@ -799,15 +931,20 @@ def zdia_pair(dr, di, y, win, c1, c2, *, offsets: Sequence[int], m: int, n: int,
     if max(m, n) == 0:
         return u, z
     lo, hi = _halos(offsets)
+    if tile:
+        if dr.data_ptr() % 16 or di.data_ptr() % 16:
+            raise ValueError("dr and di must be 16-byte aligned (the pair stages them in "
+                             "16-byte copies)")
+        y, win = _aligned(y, win)
     # the kernel reads and writes the complex vectors as interleaved float2
     ptrs = [torch.view_as_real(t).data_ptr() for t in (y, win, u, z)]
     args = (dr.data_ptr(), di.data_ptr(), ptrs[1], ptrs[0], c1.data_ptr(), c2.data_ptr(),
             ptrs[2], ptrs[3], offsets_t.data_ptr(), len(offsets), m, n, lo, hi)
-    if max(lo, hi) <= PAIR_MAX_HALO:
-        _launch(zdia_pair, fn, dr, *args, ZPAIR_FUSED)
+    if tile:
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_FUSED, tile)
     else:
-        _launch(zdia_pair, fn, dr, *args, ZPAIR_FORWARD)
-        _launch(zdia_pair, fn, dr, *args, ZPAIR_ADJOINT)
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_FORWARD, 0)
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_ADJOINT, 0)
     return u, z
 
 

@@ -1161,3 +1161,137 @@ def test_cuda_complex_solves_run_through_zdia_pair(rng, cuda_device):
         out = solve()
         assert spmv.launch_counts()["zdia_pair"] > 0 and int(out.istop) in (1, 2, 3)
         assert bool(torch.isfinite(torch.view_as_real(out.x)).all())
+
+
+#: the staged half-step's edges: offsets with mixed odd phases (each
+#: diagonal's adjoint piece at a 16-byte phase of its own) on m, n not
+#: multiples of 8, m != n both ways, dim_out below one tile, 81 diagonals
+#: (one block an SM in f32), halos past PAIR_MAX_HALO (the half-step takes
+#: any), one-sided bands
+AXPY_CASES = [
+    (4099, 2053, (-7, -3, 0, 1, 5)),
+    (2053, 4099, (-7, -3, 0, 1, 5)),
+    (301, 203, (-7, -3, 0, 1, 5)),
+    (3001, 2001, tuple(range(-40, 41))),
+    (5000, 4000, (-1500, -2, 0, 3, 1100)),
+    (70_001, 90_003, (-1024, -1, 2, 700)),
+    (3001, 2003, (-9, -4, 0)),
+    (2003, 3001, (0, 3, 11)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("m,n,ks", AXPY_CASES)
+def test_cuda_staged_halfstep_matches_twin_and_is_bit_stable(rng, cuda_device, m, n, ks,
+                                                            adjoint, storage):
+    """The staged half-step against its twin; two calls, vectors that are
+    views off the 16-byte grid (the wrapper copies them) and the direct
+    kernel (one thread an output, the same order) give the same bits."""
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    Ah = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
+    dp = Ah.dp.to(cuda_device)
+    v, y = _vectors(rng, m, n)
+    vec, out = (y, v) if adjoint else (v, y)
+    dvec, dout = vec.to(cuda_device), out.to(cuda_device)
+    kw = dict(offsets=ks, m=m, n=n, adjoint=adjoint)
+    c1 = torch.tensor(0.8, device=cuda_device)
+    tile = spmv.axpy_tile(len(ks), *spmv._halos(ks), dp.dtype.itemsize,
+                          *spmv._smem_limits(cuda_device))
+    assert tile > 0
+    spmv.reset_launch_counts()
+    first, again = (spmv.dia_product_shared_axpy(dp, dvec, dout, c1, 1.3, **kw)
+                    for _ in range(2))
+    vo, yo = (torch.cat([t.new_zeros(1), t])[1:] for t in (dvec, dout))
+    assert vo.data_ptr() % 16 and yo.data_ptr() % 16
+    off_grid = spmv.dia_product_shared_axpy(dp, vo, yo, c1, 1.3, **kw)
+    direct = spmv._axpy_launch(dp, dvec, dout, c1, 1.3, tile=0, **kw)
+    ref = spmv.dia_product_shared_axpy_plain(Ah.dp, vec, out, 0.8, 1.3, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(first, ref) < TOL
+    assert torch.equal(first, again) and torch.equal(first, off_grid)
+    assert torch.equal(first, direct)
+    suffix = "" if storage == "float32" else "[bf16]"
+    assert spmv.launch_counts(by_variant=True)["dia_product_shared_axpy" + suffix] == 4
+    assert spmv.launch_counts() == _only(dia_product_shared_axpy=4)
+
+
+@pytest.mark.cuda
+def test_cuda_staged_halfstep_refuses_unaligned_stripes(rng, cuda_device):
+    """The staged kernels copy dp in 16-byte pieces: a dp off the grid is
+    refused (the vectors are copied instead)."""
+    m, n, ks = 300, 300, (-1, 0, 1)
+    Ah = _operator(rng, m, n, ks)
+    big = torch.zeros(Ah.dp.numel() + 1, device=cuda_device)
+    big[1:] = Ah.dp.to(cuda_device)
+    v, y = (t.to(cuda_device) for t in _vectors(rng, m, n))
+    with pytest.raises(ValueError, match="aligned"):
+        spmv.dia_product_shared_axpy(big[1:], v, y, 1.0, 1.0, offsets=ks, m=m, n=n,
+                                     adjoint=False)
+
+
+#: the staged complex pair's edges: one-sided bands (lower, upper), ragged
+#: m != n both ways, m below one tile, a halo whose span takes a larger tile
+ZPAIR_CASES = [
+    (3001, 2003, (-9, -4, 0)),
+    (2003, 3001, (0, 3, 11)),
+    (300_001, 200_003, (-60, -3, 0, 5)),
+    (200_003, 300_001, (-5, 0, 3, 60)),
+    (301, 203, (-2, 0, 1)),
+    (257, 129, (0,)),
+    (5003, 4001, (-300, -1, 0, 2, 200)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,ks", ZPAIR_CASES)
+def test_cuda_staged_zdia_pair_matches_twin_and_is_bit_stable(rng, cuda_device, m, n, ks):
+    """The staged complex pair (one launch) against its twin; two calls,
+    vectors off the 16-byte grid and the two-launch route (u, then z from
+    u: the same order) give the same bits."""
+    stripes = lt.zdia_stripes(m, n, ks, seed=int(rng.integers(1 << 30)), device=DEV)
+    Ah = lt.dia_operator_device(m, n, ks, stripes)
+    A = lt.dia_operator_device(m, n, ks, stripes.to(cuda_device))
+    win = torch.randn(n, dtype=torch.complex64)
+    y = torch.randn(m, dtype=torch.complex64)
+    dwin, dy = win.to(cuda_device), y.to(cuda_device)
+    kw = dict(offsets=ks, m=m, n=n, offsets_t=A.offsets_t)
+    c1 = torch.tensor(0.8, device=cuda_device)
+    lo, hi = spmv._halos(ks)
+    tile = spmv.zpair_tile(len(ks), lo, hi, *spmv._smem_limits(cuda_device))
+    assert tile > 0
+    spmv.reset_launch_counts()
+    (u1, z1), (u2, z2) = (spmv.zdia_pair(A.dr, A.di, dy, dwin, c1, 1.1, **kw)
+                          for _ in range(2))
+    assert spmv.launch_counts() == _only(zdia_pair=2)
+    yo, wo = (torch.cat([t.new_zeros(1), t])[1:] for t in (dy, dwin))
+    assert torch.view_as_real(yo).data_ptr() % 16 and torch.view_as_real(wo).data_ptr() % 16
+    u3, z3 = spmv.zdia_pair(A.dr, A.di, yo, wo, c1, 1.1, **kw)
+    u4, z4 = spmv._zdia_pair_launch(A.dr, A.di, dy, dwin, c1, 1.1, tile=0, **kw)
+    ur, zr = spmv.zdia_pair_plain(Ah.dr, Ah.di, y, win, 0.8, 1.1, offsets=ks, m=m, n=n)
+    torch.cuda.synchronize()
+    assert _crel(u1, ur) < TOL and _crel(z1, zr) < TOL
+    for u, z in ((u2, z2), (u3, z3), (u4, z4)):
+        assert torch.equal(u1, u) and torch.equal(z1, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_halfstep_solve_is_bit_stable(rng, cuda_device, storage):
+    """The pair=False solve (two staged half-steps an iteration; bf16
+    stripes: fused=True, as chip_smoke.py's phase 8 forces them) gives
+    bit-equal x on a second run."""
+    m = n = 200_003
+    ks = tuple(range(-5, 6))
+    data, _ = banded(rng, m, n, ks, np.float32, boost=12.0, dense=False)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda_device)
+    A = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage, device=cuda_device)
+    kw = dict(atol=1e-6, btol=1e-6, pair=False, fused=True)
+    spmv.reset_launch_counts()
+    first = lt.lsqr(A, b, 0.01, **kw)
+    suffix = "" if storage == "float32" else "[bf16]"
+    assert spmv.launch_counts(by_variant=True)["dia_product_shared_axpy" + suffix] > 0
+    again = lt.lsqr(A, b, 0.01, **kw)
+    assert int(first.istop) in (1, 2, 3) and int(first.istop) == int(again.istop)
+    assert int(first.itn) == int(again.itn) and torch.equal(first.x, again.x)

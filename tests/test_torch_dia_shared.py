@@ -98,6 +98,44 @@ def test_axpy_twin_matches_pallas(rng, m, n, ks, adjoint):
     assert rel_err(got, ref) < TOL
 
 
+#: the staged half-step's edges on the card: mixed odd offsets (each
+#: diagonal's adjoint piece at a 16-byte phase of its own) on m and n not
+#: multiples of 8, m != n both ways, dim_out below one tile, one-sided bands
+AXPY_EDGES = [
+    (1003, 757, (-7, -3, 0, 1, 5)),
+    (757, 1003, (-7, -3, 0, 1, 5)),
+    (45, 37, (-7, -3, 0, 1, 5)),
+    (601, 403, (-9, -4, 0)),
+    (403, 601, (0, 3, 11)),
+]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("m,n,ks", AXPY_EDGES)
+def test_axpy_twin_matches_pallas_at_staging_edges(rng, m, n, ks, adjoint, storage):
+    """The half-step's twin against the Pallas kernel (interpret mode) at
+    the staged kernel's edges, f32 and bf16 stripes (the same bf16 values in
+    both packages), within TOL of the largest element: the two sum in f32
+    in other orders."""
+    data = rng.standard_normal((len(ks), m)).astype(np.float32)
+    Aj = j_shared(m, n, ks, data, storage_dtype=storage)
+    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=getattr(torch, storage),
+                                device=DEV)
+    assert to_np(At.dp.view(torch.int16) if storage == "bfloat16" else At.dp).tobytes() \
+        == np.asarray(Aj.dp).tobytes()
+    vec = rng.standard_normal(m if adjoint else n).astype(np.float32)
+    y = rng.standard_normal(n if adjoint else m).astype(np.float32)
+    ref = jspmv.dia_product_shared_axpy(
+        Aj.dp, jnp.asarray(vec), jnp.asarray(y), 0.7, 1.3, offsets=ks, m=m, n=n,
+        adjoint=adjoint, interpret=True, tm=128)
+    got = spmv.dia_product_shared_axpy(
+        At.dp, torch.from_numpy(vec), torch.from_numpy(y), torch.tensor(0.7),
+        torch.tensor(1.3), offsets=ks, m=m, n=n, adjoint=adjoint)
+    assert got.dtype == torch.float32 and got.shape == ((n,) if adjoint else (m,))
+    assert rel_err(got, ref) < TOL
+
+
 @pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3] + ONE_SIDED
                          + [(1201, 997, tuple(range(-40, 41)))])
 def test_pair_twin_matches_pallas(rng, m, n, ks):
@@ -237,6 +275,51 @@ def test_pair_ring_bytes(nd, lo, hi, esize, nbytes, fits):
     assert (spmv.RING_CHUNK, spmv.RING_AHEAD) == (128, 0) and W % v == 0
     assert spmv.pair_ring_bytes(nd, lo, hi, esize) == nbytes
     assert (nbytes <= 232_448) == fits
+
+
+#: the card's shared memory an SM and a block (NVIDIA H100 80GB HBM3)
+H100_SMEM = (233_472, 232_448)
+
+
+@pytest.mark.parametrize("nd,lo,hi,T,esize,nbytes", [
+    # the main band, f32: 2 x (11 x 1028 x 4 + (1040 + 1024) x 4) + 4 x 12
+    (11, 5, 5, 1024, 4, 107_024),
+    (11, 5, 5, 1024, 2, 61_968),     # bf16 rows of 1032: 2 x (22,704 + 8,256) + 48
+    (81, 40, 40, 256, 4, 173_584),   # 2 x (81 x 260 x 4 + (340 + 256) x 4) + 4 x 84
+    (81, 40, 40, 256, 2, 90_640),    # 2 x (81 x 264 x 2 + 2,384) + 336
+    (1024, 0, 0, 16, 4, 168_224),    # 2 x (1024 x 20 x 4 + (20 + 16) x 4) + 4,096
+    (3, 1500, 1500, 1024, 4, 65_104),  # 2 x (3 x 1028 x 4 + (4028 + 1024) x 4) + 16
+])
+def test_axpy_stage_bytes(nd, lo, hi, T, esize, nbytes):
+    """The staged half-step's shared memory (csrc/dia_shared.cu:
+    AxpyLayout): AXPY_STAGES stages of nd rows of T + 16/esize stripe
+    elements, the vector window (T + lo + hi + 3 floats rounded up to 4)
+    and T floats of y, then nd ints rounded up to 4."""
+    assert spmv.AXPY_STAGES == 2
+    assert spmv.axpy_stage_bytes(nd, lo, hi, T, esize) == nbytes
+
+
+@pytest.mark.parametrize("nd,lo,hi,esize,tile", [
+    (11, 5, 5, 4, 1024),     # the main band: two blocks an SM (107 KB)
+    (11, 5, 5, 2, 1024),
+    (81, 40, 40, 4, 256),    # one block of T = 256 before two of T = 128
+    (81, 40, 40, 2, 256),    # two blocks (91 KB)
+    (3, 1500, 1500, 4, 1024),  # a halo past PAIR_MAX_HALO
+    (394, 0, 0, 4, 32),
+    (395, 0, 0, 4, 16),      # f32: T = 16 from 395 diagonals
+    (1024, 0, 0, 4, 16),     # the most diagonals the kernels take
+    (1024, 0, 0, 2, 16),
+    (1, 14_400, 14_400, 4, 64),
+    (1, 14_500, 14_500, 4, 0),  # no tile's window fits: the direct kernel
+])
+def test_axpy_tile(nd, lo, hi, esize, tile):
+    """The staged half-step's tile on the H100: the largest tile of at least
+    a block's threads (1024, 512, 256) whose two stages fit two blocks an
+    SM, else one block, else the same with 128 down to 16; 0 where no
+    window fits."""
+    assert spmv.axpy_tile(nd, lo, hi, esize, *H100_SMEM) == tile
+    if tile:
+        assert spmv.axpy_stage_bytes(nd, lo, hi, tile, esize) <= H100_SMEM[1]
 
 
 #: bands of each of the card's routes: staged (one-sided), unstaged (81

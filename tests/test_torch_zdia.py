@@ -158,6 +158,76 @@ def test_zdia_pair_twin_matches_jax_interpret(rng):
         assert np.abs(to_np(got) - ref).max() / np.abs(ref).max() < 5e-6
 
 
+#: the staged complex pair's edges on the card: one-sided bands (lower,
+#: upper), ragged m != n both ways with several tiles, m below one tile
+ZPAIR_EDGES = [
+    (2501, 1803, (-9, -4, 0)),
+    (1803, 2501, (0, 3, 11)),
+    (3001, 2003, (-60, -3, 0, 5)),
+    (2003, 3001, (-5, 0, 3, 60)),
+    (301, 203, (-2, 0, 1)),
+]
+
+
+@pytest.mark.parametrize("m,n,offsets", ZPAIR_EDGES)
+def test_zdia_pair_twin_matches_jax_interpret_at_staging_edges(rng, m, n, offsets):
+    """The port's zdia_pair (its twin on the CPU) against JAX's Pallas
+    zdia_pair in interpret mode at the staged kernel's edges, within 5e-6 of
+    the largest element (f32 sums in other orders)."""
+    data, _ = _dense_from_offsets(rng, m, n, offsets, np.complex64)
+    Aj = j_zdia_operator(m, n, offsets, data)
+    At = _carry(Aj)
+    win, y = _zvec(rng, n, np.complex64), _zvec(rng, m, np.complex64)
+    c1, c2 = np.float32(0.7), np.float32(1.3)
+    uj, zj = j_zdia_pair(Aj.dr, Aj.di, jnp.asarray(y), jnp.asarray(win), c1, c2,
+                         offsets=offsets, m=m, n=n, interpret=True, tm=1024)
+    u, z = spmv.zdia_pair(At.dr, At.di, _t(y), _t(win), torch.tensor(float(c1)),
+                          torch.tensor(float(c2)), offsets=offsets, m=m, n=n)
+    for got, ref in ((u, uj), (z, zj)):
+        ref = np.asarray(ref)
+        assert np.abs(to_np(got) - ref).max() / np.abs(ref).max() < 5e-6
+
+
+#: the card's shared memory an SM and a block (NVIDIA H100 80GB HBM3)
+H100_SMEM = (233_472, 232_448)
+
+
+@pytest.mark.parametrize("nd,lo,hi,T,nbytes", [
+    # bench.py's zdia band, span 512: 2 x (2 x 5 x 516 x 4 + (518 + 514) x 8)
+    # + 512 x 8 + 8 x 8
+    (5, 2, 2, 508, 61_952),
+    # the ragged band, span 509: 2 x (2 x 4 x 512 x 4 + (576 + 510) x 8)
+    # + 510 x 8 + 8 x 4
+    (4, 60, 5, 444, 54_256),
+    (1, 0, 0, 512, 28_832),   # 2 x (2 x 516 x 4 + (514 + 514) x 8) + 512 x 8 + 32
+])
+def test_zpair_stage_bytes(nd, lo, hi, T, nbytes):
+    """The staged complex pair's shared memory (csrc/zdia.cu: ZPairLayout):
+    ZPAIR_STAGES stages of 2 nd plane rows (span + 3 floats rounded up to
+    4), win (span + lo + hi + 1 complex64 rounded up to 2) and y (span + 1,
+    rounded up to 2); u for the span and two ints a diagonal."""
+    assert spmv.ZPAIR_STAGES == 2
+    assert spmv.zpair_stage_bytes(nd, lo, hi, T) == nbytes
+
+
+@pytest.mark.parametrize("nd,lo,hi,tile", [
+    (5, 2, 2, 508),         # span 512, three blocks an SM
+    (4, 60, 5, 444),        # the ragged band
+    (5, 300, 200, 524),     # T >= lo + hi: span 1024, one block
+    (25, 2, 2, 508),        # the most diagonals the rule takes
+    (26, 2, 2, 0),          # more: two launches
+    (3, 1024, 1024, 0),     # a halo at PAIR_MAX_HALO: no span's stages fit
+])
+def test_zpair_tile(nd, lo, hi, tile):
+    """The staged complex pair's tile on the H100: T = span - (lo + hi
+    rounded up to 4) for the first span of 512, 1024, 2048, 4096 with
+    T >= lo + hi whose two stages fit two blocks an SM, else one; 0 (two
+    launches) where none fits."""
+    assert spmv.zpair_tile(nd, lo, hi, *H100_SMEM) == tile
+    if tile:
+        assert spmv.zpair_stage_bytes(nd, lo, hi, tile) <= H100_SMEM[1]
+
+
 def _banded_problem(rng, m=400, n=400, dtype=np.complex128):
     """tests/test_zdia.py:132-140: offsets (-2, 0, 1), 8 on the diagonal."""
     offsets = (-2, 0, 1)
