@@ -54,8 +54,10 @@ raises on failure:
 9. the three iteration megakernels (LSQR in f32 and bf16, LSMR, CRAIG)
    against their plain twins on the card: one call of K = 8 iterations
    from the same setup on the phase-7 operator (2^23, packed), and on a
-   one-sided band and a ragged rectangular shape at 2^20; the kernels' and
-   the twins' times per call;
+   one-sided band and a ragged rectangular shape at 2^20, and offsets of
+   +-m/2 at 2^16; each call's route (the staged phases at the main shape,
+   the direct ones at +-m/2; at one grid both agree within MK_TOL, held at
+   the ragged shape); the kernels' and the twins' times per call;
 10. solves through the megakernels: ``lsqr``, ``lsmr`` and ``craig`` with
    ``megakernel=True`` against the regular (pair) path on the card, in f32
    and bf16, the LSQR answer checked in f64; fixed 64-iteration LSQR runs
@@ -201,6 +203,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 2: 67e12, 8: 34e12}  # by stripe bytes: f32, bf16 (f32 math), f64
 MK_K = 8  # iterations per megakernel call in phase 9
 MK_SIDE = 2 ** 20  # phase 9's one-sided and ragged shapes
+#: phase 9's band whose vector window fits no staged tile (offsets of
+#: +-m/2): the megakernels' direct route
+MK_FAR = (2 ** 16, (-2 ** 15, 0, 2 ** 15))
 M_SMALL = 2 ** 19  # phase 10's second timing size, the JAX megakernel's size class
 #: phase 4's band whose shared pair takes the unstaged kernel: m = n, 81
 #: diagonals (no staged tile's two stages fit one SM in f32 or bf16), and
@@ -1295,8 +1300,13 @@ def mk_pair(solver, A, b):
 
 def phase_megakernels(dev, m, errs, card):
     """Phase 9: each megakernel against its twin on the card, one call of
-    MK_K iterations from the same setup; returns {variant: (kernel ms per
-    call, twin ms per call)} at the main shape."""
+    MK_K iterations from the same setup, and the route each call took (the
+    staged phases' tile, 0 for the direct route; the grid; the stage
+    bytes): the staged route at the main shape, the direct one at MK_FAR;
+    at the ragged shape the direct route forced at the staged route's grid
+    from the same state agrees within MK_TOL (its threads own other
+    outputs, so its sums of squares round differently). Returns {variant:
+    (kernel ms per call, twin ms per call)} at the main shape."""
     import torch
 
     import lsqr_tpu_torch as lt
@@ -1304,7 +1314,8 @@ def phase_megakernels(dev, m, errs, card):
     times = {}
     shapes = [(m, m, OFFSETS, (torch.float32, torch.bfloat16)),
               (MK_SIDE, MK_SIDE, (0, 1, 2, 3), (torch.float32,)),  # one-sided
-              (MK_SIDE + 3, 3 * MK_SIDE // 4 + 5, OFFSETS, (torch.float32,))]  # ragged
+              (MK_SIDE + 3, 3 * MK_SIDE // 4 + 5, OFFSETS, (torch.float32,)),  # ragged
+              (MK_FAR[0], MK_FAR[0], MK_FAR[1], (torch.float32, torch.bfloat16))]
     for si, (mm, nn, ks, storages) in enumerate(shapes):
         data, b, g = random_stripes(mm, nn, ks, dev, seed=100 if si == 0 else 200 + si,
                                     boost=12.0)
@@ -1315,6 +1326,7 @@ def phase_megakernels(dev, m, errs, card):
             for solver in ("lsqr", "lsmr", "craig"):
                 rhs = A.matvec(xt) if solver == "craig" else b  # CRAIG: consistent
                 kernel, plain, mine, twin = mk_pair(solver, A, rhs)
+                start = [t.clone() for t in mine] if si == 2 else None
                 state0 = mine[-1].clone()
                 kernel()
                 plain()
@@ -1330,9 +1342,29 @@ def phase_megakernels(dev, m, errs, card):
                 _, wrapper = mk_modules()[solver]
                 log(f"  {name:24s} m={mm} n={nn} ks={ks[0]}..{ks[-1]} K={MK_K}: "
                     f"itn {int(mine[-1][{'lsqr': 15, 'lsmr': 23, 'craig': 7}[solver]])}, "
-                    f"max rel err (state and vectors) {worst:.3e}; grid {wrapper.blocks} "
-                    f"blocks x 256, {BARRIERS[solver]} grid barriers per iteration")
+                    f"max rel err (state and vectors) {worst:.3e}; route: tile "
+                    f"{wrapper.tile}, grid {wrapper.blocks} blocks x 256, "
+                    f"{wrapper.stage_bytes} bytes of stages, {BARRIERS[solver]} grid "
+                    f"barriers per iteration")
                 check(worst <= MK_TOL, f"{name} disagrees with its twin: {worst:.3e}")
+                far = (mm, ks) == MK_FAR
+                check(bool(wrapper.tile) != far, f"{name} at m={mm}, ks={ks[0]}..{ks[-1]}: "
+                      f"the {'staged' if far else 'direct'} route (tile {wrapper.tile})")
+                if si == 2:  # the routes at one grid from one state
+                    wrapper(A.data, A.tdata, *start, offsets=A.offsets, m=mm, n=nn, K=MK_K,
+                            offsets_t=A.offsets_t, toffsets_t=A.toffsets_t,
+                            _route=(0, wrapper.blocks))
+                    torch.cuda.synchronize()
+                    got, ref = start[-1].double(), mine[-1].double()
+                    apart = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+                    for a, r in zip(start[:-1], mine[:-1]):
+                        apart = max(apart, rel(a, r))
+                    same = all(torch.equal(a, r) for a, r in zip(start, mine))
+                    log(f"    {name}: the direct route at the staged route's grid: max rel "
+                        f"diff (state and vectors) {apart:.3e}"
+                        f"{' (the same bits)' if same else ''}")
+                    check(apart <= MK_TOL, f"{name}: the staged and direct routes differ "
+                          f"by {apart:.3e} at one grid")
                 if si == 0:
                     # time calls from the same state (restored before each), so
                     # every call runs MK_K live iterations
@@ -1344,7 +1376,7 @@ def phase_megakernels(dev, m, errs, card):
                     times[name] = (ms, plain_ms)
                     log(f"    {name}: kernel {ms:.4f} ms per call ({ms / MK_K:.4f} ms per "
                         f"iteration), twin {plain_ms:.4f} ms per call  [{card}]")
-                del kernel, plain, mine, twin
+                del kernel, plain, mine, twin, start
             del A
         del data, b, xt
         torch.cuda.empty_cache()

@@ -112,12 +112,12 @@ _SIGNATURES = {
     # x, len, stream
     "lsqr_stream_copy_f32": (_P, _L, _P),
     # csrc/megakernel.cu
-    # solver, bf16, dim, blocks (out)
-    "lsqr_mk_grid": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # solver, bf16, dim, nd, halo (lo + hi), T, blocks (out)
+    "lsqr_mk_grid": (_I, _I, _L, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     # data, tdata, offsets, toffsets, nd, m, n, u, v, x, w, hbar, state,
-    # partial, blocks, K, stream
+    # partial, blocks, K, lo, hi, T, stream
     **{f"lsqr_mk_{solver}_{s}": (_P, _P, _P, _P, _I, _L, _L, _P, _P, _P, _P, _P, _P,
-                                 _P, _I, _I, _P)
+                                 _P, _I, _I, _I, _I, _I, _P)
        for solver in ("lsqr", "lsmr", "craig") for s in ("f32", "bf16")},
 }
 

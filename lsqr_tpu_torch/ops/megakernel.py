@@ -14,11 +14,27 @@ tensor of ``NSTATE`` entries with the JAX package's named indices.
 
 The TPU mechanism is not carried over: no VMEM residency, no padded
 vectors or tiles. The CUDA kernel is a persistent cooperative grid with a
-grid-wide barrier between phases (see the source's header);
-:func:`lsqr_megakernel_plain` is its PyTorch twin, one launch's K
-iterations in the same phase order on the same state. On CPU tensors the
-wrapper runs the twin (where JAX runs the Pallas kernel interpreted); on
-CUDA tensors it launches the kernel or raises.
+grid-wide barrier between phases (see the source's header). What bounds it
+on the H100 is bytes: both stripe arrays and 10 (LSQR), 12 (LSMR) or 8
+(CRAIG) f32 vector passes an iteration. Its two product phases are staged:
+each block walks tiles of 512 outputs, two outputs a thread, two tiles in
+shared memory, the next one's 16-byte ``cp.async`` copies (each diagonal's
+stripe elements, the vector window, y) in flight while it sums this one,
+so each stripe byte crosses once and the vector is read once a tile. The
+tile comes from :func:`spmv.mk_tile` (512 where the two stages fit one
+block's shared memory and the vector window is at most ``spmv.MK_SPREAD``
+times the vector reads it saves, else 0); at T = 0 (many diagonals, a
+sparse band spread wide, or offsets of +-m/2) both phases take the direct
+route, a kernel of its own: one thread an output in a grid-stride loop,
+reading the stripes and, once a diagonal, the vector from device memory.
+The routes give a
+thread other outputs, so their sums of squares round differently: they
+agree to 1e-4 relative, not bit for bit. The wrapper records the route it
+launched (``tile``, ``blocks``, ``stage_bytes``). :func:`lsqr_megakernel_plain`
+is its PyTorch twin, one launch's K iterations in the same phase order on
+the same state. On CPU tensors the wrapper runs the twin (where JAX runs
+the Pallas kernel interpreted); on CUDA tensors it launches the kernel or
+raises.
 
 The size gate differs from JAX's: JAX bounds the problem by the VMEM the
 resident vectors need (``_fit_tm``); on the card the vectors stay in device
@@ -40,7 +56,7 @@ from .blas import d2norm, nrm2
 from .linop import as_tensor
 
 __all__ = ["lsqr_megakernel", "megakernel_supported", "lsqr_megakernel_call",
-           "lsqr_megakernel_plain", "lsqr_megakernel_prepare", "NSTATE"]
+           "lsqr_megakernel_plain", "lsqr_megakernel_prepare", "route", "NSTATE"]
 
 # scalar-state indices (lsqr_tpu/ops/megakernel.py:47-54)
 ALPHA, BETA, RHOBAR, PHIBAR, ANORM, DNORM, RES2, PSI = range(8)
@@ -63,7 +79,7 @@ _SOLVERS = {"lsqr": 0, "lsmr": 1, "craig": 2}
 def supported_operator(A) -> bool:
     """The gate the three megakernels share: a DIAOperator with f32 or bf16
     stripes, 1 to 1024 diagonals and non-empty dimensions, and on CUDA a
-    device that launches a cooperative grid."""
+    device that launches a cooperative grid of the route the launch takes."""
     from .structured import DIAOperator
 
     if not isinstance(A, DIAOperator):
@@ -72,24 +88,29 @@ def supported_operator(A) -> bool:
         return False
     if not (1 <= len(A.offsets) <= 1024 and A.m >= 1 and A.n >= 1):
         return False
-    return not A.data.is_cuda or _grid("lsqr", A.data, max(A.m, A.n)) > 0
+    return not A.data.is_cuda or route("lsqr", A.data, A.offsets, A.m, A.n)[1] > 0
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_cached(solver, bf16, dim, device_index):
+def _grid_cached(solver, bf16, dim, nd, halo, tile, device_index):
     from . import _cuda
 
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _cuda.check(_cuda.library().lsqr_mk_grid(_SOLVERS[solver], int(bf16), dim,
-                                                 ctypes.byref(blocks)), "lsqr_mk_grid")
+        _cuda.check(_cuda.library().lsqr_mk_grid(_SOLVERS[solver], int(bf16), dim, nd, halo,
+                                                 tile, ctypes.byref(blocks)), "lsqr_mk_grid")
     return blocks.value
 
 
-def _grid(solver, stripes, dim) -> int:
-    """Blocks of the cooperative grid (0: the device cannot launch one)."""
-    return _grid_cached(solver, stripes.dtype == torch.bfloat16, int(dim),
-                        stripes.device.index or 0)
+def route(solver, stripes, offsets, m, n):
+    """(tile, blocks) of a launch on the card: the staged phases' tile
+    (:func:`spmv.mk_tile`, 0 for the direct route) and the cooperative grid
+    with that route's shared memory (0: the device cannot launch one)."""
+    lo, hi = spmv._halos(offsets)
+    tile = spmv.mk_tile(len(offsets), lo, hi, stripes.element_size(),
+                        spmv._smem_limits(stripes.device)[1])
+    return tile, _grid_cached(solver, stripes.dtype == torch.bfloat16, int(max(m, n)),
+                              len(offsets), lo + hi, tile, stripes.device.index or 0)
 
 
 class _State:
@@ -146,25 +167,30 @@ def check_call(data, tdata, vectors, state, offsets, m, n, K):
 
 
 def launch_call(wrapper, solver, data, tdata, u, v, x, w, hbar, state, offsets, m, n,
-                K, offsets_t, toffsets_t):
-    """Launch one megakernel call on the card (raises on a refused launch)."""
+                K, offsets_t, toffsets_t, forced=None):
+    """Launch one megakernel call on the card (raises on a refused launch)
+    on the route of :func:`route`, or on ``forced`` = (tile, blocks): tests
+    and tools compare the two routes at one grid with it."""
     offsets_t = spmv._offsets_on(data, offsets, offsets_t)
     toffsets_t = spmv._offsets_on(data, tuple(-k for k in offsets), toffsets_t)
     fn = spmv._kernel(f"mk_{solver}", data, (torch.float32, torch.bfloat16), offsets)
-    blocks = _grid(solver, data, max(m, n))
+    tile, blocks = forced or route(solver, data, offsets, m, n)
     if blocks < 1:
         raise RuntimeError(f"{wrapper.kernel_name}: the device cannot launch a "
                            "cooperative grid")
     partial = torch.empty(3 * blocks, dtype=torch.float32, device=data.device)
+    lo, hi = spmv._halos(offsets)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    wrapper.blocks = blocks
+    wrapper.tile, wrapper.blocks = tile, blocks
+    wrapper.stage_bytes = spmv.mk_stage_bytes(len(offsets), lo, hi, tile,
+                                              data.element_size()) if tile else 0
     spmv._launch(wrapper, fn, data, data.data_ptr(), tdata.data_ptr(),
                  offsets_t.data_ptr(), toffsets_t.data_ptr(), len(offsets), m, n,
                  ptr(u), ptr(v), ptr(x), ptr(w), ptr(hbar), state.data_ptr(),
-                 partial.data_ptr(), blocks, int(K))
+                 partial.data_ptr(), blocks, int(K), lo, hi, tile)
 
 
 def host_loop(call, state, itnlim, K, istop_i, itn_i):
@@ -371,11 +397,12 @@ def lsqr_megakernel_plain(data, tdata, u, v, x, w, state, *, offsets, m, n, K):
 
 def lsqr_megakernel_call(data, tdata, u, v, x, w, state, *, offsets, m, n, K,
                          offsets_t: Optional[torch.Tensor] = None,
-                         toffsets_t: Optional[torch.Tensor] = None):
+                         toffsets_t: Optional[torch.Tensor] = None, _route=None):
     """One launch of the LSQR megakernel: K iterations on the packed stripes
     ``data`` (nd, m) and ``tdata`` (nd, n), updating u (m,), v, x, w (n,)
     and the f32 state (NSTATE,) in place. f32 or bf16 stripes; vectors f32.
-    CPU tensors run :func:`lsqr_megakernel_plain`."""
+    CPU tensors run :func:`lsqr_megakernel_plain`. ``_route`` (tile,
+    blocks) forces a route (:func:`launch_call`)."""
     offsets = tuple(int(k) for k in offsets)
     check_call(data, tdata, dict(u=(u, m), v=(v, n), x=(x, n), w=(w, n)), state,
                offsets, m, n, K)
@@ -383,7 +410,7 @@ def lsqr_megakernel_call(data, tdata, u, v, x, w, state, *, offsets, m, n, K,
         return lsqr_megakernel_plain(data, tdata, u, v, x, w, state, offsets=offsets,
                                      m=m, n=n, K=K)
     launch_call(lsqr_megakernel_call, "lsqr", data, tdata, u, v, x, w, None, state,
-                offsets, m, n, K, offsets_t, toffsets_t)
+                offsets, m, n, K, offsets_t, toffsets_t, _route)
 
 
 spmv.register(lsqr_megakernel_call, ("f32", "bf16"), name="lsqr_megakernel")

@@ -106,16 +106,17 @@ def craig_megakernel_plain(data, tdata, u, v, x, state, *, offsets, m, n, K):
 
 def craig_megakernel_call(data, tdata, u, v, x, state, *, offsets, m, n, K,
                           offsets_t: Optional[torch.Tensor] = None,
-                          toffsets_t: Optional[torch.Tensor] = None):
+                          toffsets_t: Optional[torch.Tensor] = None, _route=None):
     """One launch of the CRAIG megakernel (K iterations, in place); CPU
-    tensors run :func:`craig_megakernel_plain`."""
+    tensors run :func:`craig_megakernel_plain`. ``_route`` (tile, blocks)
+    forces a route (:func:`.megakernel.launch_call`)."""
     offsets = tuple(int(k) for k in offsets)
     check_call(data, tdata, dict(u=(u, m), v=(v, n), x=(x, n)), state, offsets, m, n, K)
     if not data.is_cuda:
         return craig_megakernel_plain(data, tdata, u, v, x, state, offsets=offsets,
                                       m=m, n=n, K=K)
     launch_call(craig_megakernel_call, "craig", data, tdata, u, v, x, None, None, state,
-                offsets, m, n, K, offsets_t, toffsets_t)
+                offsets, m, n, K, offsets_t, toffsets_t, _route)
 
 
 spmv.register(craig_megakernel_call, ("f32", "bf16"), name="craig_megakernel")

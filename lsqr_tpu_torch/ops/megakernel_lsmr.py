@@ -158,9 +158,10 @@ def lsmr_megakernel_plain(data, tdata, u, v, x, h, hbar, state, *, offsets, m, n
 
 def lsmr_megakernel_call(data, tdata, u, v, x, h, hbar, state, *, offsets, m, n, K,
                          offsets_t: Optional[torch.Tensor] = None,
-                         toffsets_t: Optional[torch.Tensor] = None):
+                         toffsets_t: Optional[torch.Tensor] = None, _route=None):
     """One launch of the LSMR megakernel (K iterations, in place); CPU
-    tensors run :func:`lsmr_megakernel_plain`."""
+    tensors run :func:`lsmr_megakernel_plain`. ``_route`` (tile, blocks)
+    forces a route (:func:`.megakernel.launch_call`)."""
     offsets = tuple(int(k) for k in offsets)
     check_call(data, tdata, dict(u=(u, m), v=(v, n), x=(x, n), h=(h, n), hbar=(hbar, n)),
                state, offsets, m, n, K)
@@ -168,7 +169,7 @@ def lsmr_megakernel_call(data, tdata, u, v, x, h, hbar, state, *, offsets, m, n,
         return lsmr_megakernel_plain(data, tdata, u, v, x, h, hbar, state,
                                      offsets=offsets, m=m, n=n, K=K)
     launch_call(lsmr_megakernel_call, "lsmr", data, tdata, u, v, x, h, hbar, state,
-                offsets, m, n, K, offsets_t, toffsets_t)
+                offsets, m, n, K, offsets_t, toffsets_t, _route)
 
 
 spmv.register(lsmr_megakernel_call, ("f32", "bf16"), name="lsmr_megakernel")

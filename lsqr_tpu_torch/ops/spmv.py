@@ -88,6 +88,8 @@ __all__ = [
     "pair_ring_bytes",
     "axpy_stage_bytes",
     "axpy_tile",
+    "mk_stage_bytes",
+    "mk_tile",
     "zpair_stage_bytes",
     "zpair_tile",
     "UNSTAGED",
@@ -109,6 +111,17 @@ RING_CHUNK, RING_AHEAD = 128, 0
 #: fits, else a smaller one
 AXPY_STAGES = 2
 AXPY_TILES = ((1024, 512, 256), (128, 64, 32, 16))
+
+#: the megakernels' staged product phases (csrc/megakernel.cu: kMkStages,
+#: kThreads x kMkRows): tiles in shared memory, the one summed included;
+#: the tile, two outputs a thread of a 256-thread block; and the kernels'
+#: static shared memory (the state, 64 floats, and a block's reduction, 256)
+MK_STAGES = 2
+MK_TILE = 512
+MK_STATIC_BYTES = 4 * (64 + 256)
+#: the widest vector window a staged tile takes, in vector reads of the
+#: direct route (nd a tile output): T + lo + hi <= MK_SPREAD * nd * T
+MK_SPREAD = 3
 
 #: the staged complex pair (csrc/zdia.cu: kZStages), and the spans
 #: T + lo + hi of its tiles, best first
@@ -530,6 +543,38 @@ def axpy_tile(nd, lo, hi, esize, per_sm, optin):
     bf16, with T = 16 from nd = 395 (f32) and 703 (bf16) on the H100."""
     return _fit_tile(AXPY_TILES, lambda T: axpy_stage_bytes(nd, lo, hi, T, esize),
                      per_sm, optin)
+
+
+def mk_stage_bytes(nd, lo, hi, T, esize, stages=MK_STAGES):
+    """The dynamic shared memory of the megakernels' staged phases
+    (csrc/megakernel.cu: MkLayout) in tiles of T for nd diagonals, halos
+    lo, hi (either direction: their sum counts) and stripes of ``esize``
+    bytes: ``stages`` stages of nd rows of T + 16/esize stripe elements,
+    the vector window (T + lo + hi floats and 3 in front, rounded up to 4)
+    and T + 4 floats of y (any vector's 16-byte phase); then four ints a
+    diagonal (nd rounded up to 4): each direction's offsets and row
+    phases."""
+    stage = nd * (T + 16 // esize) * esize + (_round_up(T + lo + hi + 3, 4) + T + 4) * 4
+    return stages * stage + 16 * _round_up(nd, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def mk_tile(nd, lo, hi, esize, optin):
+    """The megakernels' staged tile on a card whose block may opt in to
+    ``optin`` bytes of shared memory: MK_TILE where its stages and the
+    kernels' static shared memory fit one block and its vector window (T +
+    lo + hi floats a tile, copied from L2) is at most MK_SPREAD times the
+    direct route's vector reads (nd a tile output, through L2), else 0 (many
+    diagonals, a sparse band whose offsets spread wide, or a window as wide
+    as offsets of +-m/2 need), and both product phases then take the direct
+    route. On the H100 it takes up to 53 diagonals in f32 and 106 in bf16
+    (lo + hi = 0, and the main band's 10). One block an SM is enough: at
+    2^20 rows and 31-53 diagonals (one f32 block an SM) the staged LSQR
+    megakernel beat the direct one by 23-34% (PERF.md,
+    tools/megakernel_designs.py)."""
+    fits = mk_stage_bytes(nd, lo, hi, MK_TILE, esize) + MK_STATIC_BYTES <= optin
+    dense = MK_TILE + lo + hi <= MK_SPREAD * nd * MK_TILE
+    return MK_TILE if fits and dense else 0
 
 
 def zpair_stage_bytes(nd, lo, hi, T, stages=ZPAIR_STAGES):

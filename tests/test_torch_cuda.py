@@ -548,6 +548,64 @@ def test_cuda_megakernel_solves_match_regular(rng, cuda_device, solver, storage)
     assert rel_err(res.x, ref.x) < 1e-3
 
 
+#: the staged phases' edges: m, n not multiples of 8 under offsets at mixed
+#: 16-byte phases (each diagonal's row of data and tdata at a phase of its
+#: own), m != n both ways, both dims below one tile, a one-sided band; and a
+#: band whose vector window fits no tile's shared memory (the direct route)
+MK_EDGES = [
+    (4099, 2053, (-7, -3, 0, 1, 5)),
+    (2053, 4099, (-7, -3, 0, 1, 5)),
+    (201, 150, (-7, -3, 0, 1, 5)),
+    (150, 201, (-2, 0, 3)),
+]
+MK_FAR = (2 ** 16, 2 ** 16, (-2 ** 15, 0, 2 ** 15))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr", "craig"])
+@pytest.mark.parametrize("m,n,ks", MK_EDGES + [MK_FAR])
+def test_cuda_megakernel_routes_match_twin_and_each_other(rng, cuda_device, m, n, ks, solver,
+                                                          storage):
+    """The route of spmv.mk_tile against the twin (staged at the edges,
+    direct at the far band), and the direct route forced at the rule's grid
+    from the same state: within MK_TOL of the staged route (a thread sums
+    two outputs there, one on the direct route: the sums of squares round
+    differently), the same bits where the rule took the direct route."""
+    Ah = _mk_problem(rng, m, n, ks, storage)
+    A = lt.DIAOperator(data=Ah.data.to(cuda_device), tdata=Ah.tdata.to(cuda_device),
+                       m=m, n=n, offsets=ks)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    if solver == "craig":
+        b = Ah.matvec(torch.from_numpy(rng.standard_normal(n).astype(np.float32)))
+    call, vec_h, state_h = _mk_setup(solver, Ah, b)
+    mine = [t.to(cuda_device) for t in (*vec_h, state_h)]
+    direct = [t.clone() for t in mine]
+    kw = dict(offsets=ks, m=m, n=n, K=8)
+    spmv.reset_launch_counts()
+    call(A.data, A.tdata, *mine, **kw)
+    tile, blocks = call.tile, call.blocks
+    assert tile == (0 if (m, n, ks) == MK_FAR else spmv.MK_TILE)
+    assert call.stage_bytes == (spmv.mk_stage_bytes(len(ks), *spmv._halos(ks), tile,
+                                                    A.data.element_size()) if tile else 0)
+    call(A.data, A.tdata, *direct, _route=(0, blocks), **kw)
+    call(Ah.data, Ah.tdata, *vec_h, state_h, **kw)
+    torch.cuda.synchronize()
+    name = f"{solver}_megakernel" + ("" if storage == "float32" else "[bf16]")
+    assert spmv.launch_counts(by_variant=True)[name] == 2
+    got, ref = mine[-1].cpu().numpy(), state_h.numpy()
+    scale = np.maximum(np.abs(ref), 1e-6)
+    assert np.all(np.abs(got - ref) <= MK_TOL * scale), (got, ref)
+    for g, r in zip(mine[:-1], vec_h):
+        assert rel_err(g, r) < MK_TOL
+    for g, d in zip(mine[:-1], direct[:-1]):
+        assert torch.equal(g, d) if tile == 0 else rel_err(d, g) < MK_TOL
+    got, ref = direct[-1].cpu().numpy(), mine[-1].cpu().numpy()
+    if tile == 0:
+        assert np.array_equal(got, ref)
+    assert np.all(np.abs(got - ref) <= MK_TOL * np.maximum(np.abs(ref), 1e-6)), (got, ref)
+
+
 @pytest.mark.cuda
 def test_cuda_megakernel_routes_raise(rng, cuda_device):
     m = n = 3000

@@ -265,3 +265,112 @@ def test_state_indices_match_jax_and_the_kernel_source(jax_mod, port_mod, enum):
     assert len(names) == len(set(names)) and len(names) <= tmk.NSTATE
     for i, nm in enumerate(names):
         assert getattr(port_mod, nm) == getattr(jax_mod, nm) == i, nm
+
+
+#: the card's shared memory an SM and a block (NVIDIA H100 80GB HBM3)
+H100_SMEM = (233_472, 232_448)
+
+
+@pytest.mark.parametrize("nd,lo,hi,T,esize,nbytes", [
+    # the main band, f32: 2 x (11 x 516 x 4 + (528 + 512 + 4) x 4) + 16 x 12
+    (11, 5, 5, 512, 4, 53_952),
+    (11, 5, 5, 512, 2, 31_424),      # bf16 rows of 520: 2 x (11,440 + 4,176) + 192
+    (53, 0, 0, 512, 4, 227_936),     # 2 x (53 x 2,064 + (516 + 516) x 4) + 16 x 56
+    (106, 0, 0, 512, 2, 230_464),    # 2 x (106 x 1,040 + 4,128) + 16 x 108
+    (1, 0, 0, 256, 4, 6_304),        # 2 x (260 x 4 + (260 + 256 + 4) x 4) + 16 x 4
+    (3, 32_768, 32_768, 512, 4, 544_992),  # 2 x (6,192 + (66,052 + 516) x 4) + 64
+])
+def test_mk_stage_bytes(nd, lo, hi, T, esize, nbytes):
+    """The staged phases' shared memory (csrc/megakernel.cu: MkLayout):
+    MK_STAGES stages of nd rows of T + 16/esize stripe elements, the
+    vector window (T + lo + hi + 3 floats rounded up to 4) and T + 4 floats
+    of y, then four ints a diagonal (nd rounded up to 4)."""
+    assert spmv.MK_STAGES == 2 and spmv.MK_STATIC_BYTES == 1280
+    assert spmv.mk_stage_bytes(nd, lo, hi, T, esize) == nbytes
+
+
+@pytest.mark.parametrize("nd,lo,hi,esize,tile", [
+    (11, 5, 5, 4, 512),        # the main band
+    (11, 5, 5, 2, 512),
+    (53, 0, 0, 4, 512),        # the most f32 diagonals: 227,936 + 1,280 bytes
+    (54, 0, 0, 4, 0),          # 232,064 + 1,280 > 232,448
+    (106, 0, 0, 2, 512),       # the most bf16 diagonals: 230,464 + 1,280
+    (107, 0, 0, 2, 0),
+    (53, 5, 5, 4, 512),
+    # the widest f32 window of 14 diagonals: 2 x (28,896 + (21,124 + 516) x 4)
+    # + 256 + 1,280 = 232,448 bytes (the spread allows lo + hi = 20,992)
+    (14, 10_304, 10_305, 4, 512),
+    (14, 10_305, 10_305, 4, 0),
+    # five diagonals spread to 512 + lo + hi = 7,680 = MK_SPREAD x 5 x 512
+    (5, 3_584, 3_584, 4, 512),
+    (5, 3_584, 3_585, 4, 0),
+    (5, 3_584, 3_585, 2, 0),
+    (3, 2_048, 2_048, 2, 512),     # offsets -2048, 0, 2048: 4,608 = 3 x 3 x 512
+    (5, 4_096, 4_096, 4, 0),       # a 2-D Laplacian on a 4096-wide grid
+    (3, 32_768, 32_768, 4, 0),     # offsets of +-m/2 at 2^16: the direct route
+    (3, 32_768, 32_768, 2, 0),
+])
+def test_mk_tile(nd, lo, hi, esize, tile):
+    """The staged phases' tile on the H100: MK_TILE (two outputs a thread)
+    where its stages and the kernels' static shared memory fit one block
+    and its vector window (T + lo + hi floats a tile) is at most MK_SPREAD
+    times the direct route's vector reads (nd a tile output), else 0 (the
+    direct route)."""
+    assert spmv.MK_TILE == 512 and spmv.MK_SPREAD == 3
+    assert spmv.mk_tile(nd, lo, hi, esize, H100_SMEM[1]) == tile
+    fits = spmv.mk_stage_bytes(nd, lo, hi, spmv.MK_TILE, esize) + spmv.MK_STATIC_BYTES
+    dense = spmv.MK_TILE + lo + hi <= spmv.MK_SPREAD * nd * spmv.MK_TILE
+    assert (fits <= H100_SMEM[1] and dense) == bool(tile)
+
+
+def test_mk_grid_cache_is_keyed_on_the_route(monkeypatch):
+    """The cooperative grid is asked with the route's shared memory: its
+    cache keys on nd, lo + hi and the tile, so a band that takes the direct
+    route is not given the staged one's grid."""
+    import contextlib
+
+    from lsqr_tpu_torch.ops import _cuda
+
+    calls = []
+
+    class Library:
+        @staticmethod
+        def lsqr_mk_grid(solver, bf16, dim, nd, halo, tile, blocks):
+            calls.append((solver, bf16, dim, nd, halo, tile))
+            blocks._obj.value = 132 * (4 if tile else 6)
+            return 0
+
+    monkeypatch.setattr(_cuda, "library", Library)
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(spmv, "_smem_limits", lambda device: H100_SMEM)
+    tmk._grid_cached.cache_clear()
+    try:
+        stripes = torch.zeros(1, dtype=torch.bfloat16)
+        main = tuple(range(-5, 6))
+        far = (-2 ** 15, 0, 2 ** 15)
+        assert tmk.route("lsqr", stripes, main, 2 ** 23, 2 ** 23) == (512, 528)
+        assert tmk.route("lsqr", stripes, main, 2 ** 23, 2 ** 23) == (512, 528)
+        assert tmk.route("lsqr", stripes, far, 2 ** 16, 2 ** 16) == (0, 792)
+        assert tmk.route("lsmr", stripes.float(), main, 2 ** 23, 2 ** 23) == (512, 528)
+        assert calls == [(0, 1, 2 ** 23, 11, 10, 512), (0, 1, 2 ** 16, 3, 2 ** 16, 0),
+                         (1, 0, 2 ** 23, 11, 10, 512)]
+    finally:
+        tmk._grid_cached.cache_clear()
+
+
+@pytest.mark.parametrize("solver,m,n", [("lsqr", 2501, 1803), ("lsmr", 2501, 1803),
+                                        ("craig", 1803, 2501)])
+def test_megakernel_bf16_ragged_twin_matches_jax_megakernel(solver, m, n):
+    """bf16 stripes on m != n, neither a multiple of 8, with offsets whose
+    rows sit at mixed 16-byte phases (the card's staged phases' edges): the
+    twin against JAX's megakernel in interpret mode, to the bounds of
+    test_megakernel_twin_matches_jax_megakernel."""
+    jfn, tfn, _, _ = SOLVERS[solver]
+    offs = (-7, -3, 0, 1, 5)
+    Aj, At, b = _problem(m * 7 + n, m, n, 8.0 if solver == "craig" else 4.0, offs=offs,
+                         consistent=solver == "craig", storage="bfloat16")
+    assert At.is_bf16_storage
+    kw = dict(atol=1e-5, btol=1e-5, itnlim=150, iters_per_call=16)
+    ref = jfn(Aj, b, *_args(solver, 0.0), interpret=True, **kw)
+    res = tfn(At, b, *_args(solver, 0.0), **kw)
+    _same_at_itn(solver, tfn, At, b, 0.0, res, ref, iters_per_call=16)
