@@ -18,7 +18,12 @@ raises on failure:
    shape) and its unstaged kernel, the same bits at every shape whose halo
    one launch takes, both also timed at 2^19; the half-step timed in both
    directions at the main shape (the adjoint's row ``[adjoint]`` beside the
-   kernels line's forward one);
+   kernels line's forward one); every call of the two products (shared
+   forward and ``[adjoint]``, packed data forward, ``[t]`` on tdata and
+   ``[column]``, data's column side) at every shape, f32 and bf16 stripes,
+   bit-equal to the direct kernel (one thread an output), the main shape's
+   through the staged route, and each timed there beside its bound and,
+   f32, the CSR product (of A' for the adjoint calls);
 2. the main-path solve at m = n = 2^23 on the shared-stripe layout: f32
    stripes from a seeded generator with 12 added to the main diagonal, damp
    0.01 — a run to the machine-precision guards within 64 iterations, a
@@ -168,6 +173,9 @@ STREAM = "lsqr_tpu_torch/csrc/stream_copy.cu"
 #: the staged pair of both layouts (csrc/dia_packed.cu and csrc/dia_shared.cu
 #: include it): the source of the pairs' staged variants
 STAGED_PAIR = "lsqr_tpu_torch/csrc/dia_pair_staged.cuh"
+#: the staged product of both layouts (included likewise): the source of the
+#: products' f32 and bf16 variants (f64 takes the direct kernel)
+STAGED_PRODUCT = "lsqr_tpu_torch/csrc/dia_product_staged.cuh"
 M_JDIA = 2 ** 22  # phase 11-12's jittered-diagonal size
 M_BELL = 2 ** 18  # phase 11-12's BlockELL size
 M_PLAN = 2 ** 18  # phase 13's scrambled pattern
@@ -414,17 +422,77 @@ def counted(fn):
 # ---------------------------------------------------------------------------
 
 
-def kernel_calls(dev, data, v, y, m, n, ks, storage):
-    """{variant: [(kernel call, twin call), ...]} of every kernel taking
-    these stripes (f32 or bf16 storage)."""
+def dia_operators(data, m, n, ks, storage):
+    """(shared, packed) operators of these stripes in ``storage``."""
+    import lsqr_tpu_torch as lt
+
+    return (lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage),
+            lt.dia_operator_device(m, n, ks, data, storage_dtype=storage))
+
+
+def product_calls(As, Ap, v, y):
+    """{variant: (wrapper, stripes, vector, keywords)} of every call of the
+    two products (rows 5 and 2): the shared forward and ``[adjoint]``, the
+    packed data forward, ``[t]`` (tdata forward, the operator's adjoint)
+    and ``[column]`` (data's column side, the pair's wide-halo route); the
+    kernels read the offsets from the operators' device copies."""
     import torch
 
-    import lsqr_tpu_torch as lt
     from lsqr_tpu_torch.ops import spmv
 
+    sfx = "" if As.dp.dtype == torch.float32 else "[bf16]"
+    kw = dict(offsets=As.offsets, m=As.m, n=As.n)
+    skw, pkw = dict(kw, offsets_t=As.offsets_t), dict(kw, offsets_t=Ap.offsets_t)
+    return {
+        f"dia_product_shared{sfx}": (spmv.dia_product_shared, As.dp, v,
+                                     dict(skw, adjoint=False)),
+        f"dia_product_shared{sfx}[adjoint]": (spmv.dia_product_shared, As.dp, y,
+                                              dict(skw, adjoint=True)),
+        f"dia_matvec{sfx}": (spmv.dia_matvec, Ap.data, v, dict(pkw, adjoint=False)),
+        f"dia_matvec{sfx}[t]": (spmv.dia_matvec, Ap.tdata, y, dict(
+            offsets=Ap.toffsets, m=Ap.n, n=Ap.m, offsets_t=Ap.toffsets_t, adjoint=False)),
+        f"dia_matvec{sfx}[column]": (spmv.dia_matvec, Ap.data, y, dict(pkw, adjoint=True)),
+    }
+
+
+def products_match_direct(As, Ap, v, y, label):
+    """Every call of the two products (``product_calls``, the route the
+    wrappers take) bit-equal to the direct kernel (``tile=0``: one thread
+    an output, the parent's design)."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    tile = spmv._product_rule(As.dp, As.offsets)
+    for name, (wrapper, stripes, vec, kw) in product_calls(As, Ap, v, y).items():
+        got = wrapper(stripes, vec, **kw)
+        ref = spmv._product_launch(wrapper, stripes, vec, tile=0, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        log(f"  {name:34s} {label}: {f'staged tiles of {tile}' if tile else 'direct'}, "
+            f"bit-equal to the direct kernel {same}")
+        check(same, f"{name} {label}: the staged route differs from the direct kernel")
+    return tile
+
+
+#: the calls of rows 5 and 2 and of the half-step timed besides their first
+#: (``kernel_calls``' lists): variant tag, index in the list, and whether
+#: the library call is the CSR of A' (else none)
+OTHER_CALLS = {"dia_product_shared": (("[adjoint]", 1, True),),
+               "dia_matvec": (("[t]", 1, True), ("[column]", 2, True)),
+               "dia_product_shared_axpy": (("[adjoint]", 1, False),)}
+
+
+def kernel_calls(dev, As, Ap, v, y):
+    """{variant: [(kernel call, twin call), ...]} of every kernel taking
+    the stripes of these operators (f32 or bf16 storage)."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    storage = As.dp.dtype
+    m, n, ks = As.m, As.n, As.offsets
     sfx = "" if storage == torch.float32 else "[bf16]"
-    As = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage)
-    Ap = lt.dia_operator_device(m, n, ks, data, storage_dtype=storage)
     c1 = torch.tensor(0.8, device=dev)
     c2 = torch.tensor(1.1, device=dev)
     kw = dict(offsets=ks, m=m, n=n)
@@ -435,11 +503,19 @@ def kernel_calls(dev, data, v, y, m, n, ks, storage):
     pkw = dict(kw, offsets_t=Ap.offsets_t)
     ptkw = dict(tkw, offsets_t=Ap.toffsets_t)
     dp, pd, pt = As.dp, Ap.data, Ap.tdata
+    products = product_calls(As, Ap, v, y)
+    twins = {spmv.dia_product_shared: spmv.dia_product_shared_plain,
+             spmv.dia_matvec: spmv.dia_matvec_plain}
+
+    def product(name):
+        wrapper, stripes, vec, pkw_ = products[name]
+        tkw_ = {k: a for k, a in pkw_.items() if k != "offsets_t"}
+        return (lambda: wrapper(stripes, vec, **pkw_),
+                lambda: twins[wrapper](stripes, vec, **tkw_))
+
     calls = {
-        "dia_product_shared": [
-            (lambda a=a: spmv.dia_product_shared(dp, y if a else v, adjoint=a, **skw),
-             lambda a=a: spmv.dia_product_shared_plain(dp, y if a else v, adjoint=a, **kw))
-            for a in (False, True)],
+        "dia_product_shared": [product(f"dia_product_shared{sfx}"),
+                               product(f"dia_product_shared{sfx}[adjoint]")],
         "dia_product_shared_axpy": [
             (lambda a=a: spmv.dia_product_shared_axpy(dp, y if a else v, v if a else y,
                                                       c1, c2, adjoint=a, **skw),
@@ -450,13 +526,7 @@ def kernel_calls(dev, data, v, y, m, n, ks, storage):
         "dia_pair_shared": [
             (lambda: spmv.dia_pair_shared(dp, v, y, c1, c2, **skw),
              lambda: spmv.dia_pair_shared_plain(dp, v, y, c1, c2, **kw))],
-        "dia_matvec": [
-            (lambda: spmv.dia_matvec(pd, v, **pkw),
-             lambda: spmv.dia_matvec_plain(pd, v, **kw)),
-            (lambda: spmv.dia_matvec(pt, y, **ptkw),
-             lambda: spmv.dia_matvec_plain(pt, y, **tkw)),
-            (lambda: spmv.dia_matvec(pd, y, adjoint=True, **pkw),  # the column side
-             lambda: spmv.dia_matvec_plain(pd, y, adjoint=True, **kw))],
+        "dia_matvec": [product(f"dia_matvec{sfx}{tag}") for tag in ("", "[t]", "[column]")],
         "dia_matvec_axpy": [
             (lambda: spmv.dia_matvec_axpy(pd, y, v, c1, c2, **pkw),
              lambda: spmv.dia_matvec_axpy_plain(pd, y, v, c1, c2, **kw)),
@@ -574,8 +644,8 @@ def phase_pair_routes(dev, m, errs, card):
     v = torch.randn(m, generator=g, device=dev)
     out = {}
     for storage in (torch.float32, torch.bfloat16):
-        calls = {k: pairs for k, pairs in kernel_calls(dev, data, v, y, m, m, OFFSETS,
-                                                        storage).items()
+        As, Ap = dia_operators(data, m, m, OFFSETS, storage)
+        calls = {k: pairs for k, pairs in kernel_calls(dev, As, Ap, v, y).items()
                  if base(k) == "dia_pair_shared"}
         hold(calls, errs, m, m, OFFSETS, TOL)
         tile = spmv.pair_tile(dev, storage, len(OFFSETS), *spmv._halos(OFFSETS))
@@ -602,11 +672,16 @@ def phase_kernels(dev, shapes, errs, paths):
     """Phase 1: every kernel against its twin on the card; returns
     {variant: (kernel ms, twin ms, m, n, nd, stripe bytes per element,
     library ms or None)} of the first call of each, at the first (main-path)
-    shape for f32 and bf16 and at the second for f64, and of the half-step's
-    adjoint call too (``<variant>[adjoint]``, with its (n, m)). The library call is
-    ``torch.sparse_csr_tensor @ x`` of the same matrix, for the products.
-    At the main shape the kernels no solver calls (DIRECT) run once more
-    as a counted path of their own, the direct call."""
+    shape for f32 and bf16 and at the second for f64, and of the other calls
+    of the products and the half-step (OTHER_CALLS: ``<variant>[adjoint]``,
+    ``[t]``, ``[column]``, each with its (dim_out, dim_in) or, for the
+    packed column side, its stripes' (m, n)). The library call is
+    ``torch.sparse_csr_tensor @ x`` of the same matrix (of A' for the
+    products' other calls), for the products in f32 and f64. At every shape,
+    f32 and bf16, each call of the two products is held bit for bit to the
+    direct kernel; the main shape's must take the staged route. At the main
+    shape the kernels no solver calls (DIRECT) run once more as a counted
+    path of their own, the direct call."""
     import torch
 
     from lsqr_tpu_torch.ops import spmv
@@ -615,8 +690,14 @@ def phase_kernels(dev, shapes, errs, paths):
     for si, (m, n, ks) in enumerate(shapes):
         data, y, g = random_stripes(m, n, ks, dev, seed=si)
         v = torch.randn(n, generator=g, device=dev)
-        for storage in (torch.float32, torch.bfloat16)[:2 if si == 0 else 1]:
-            calls = kernel_calls(dev, data, v, y, m, n, ks, storage)
+        for storage in (torch.float32, torch.bfloat16):
+            As, Ap = dia_operators(data, m, n, ks, storage)
+            tile = products_match_direct(As, Ap, v, y, f"m={m} n={n} nd={len(ks)}")
+            check(si != 0 or tile > 0, "the main shape's products must take the staged route")
+            if si and storage == torch.bfloat16:  # held to the twins at the main shape
+                del As, Ap
+                continue
+            calls = kernel_calls(dev, As, Ap, v, y)
             hold(calls, errs, m, n, ks, TOL)
             tile = spmv.pair_tile(data.device, storage, len(ks), *spmv._halos(ks))
             ring = spmv._ring_fits(data.device, storage, len(ks), *spmv._halos(ks))
@@ -628,17 +709,24 @@ def phase_kernels(dev, shapes, errs, paths):
                   f"the main shape's shared pair must take the staged route, not {route}")
             pair_routes_agree(calls, storage, f"m={m} n={n} nd={len(ks)}")
             if si == 0:
-                csr = stripes_csr(data, ks, m, n) if storage == torch.float32 else None
+                csr, csr_t = (None, None)
+                if storage == torch.float32:
+                    rows, cols, vals = stripe_triplets(data, ks, m, n)
+                    csr, csr_t = csr_of(rows, cols, vals, m, n), csr_of(cols, rows, vals, n, m)
+                    del rows, cols, vals
                 for name, pairs in calls.items():
                     lib = None
                     if csr is not None and name in ("dia_product_shared", "dia_matvec"):
                         lib = library_ms(csr, v, pairs[0][0]())
                     times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
                                    len(ks), storage.itemsize, lib)
-                    if base(name) == "dia_product_shared_axpy":  # and its adjoint
-                        times[name + "[adjoint]"] = (time_ms(pairs[1][0]),
-                                                     time_ms(pairs[1][1]), n, m, len(ks),
-                                                     storage.itemsize, None)
+                    for tag, i, transposed in OTHER_CALLS.get(base(name), ()):
+                        lib = (library_ms(csr_t, y, pairs[i][0]())
+                               if csr_t is not None and transposed else None)
+                        # the packed column side reads data's (m, n) stripes
+                        shape = (m, n) if tag == "[column]" else (n, m)
+                        times[name + tag] = (time_ms(pairs[i][0]), time_ms(pairs[i][1]),
+                                             *shape, len(ks), storage.itemsize, lib)
                 direct = [fn for name, pairs in calls.items() if base(name) in DIRECT
                           for fn, _ in pairs]
                 _, delta = counted(lambda: [fn() for fn in direct])
@@ -649,8 +737,8 @@ def phase_kernels(dev, shapes, errs, paths):
                     delta[k] > 0 for name in DIRECT
                     for k in [name + ("" if storage == torch.float32 else "[bf16]")]),
                       f"the direct path: expected one launch per call: {delta}")
-                del csr
-            del calls
+                del csr, csr_t
+            del calls, As, Ap
         if si == 1:  # the f64 products (f64 solves on the card use them);
             # full-width f64 values: products of f32 values would be exact
             import lsqr_tpu_torch as lt
@@ -2733,15 +2821,17 @@ def main():
     for name, (ms, plain_ms, m, n, nd, esize, lib) in times.items():
         perf[name] = dia_perf(name, ms, plain_ms, m, n, nd, esize, lib)
         report(name, perf[name], card)
-    halfstep = {name: dict(perf[name], bound_ms=bound(perf[name]["bytes"], perf[name]["flops"],
-                                                     perf[name]["esize"])[0])
-                for name in perf if base(name) == "dia_product_shared_axpy"}
+    halfstep, products = ({name: dict(perf[name], bound_ms=bound(
+        perf[name]["bytes"], perf[name]["flops"], perf[name]["esize"])[0])
+        for name in perf if base(name) in kernels} for kernels in (
+            ("dia_product_shared_axpy",), ("dia_product_shared", "dia_matvec")))
     pair_small = phase_pair_routes(dev, M_SMALL, errs, card)
 
     phase("phases 2-3: main-path solves, shared layout")
     A, b, x_shared, solves = phase_main_solve(dev, M_MAIN, card, paths)
     solves["pair_shared_m" + str(M_SMALL)] = pair_small
     solves["halfstep_main"] = halfstep
+    solves["products_main"] = products
     phase("phase 4: auto_operator; the shared pair's unstaged route")
     phase_auto_operator(dev, 2 ** 20, paths)
     solves["unstaged_pair"], many = phase_unstaged_solves(dev, errs, card, paths)
@@ -2815,9 +2905,12 @@ def main():
     for name in [*launches, *packings]:
         entry = perf[name]
         bound_ms, bound_by = bound(entry["bytes"], entry["flops"], entry["esize"])
-        staged = base(name) in ("dia_pair", "dia_pair_shared") and "unstaged" not in name
-        rows.append({"name": name, "route": "cuda",
-                     "source": STAGED_PAIR if staged else KERNELS[base(name)][0],
+        source = KERNELS[base(name)][0]
+        if base(name) in ("dia_pair", "dia_pair_shared") and "unstaged" not in name:
+            source = STAGED_PAIR
+        elif base(name) in ("dia_matvec", "dia_product_shared") and "f64" not in name:
+            source = STAGED_PRODUCT
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": KERNELS[base(name)][1],
                      "launches": launches[name] if name in launches else packings[name],
                      "max_abs_err": errs[name] if name in errs else errs[base(name)],

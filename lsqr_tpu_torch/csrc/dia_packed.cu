@@ -22,9 +22,13 @@
 //
 // Kernels and the TPU kernels they replace (lsqr_tpu/ops/pallas_spmv.py):
 //
-// 1. dia_matvec_kernel          <- dia_matvec / _dia_kernel
+// 1. dia_product_staged_kernel  <- dia_matvec / _dia_kernel
+//    (dia_matvec_kernel where
+//    no tile fits, and for f64)
 //    y = A x on data (or A' y on tdata); the column mode gives A' u from
-//    data, for the pair's wide-halo route.
+//    data, for the pair's wide-halo route: the staged product of
+//    csrc/dia_product_staged.cuh on this layout (row stride m, or n for
+//    tdata; row base 0).
 // 2. dia_matvec_axpy_kernel     <- dia_matvec_axpy / _dia_axpy_kernel
 //    A (vec * c1) - c2 * y.
 // 3. dia_fused_halfstep_kernel  <- dia_fused_halfstep / _dia_fused_kernel
@@ -53,9 +57,16 @@
 // m = n = 2^23 with 11 diagonals: 369 MB of f32 stripes, 34 MB per vector.
 //
 // What the design does about it:
-// * one thread per output element in a grid-stride loop: for each diagonal
-//   a warp reads 32 neighbouring stripe and vector addresses, so every load
-//   is coalesced and each stripe byte comes from device memory once;
+// * the product (kernel 1) streams: a persistent grid stages tiles of T
+//   outputs (each diagonal's stripe piece at its own 16-byte phase where m
+//   is not a multiple of 16 bytes' worth, and the vector window) in shared
+//   memory by cp.async, two stages deep (csrc/dia_product_staged.cuh); T
+//   from ops/spmv.py: product_tile. Where T is 0 (a vector window too wide
+//   for any tile) and for f64 stripes, the direct kernel below;
+// * the others run one thread per output element in a grid-stride loop: for
+//   each diagonal a warp reads 32 neighbouring stripe and vector addresses,
+//   so every load is coalesced and each stripe byte comes from device
+//   memory once;
 // * the fused half-step's norm is reduced in the same pass, without float
 //   atomics: each block writes its partial sum to a scratch slot, and the
 //   last block to finish (an integer ticket after __threadfence) sums the
@@ -75,6 +86,7 @@
 #include <cuda_runtime.h>
 
 #include "dia_pair_staged.cuh"
+#include "dia_product_staged.cuh"
 
 namespace {
 
@@ -274,16 +286,29 @@ __global__ void __launch_bounds__(kThreads) dia_fused_halfstep_v3_kernel(
   if (threadIdx.x == 0) partial[blockIdx.x] = block_total;
 }
 
+// The product: the staged kernel in tiles of T (ops/spmv.py: product_tile;
+// lo = max(0, -k_min), hi = max(0, k_max) of these offsets; data and vec
+// 16-byte aligned; f32 and bf16 stripes), or the direct kernel where T is 0.
 template <typename S, typename V>
 int launch_matvec(const void* data, const void* vec, void* out,
                   const void* offsets, int nd, long long dim_out,
-                  long long dim_in, int column, void* stream) {
-  dia_matvec_kernel<S, V>
-      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const S*>(data), static_cast<const V*>(vec),
-          static_cast<V*>(out), static_cast<const int*>(offsets), nd, dim_out,
-          dim_in, column);
-  return static_cast<int>(cudaGetLastError());
+                  long long dim_in, int column, int lo, int hi, int T,
+                  void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    dia_matvec_kernel<S, V><<<grid_for(dim_out), kThreads, 0, s>>>(
+        static_cast<const S*>(data), static_cast<const V*>(vec),
+        static_cast<V*>(out), static_cast<const int*>(offsets), nd, dim_out,
+        dim_in, column);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (sizeof(V) != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);  // f64 takes the direct kernel
+  } else {
+    const long long row_len = column ? dim_in : dim_out;
+    return launch_product_staged<S>(data, nd * row_len, row_len, 0, vec, out, offsets, nd,
+                                    dim_out, dim_in, column, lo, hi, T, s);
+  }
 }
 
 template <typename S, typename O>
@@ -308,9 +333,10 @@ extern "C" {
 #define LSQR_MATVEC(SUFFIX, S, V)                                               \
   int lsqr_dia_matvec_##SUFFIX(const void* data, const void* vec, void* out,    \
                                const void* offsets, int nd, long long dim_out,  \
-                               long long dim_in, int column, void* stream) {    \
+                               long long dim_in, int column, int lo, int hi,    \
+                               int T, void* stream) {                           \
     return launch_matvec<S, V>(data, vec, out, offsets, nd, dim_out, dim_in,    \
-                               column, stream);                                 \
+                               column, lo, hi, T, stream);                      \
   }
 
 #define LSQR_MATVEC_AXPY(SUFFIX, S, O)                                          \

@@ -20,8 +20,12 @@
 //
 // Kernels and the TPU kernels they replace (lsqr_tpu/ops/pallas_spmv.py):
 //
-// 1. dia_product_shared_kernel   <- dia_product_shared / _dia_shared_kernel
-//    y = A x or x = A' y (f64 products on the card come here).
+// 1. dia_product_staged_kernel   <- dia_product_shared / _dia_shared_kernel
+//    (dia_product_shared_kernel
+//    where no tile fits, and f64)
+//    y = A x or x = A' y: the staged product of csrc/dia_product_staged.cuh
+//    on this layout (row stride Lp, row base H; every row at one 16-byte
+//    phase); f64 products on the card take the direct kernel.
 // 2. dia_axpy_staged_kernel      <- dia_product_shared_axpy /
 //    (dia_shared_axpy_kernel where     _dia_shared_axpy_kernel
 //    no tile fits)
@@ -40,10 +44,13 @@
 // against 67-134 MB of vectors.
 //
 // What the design does about it:
-// * the product: one thread per output element in a grid-stride loop; for
-//   each diagonal a warp reads 32 neighbouring dp addresses and 32
-//   neighbouring vector addresses, so every load is coalesced and every
-//   stripe byte is read from device memory once per product;
+// * the product streams as the half-step below does, without y (csrc/
+//   dia_product_staged.cuh, tiles from ops/spmv.py: product_tile); where no
+//   tile fits, and for f64, the direct kernel: one thread per output element
+//   in a grid-stride loop; for each diagonal a warp reads 32 neighbouring dp
+//   addresses and 32 neighbouring vector addresses, so every load is
+//   coalesced and every stripe byte is read from device memory once per
+//   product;
 // * the half-step (row 3) streams: a persistent grid walks tiles of T
 //   outputs and keeps two of them in shared memory, the next one's 16-byte
 //   cp.async copies in flight while this one is summed (dia_axpy_staged_
@@ -78,6 +85,7 @@
 #include <cuda_runtime.h>
 
 #include "dia_pair_staged.cuh"
+#include "dia_product_staged.cuh"
 
 namespace {
 
@@ -589,17 +597,29 @@ __global__ void __launch_bounds__(kRingThreads) dia_pair_ring_kernel(
   }
 }
 
+// The product: the staged kernel in tiles of T (ops/spmv.py: product_tile;
+// lo = max(0, -k_min), hi = max(0, k_max), at most H; dp and vec 16-byte
+// aligned; f32 and bf16 stripes), or the direct kernel where T is 0.
 template <typename S, typename V>
 int launch_product(const void* dp, const void* vec, void* out,
                    const void* offsets, int nd, long long Lp, int H,
-                   long long dim_out, long long dim_in, int adjoint,
-                   void* stream) {
-  dia_product_shared_kernel<S, V>
-      <<<grid_for(dim_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const S*>(dp), static_cast<const V*>(vec),
-          static_cast<V*>(out), static_cast<const int*>(offsets), nd, Lp, H,
-          dim_out, dim_in, adjoint);
-  return static_cast<int>(cudaGetLastError());
+                   long long dim_out, long long dim_in, int adjoint, int lo,
+                   int hi, int T, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    dia_product_shared_kernel<S, V><<<grid_for(dim_out), kThreads, 0, s>>>(
+        static_cast<const S*>(dp), static_cast<const V*>(vec),
+        static_cast<V*>(out), static_cast<const int*>(offsets), nd, Lp, H,
+        dim_out, dim_in, adjoint);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (sizeof(V) != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);  // f64 takes the direct kernel
+  } else {
+    if (lo > H || hi > H || Lp % 16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_product_staged<S>(dp, nd * Lp, Lp, H, vec, out, offsets, nd, dim_out,
+                                    dim_in, adjoint, lo, hi, T, s);
+  }
 }
 
 template <typename S, int R>
@@ -720,9 +740,9 @@ const char* lsqr_cuda_error_string(int code) {
   int lsqr_dia_product_shared_##SUFFIX(                                         \
       const void* dp, const void* vec, void* out, const void* offsets, int nd,  \
       long long Lp, int H, long long dim_out, long long dim_in, int adjoint,    \
-      void* stream) {                                                           \
+      int lo, int hi, int T, void* stream) {                                    \
     return launch_product<S, V>(dp, vec, out, offsets, nd, Lp, H, dim_out,      \
-                                dim_in, adjoint, stream);                       \
+                                dim_in, adjoint, lo, hi, T, stream);            \
   }
 
 #define LSQR_AXPY(SUFFIX, S)                                                    \

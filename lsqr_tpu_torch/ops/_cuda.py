@@ -33,8 +33,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # csrc/dia_shared.cu
-    # dp, vec, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, stream
-    **{f"lsqr_dia_product_shared_{s}": (_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _P)
+    # dp, vec, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, lo, hi, T,
+    # stream
+    **{f"lsqr_dia_product_shared_{s}": (_P, _P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _I, _I,
+                                        _P)
        for s in ("f32", "f64", "bf16")},
     # dp, vec, y, c1, c2, out, offsets, nd, Lp, H, dim_out, dim_in, adjoint, lo,
     # hi, T, stream
@@ -50,8 +52,8 @@ _SIGNATURES = {
                                             _L, _I, _I, _I, _P)
        for s in ("f32", "bf16")},
     # csrc/dia_packed.cu
-    # data, vec, out, offsets, nd, dim_out, dim_in, column, stream
-    **{f"lsqr_dia_matvec_{s}": (_P, _P, _P, _P, _I, _L, _L, _I, _P)
+    # data, vec, out, offsets, nd, dim_out, dim_in, column, lo, hi, T, stream
+    **{f"lsqr_dia_matvec_{s}": (_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _P)
        for s in ("f32", "f64", "bf16")},
     # data, vec, y, c1, c2, out, offsets, nd, dim_out, dim_in, stream
     **{f"lsqr_dia_matvec_axpy_{s}": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P)

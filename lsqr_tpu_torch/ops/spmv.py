@@ -7,11 +7,13 @@ beside it in this module:
 =========================  =================================  ==================
 wrapper                    computes                           source
 =========================  =================================  ==================
-dia_product_shared         A x or A' y (f32, f64, bf16)       csrc/dia_shared.cu
+dia_product_shared         A x or A' y (f32, f64, bf16)       csrc/dia_shared.cu,
+                                                              dia_product_staged.cuh
 dia_product_shared_axpy    (A or A')(vec*c1) - c2*y           csrc/dia_shared.cu
 dia_pair_shared            u = A(vec*c1) - c2*y, z = A' u     csrc/dia_shared.cu,
                                                               dia_pair_staged.cuh
-dia_matvec                 A x, packed (f32, f64, bf16)       csrc/dia_packed.cu
+dia_matvec                 A x, packed (f32, f64, bf16)       csrc/dia_packed.cu,
+                                                              dia_product_staged.cuh
 dia_matvec_axpy            A(win*c1) - c2*y, packed           csrc/dia_packed.cu
 dia_fused_halfstep         as dia_matvec_axpy, and sum(out^2) csrc/dia_packed.cu
 dia_fused_halfstep_v2      the same in f32 or bf16, the sum   csrc/dia_packed.cu
@@ -88,6 +90,8 @@ __all__ = [
     "pair_ring_bytes",
     "axpy_stage_bytes",
     "axpy_tile",
+    "product_stage_bytes",
+    "product_tile",
     "mk_stage_bytes",
     "mk_tile",
     "zpair_stage_bytes",
@@ -111,6 +115,12 @@ RING_CHUNK, RING_AHEAD = 128, 0
 #: fits, else a smaller one
 AXPY_STAGES = 2
 AXPY_TILES = ((1024, 512, 256), (128, 64, 32, 16))
+
+#: the staged products of both layouts (csrc/dia_product_staged.cuh:
+#: kProductStages): tiles in shared memory, the one summed included; and
+#: their tiles, best first, in the half-step's two tiers
+PRODUCT_STAGES = 2
+PRODUCT_TILES = AXPY_TILES
 
 #: the megakernels' staged product phases (csrc/megakernel.cu: kMkStages,
 #: kThreads x kMkRows): tiles in shared memory, the one summed included;
@@ -415,25 +425,63 @@ def dia_product_shared(dp, vec, *, offsets: Sequence[int], m: int, n: int,
     """y = A x (adjoint=False, vec (n,) -> (m,)) or x = A' y (adjoint=True,
     vec (m,) -> (n,)) from the shared stripes. On CUDA: f32, f64 or bf16
     stripes, with an f32 vector for bf16 and one of the stripes' dtype
-    otherwise."""
+    otherwise; f32 and bf16 stripes (``dp`` 16-byte aligned) take the
+    staged kernel in tiles of :func:`product_tile` (a vector off the
+    16-byte grid is copied), f64 stripes and windows no tile fits the
+    direct kernel (one launch either way, the same bits)."""
     offsets = tuple(int(k) for k in offsets)
     if not dp.is_cuda:
         return dia_product_shared_plain(dp, vec, offsets=offsets, m=m, n=n,
                                         adjoint=adjoint)
-    fn = _kernel("dia_product_shared", dp,
+    return _product_launch(dia_product_shared, dp, vec, offsets=offsets, m=m, n=n,
+                           adjoint=adjoint, offsets_t=offsets_t,
+                           tile=_product_rule(dp, offsets))
+
+
+def _product_rule(stripes, offsets):
+    """The tile :func:`product_tile` gives these stripes on their card."""
+    return product_tile(len(offsets), *_halos(offsets), stripes.dtype.itemsize,
+                        *_smem_limits(stripes.device))
+
+
+def _product_launch(wrapper, stripes, vec, *, offsets: Sequence[int], m: int, n: int,
+                    adjoint: bool, offsets_t: Optional[torch.Tensor] = None, tile: int):
+    """One launch of a product on CUDA tensors: ``wrapper`` is
+    :func:`dia_product_shared` (``stripes`` the shared ``dp``) or
+    :func:`dia_matvec` (the packed ``(nd, m)`` stripes, ``adjoint`` its
+    column side); the staged kernel in tiles of ``tile``, or the direct
+    kernel where ``tile`` is 0. The wrappers pick the tile
+    (:func:`product_tile`); a comparison of the two kernels passes 0."""
+    offsets = tuple(int(k) for k in offsets)
+    shared = wrapper is dia_product_shared
+    fn = _kernel(wrapper.kernel_name, stripes,
                  (torch.float32, torch.float64, torch.bfloat16), offsets)
-    _check_shared(dp, offsets, m, n)
-    H, Lp = _geometry(offsets, m, n)
+    name, vec_name = ("dp", "vec") if shared else ("data", "x")
+    if shared:
+        _check_shared(stripes, offsets, m, n)
+    else:
+        _check("data", stripes, stripes.dtype, stripes.device, (len(offsets), m))
     dim_out, dim_in = (n, m) if adjoint else (m, n)
-    acc = _acc_dtype(dp)
-    _check("vec", vec, acc, dp.device, dim_in)
-    offsets_t = _offsets_on(dp, offsets, offsets_t)
-    out = torch.empty(dim_out, dtype=acc, device=dp.device)
+    acc = _acc_dtype(stripes)
+    _check(vec_name, vec, acc, stripes.device, dim_in)
+    offsets_t = _offsets_on(stripes, offsets, offsets_t)
+    if tile:
+        if stripes.dtype == torch.float64:
+            raise TypeError("the staged product takes f32 and bf16 stripes; f64 takes tile=0")
+        if stripes.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the staged product copies "
+                             "it in 16-byte pieces)")
+        vec, = _aligned(vec)
+    out = torch.empty(dim_out, dtype=acc, device=stripes.device)
     if dim_out == 0:
         return out
-    _launch(dia_product_shared, fn, dp, dp.data_ptr(), vec.data_ptr(),
-            out.data_ptr(), offsets_t.data_ptr(), len(offsets), Lp, H, dim_out,
-            dim_in, int(adjoint))
+    head = (stripes.data_ptr(), vec.data_ptr(), out.data_ptr(), offsets_t.data_ptr(),
+            len(offsets))
+    if shared:
+        H, Lp = _geometry(offsets, m, n)
+        head += (Lp, H)
+    _launch(wrapper, fn, stripes, *head, dim_out, dim_in, int(adjoint), *_halos(offsets),
+            tile)
     return out
 
 
@@ -542,6 +590,34 @@ def axpy_tile(nd, lo, hi, esize, per_sm, optin):
     lo + hi = 0 the rule takes every nd the kernels take (1024) in f32 and
     bf16, with T = 16 from nd = 395 (f32) and 703 (bf16) on the H100."""
     return _fit_tile(AXPY_TILES, lambda T: axpy_stage_bytes(nd, lo, hi, T, esize),
+                     per_sm, optin)
+
+
+def product_stage_bytes(nd, lo, hi, T, esize, stages=PRODUCT_STAGES):
+    """The dynamic shared memory of the staged product of both layouts
+    (csrc/dia_product_staged.cuh: ProductLayout) in tiles of T for nd
+    diagonals, halos lo, hi (either direction: their sum counts) and stripes
+    of ``esize`` bytes: ``stages`` stages of nd rows of T + 16/esize stripe
+    elements and the vector window (T + lo + hi floats and 3 in front,
+    rounded up to 4); then two ints a diagonal (nd rounded up to 4 each):
+    the offsets and the rows' 16-byte phases."""
+    stage = nd * (T + 16 // esize) * esize + _round_up(T + lo + hi + 3, 4) * 4
+    return stages * stage + 8 * _round_up(nd, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def product_tile(nd, lo, hi, esize, per_sm, optin):
+    """The staged product's tile (:func:`dia_product_shared`,
+    :func:`dia_matvec`) for a card with ``per_sm`` bytes of shared memory an
+    SM and ``optin`` a block: of the tiers of PRODUCT_TILES, the largest
+    tile whose stages fit two blocks an SM, else one block (the half-step's
+    rule, :func:`axpy_tile`); 0 for f64 stripes (``esize`` 8: their vectors
+    are f64, which the f32 stages do not take) and where no tile fits (a
+    vector window too wide: lo + hi above about 29,000 in f32), and the
+    wrappers then take the direct kernel."""
+    if esize == 8:
+        return 0
+    return _fit_tile(PRODUCT_TILES, lambda T: product_stage_bytes(nd, lo, hi, T, esize),
                      per_sm, optin)
 
 
@@ -715,23 +791,16 @@ def dia_matvec(data, x, *, offsets: Sequence[int], m: int, n: int,
     ``tdata`` with the negated offsets (as in the JAX package);
     ``adjoint=True`` instead reads ``data`` from the column side,
     x (m,) -> A' x (n,). On CUDA: f32, f64 or bf16 stripes, with an f32
-    vector for bf16 and one of the stripes' dtype otherwise."""
+    vector for bf16 and one of the stripes' dtype otherwise; f32 and bf16
+    stripes (16-byte aligned) take the staged kernel in tiles of
+    :func:`product_tile` (a vector off the 16-byte grid is copied), f64
+    stripes and windows no tile fits the direct kernel (one launch either
+    way, the same bits)."""
     offsets = tuple(int(k) for k in offsets)
     if not data.is_cuda:
         return dia_matvec_plain(data, x, offsets=offsets, m=m, n=n, adjoint=adjoint)
-    fn = _kernel("dia_matvec", data,
-                 (torch.float32, torch.float64, torch.bfloat16), offsets)
-    _check("data", data, data.dtype, data.device, (len(offsets), m))
-    dim_out, dim_in = (n, m) if adjoint else (m, n)
-    acc = _acc_dtype(data)
-    _check("x", x, acc, data.device, dim_in)
-    offsets_t = _offsets_on(data, offsets, offsets_t)
-    out = torch.empty(dim_out, dtype=acc, device=data.device)
-    if dim_out == 0:
-        return out
-    _launch(dia_matvec, fn, data, data.data_ptr(), x.data_ptr(), out.data_ptr(),
-            offsets_t.data_ptr(), len(offsets), dim_out, dim_in, int(adjoint))
-    return out
+    return _product_launch(dia_matvec, data, x, offsets=offsets, m=m, n=n, adjoint=adjoint,
+                           offsets_t=offsets_t, tile=_product_rule(data, offsets))
 
 
 def _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n, offsets_t):

@@ -47,6 +47,7 @@ from ..config import as_dtype
 from .coo import destination_order, segment_sum
 from .linop import LinearOperator, as_tensor, placement, to_numpy
 from .spmv import (
+    _aligned,
     _geometry,
     dia_fused_halfstep,
     dia_matvec,
@@ -140,6 +141,10 @@ class DIAOperator(LinearOperator):
                 f"must have shapes ({nd}, {self.m}) and ({nd}, {self.n})")
         if self.tdata.dtype != self.data.dtype or self.tdata.device != self.data.device:
             raise ValueError("data and tdata must share dtype and device")
+        # stripes off the 16-byte grid are copied once here: the staged
+        # kernels copy them in 16-byte pieces
+        for name in ("data", "tdata"):
+            object.__setattr__(self, name, _aligned(getattr(self, name))[0])
         if self.offsets_t is None:
             object.__setattr__(self, "offsets_t",
                                _offsets_tensor(self.offsets, self.data.device))
@@ -300,6 +305,7 @@ class DIASharedOperator(LinearOperator):
                 f"dp of shape {tuple(self.dp.shape)} with H={self.H} does not "
                 f"match the geometry (H={H}, nd*Lp={len(self.offsets) * Lp})"
             )
+        object.__setattr__(self, "dp", _aligned(self.dp)[0])  # as DIAOperator's stripes
         if self.offsets_t is None:
             object.__setattr__(self, "offsets_t",
                                _offsets_tensor(self.offsets, self.dp.device))

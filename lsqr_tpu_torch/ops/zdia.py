@@ -33,7 +33,7 @@ import torch
 
 from .jdia import JDIAOperator, from_packing, pack_triplets
 from .linop import LinearOperator, as_tensor, placement, to_numpy
-from .spmv import dia_matvec, zdia_pair, zdia_pair_plain
+from .spmv import _aligned, dia_matvec, zdia_pair, zdia_pair_plain
 
 __all__ = ["ZDIAOperator", "zdia_operator", "zdia_operator_device", "ZJDIAOperator",
            "zjdia_operator", "zjdia_pack", "zjdia_from_packings", "zdia_pair_plain"]
@@ -91,6 +91,10 @@ class ZDIAOperator(LinearOperator):
                 raise ValueError("the four planes must share dtype and device")
         if self.dr.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"planes of dtype {self.dr.dtype}: float32 or float64")
+        # planes off the 16-byte grid are copied once here: the staged
+        # kernels copy them in 16-byte pieces
+        for name in ("dr", "di", "tdr", "tdi"):
+            object.__setattr__(self, name, _aligned(getattr(self, name))[0])
         for name, offs in (("offsets_t", self.offsets), ("toffsets_t", self.toffsets)):
             if getattr(self, name) is None:
                 object.__setattr__(self, name, torch.tensor(offs, dtype=torch.int32,

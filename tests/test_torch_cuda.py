@@ -1289,6 +1289,123 @@ def test_cuda_staged_halfstep_refuses_unaligned_stripes(rng, cuda_device):
                                      adjoint=False)
 
 
+#: the staged products' edges: m, n not multiples of 8 (every packed row at
+#: a 16-byte phase of its own, f32 and bf16), m != n both ways, dim_out below
+#: one tile, 81 diagonals (tiles of 256), one-sided bands (the column side's
+#: first and last diagonals past the stripes), bands past PAIR_MAX_HALO (a
+#: +-1500 band), m a multiple of 8 (every row at one phase) and the ragged
+#: shape of chip_smoke.py's phase 1
+PRODUCT_CASES = [
+    (4099, 2053, (-7, -3, 0, 1, 5)),
+    (2053, 4099, (-7, -3, 0, 1, 5)),
+    (301, 203, (-7, -3, 0, 1, 5)),
+    (3001, 2001, tuple(range(-40, 41))),
+    (3001, 2003, (-9, -4, 0)),
+    (2003, 3001, (0, 3, 11)),
+    (5000, 4000, (-1500, -2, 0, 3, 1100)),
+    (2048, 2048, (-1500, 0, 1500)),
+    (65_536, 65_536, tuple(range(-5, 6))),
+    (300_001, 200_003, (-60, -3, 0, 5)),
+]
+
+
+def _product_calls(As, Ap, v, y):
+    """(wrapper, stripes, vector, keywords) of every call of the two
+    products: the shared forward and adjoint, the packed data forward, tdata
+    forward (the operator's adjoint) and data's column side."""
+    kw = dict(offsets=As.offsets, m=As.m, n=As.n)
+    return [
+        (spmv.dia_product_shared, As.dp, v, dict(kw, adjoint=False, offsets_t=As.offsets_t)),
+        (spmv.dia_product_shared, As.dp, y, dict(kw, adjoint=True, offsets_t=As.offsets_t)),
+        (spmv.dia_matvec, Ap.data, v, dict(kw, adjoint=False, offsets_t=Ap.offsets_t)),
+        (spmv.dia_matvec, Ap.tdata, y, dict(offsets=Ap.toffsets, m=Ap.n, n=Ap.m,
+                                            adjoint=False, offsets_t=Ap.toffsets_t)),
+        (spmv.dia_matvec, Ap.data, y, dict(kw, adjoint=True, offsets_t=Ap.offsets_t)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,ks", PRODUCT_CASES)
+def test_cuda_staged_products_match_twins_and_the_direct_kernel(rng, cuda_device, m, n, ks,
+                                                                storage):
+    """Every call of the two products through the staged kernel against
+    its twin; two calls, a vector off the 16-byte grid (the wrapper copies
+    it) and the direct kernel (tile 0: one thread an output, the same
+    order) give the same bits."""
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    As = lt.dia_shared_operator(m, n, ks, data, storage_dtype=storage, device=cuda_device)
+    Ap = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=cuda_device)
+    v, y = (t.to(cuda_device) for t in _vectors(rng, m, n))
+    tile = spmv.product_tile(len(ks), *spmv._halos(ks), Ap.data.dtype.itemsize,
+                             *spmv._smem_limits(cuda_device))
+    assert tile > 0
+    spmv.reset_launch_counts()
+    for wrapper, stripes, vec, kw in _product_calls(As, Ap, v, y):
+        plain = (spmv.dia_product_shared_plain if wrapper is spmv.dia_product_shared
+                 else spmv.dia_matvec_plain)
+        first, again = (wrapper(stripes, vec, **kw) for _ in range(2))
+        off = torch.cat([vec.new_zeros(1), vec])[1:]
+        assert off.data_ptr() % 16
+        off_grid = wrapper(stripes, off, **kw)
+        direct = spmv._product_launch(wrapper, stripes, vec, tile=0, **kw)
+        ref = plain(stripes.cpu(), vec.cpu(), **{k: a for k, a in kw.items() if k != "offsets_t"})
+        torch.cuda.synchronize()
+        assert first.dtype == torch.float32 and first.shape == ref.shape
+        assert rel_err(first, ref) < TOL
+        assert torch.equal(first, again) and torch.equal(first, off_grid)
+        assert torch.equal(first, direct)
+    assert spmv.launch_counts() == _only(dia_product_shared=8, dia_matvec=12)
+    suffix = "" if storage == "float32" else "[bf16]"
+    assert spmv.launch_counts(by_variant=True)["dia_matvec" + suffix] == 12
+
+
+@pytest.mark.cuda
+def test_cuda_staged_products_refuse_unaligned_stripes(rng, cuda_device):
+    """The staged products copy the stripes in 16-byte pieces: stripes off
+    the grid are refused (the vector is copied instead), and the direct
+    kernel (tile 0) takes them; the operators copy such stripes once."""
+    m, n, ks = 300, 300, (-1, 0, 1)
+    Ah = _operator(rng, m, n, ks)
+    v = _vectors(rng, m, n)[0].to(cuda_device)
+    kw = dict(offsets=ks, m=m, n=n, adjoint=False)
+    for wrapper, stripes in ((spmv.dia_product_shared, Ah.dp),
+                             (spmv.dia_matvec, Ah.data.contiguous())):
+        big = torch.zeros(stripes.numel() + 1, device=cuda_device)
+        big[1:] = stripes.reshape(-1).to(cuda_device)
+        off = big[1:].view(stripes.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            wrapper(off, v, **kw)
+        got = spmv._product_launch(wrapper, off, v, tile=0, **kw)
+        ref = wrapper(stripes.to(cuda_device), v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    A = lt.DIAOperator(data=off, tdata=off, m=m, n=n, offsets=ks)
+    assert A.data.data_ptr() % 16 == 0 and torch.equal(A.data, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "packed"])
+def test_cuda_product_solves_are_bit_stable(rng, cuda_device, layout):
+    """Solves whose products take the staged kernel each iteration (cgls,
+    lsmr with pair=False, lsqr with fused=False) stop where a second run
+    stops, with bit-equal x."""
+    m = n = 200_003
+    ks = tuple(range(-5, 6))
+    data, _ = banded(rng, m, n, ks, np.float32, boost=12.0, dense=False)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda_device)
+    build = lt.dia_shared_operator if layout == "shared" else lt.dia_operator
+    A = build(m, n, ks, data, device=cuda_device)
+    wrapper = "dia_product_shared" if layout == "shared" else "dia_matvec"
+    for solve, kw in ((lt.cgls, {}), (lt.lsmr, dict(pair=False)), (lt.lsqr, dict(fused=False))):
+        spmv.reset_launch_counts()
+        first = solve(A, b, 0.01, atol=1e-6, btol=1e-6, **kw)
+        assert spmv.launch_counts()[wrapper] >= 2 * int(first.itn)
+        again = solve(A, b, 0.01, atol=1e-6, btol=1e-6, **kw)
+        assert int(first.istop) == int(again.istop) and int(first.itn) == int(again.itn)
+        assert torch.equal(first.x, again.x)
+
+
 #: the staged complex pair's edges: one-sided bands (lower, upper), ragged
 #: m != n both ways, m below one tile, a halo whose span takes a larger tile
 ZPAIR_CASES = [

@@ -151,6 +151,49 @@ def test_matvec_twin_matches_pallas(rng, m, n, ks, direction):
     assert rel_err(got, ref) < TOL and rel_err(got, ref_dense) < TOL
 
 
+#: the staged product's edges on the card: tiles of 1024 straddled, m and n
+#: not multiples of 8 (every packed row at a 16-byte phase of its own, f32
+#: and bf16), m != n both ways, dim_out below one tile, one-sided bands
+#: (the column side's first and last diagonals past the stripes), a band
+#: past PAIR_MAX_HALO
+PRODUCT_EDGES = [
+    (2053, 1031, (-7, -3, 0, 1, 5)),
+    (1031, 2053, (-7, -3, 0, 1, 5)),
+    (45, 37, (-7, -3, 0, 1, 5)),
+    (601, 403, (-9, -4, 0)),
+    (403, 601, (0, 3, 11)),
+    (3001, 2003, (-1100, 0, 5)),
+]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", ["data", "tdata", "column"])
+@pytest.mark.parametrize("m,n,ks", PRODUCT_EDGES)
+def test_matvec_twin_matches_pallas_at_staging_edges(rng, m, n, ks, side, storage):
+    """``dia_matvec`` on the CPU (its twin) against the Pallas kernel
+    (interpret mode) at the staged kernel's edges, f32 and bf16 stripes (the
+    same bits in both packages), on each of its three sides: data forward,
+    tdata forward (the operator's adjoint) and data's column side, which
+    the JAX package computes as the product on tdata; within TOL of the
+    largest element."""
+    data, Aj, At = _packed(rng, m, n, ks, storage_dtype=storage)
+    assert _bits(At.data) == _bits(Aj.data) and _bits(At.tdata) == _bits(Aj.tdata)
+    if side == "data":
+        vec = rng.standard_normal(n).astype(np.float32)
+        ref = jspmv.dia_matvec(Aj.data, jnp.asarray(vec), offsets=ks, m=m, n=n,
+                               interpret=True)
+        got = spmv.dia_matvec(At.data, _t(vec), offsets=ks, m=m, n=n)
+    else:
+        vec = rng.standard_normal(m).astype(np.float32)
+        ref = jspmv.dia_matvec(Aj.tdata, jnp.asarray(vec), offsets=Aj.toffsets, m=n, n=m,
+                               interpret=True)
+        got = (spmv.dia_matvec(At.tdata, _t(vec), offsets=At.toffsets, m=n, n=m)
+               if side == "tdata" else
+               spmv.dia_matvec(At.data, _t(vec), offsets=ks, m=m, n=n, adjoint=True))
+    assert got.dtype == torch.float32 and got.shape == ((m,) if side == "data" else (n,))
+    assert rel_err(got, ref) < TOL
+
+
 @pytest.mark.parametrize("kernel", ["axpy", "fused"])
 @pytest.mark.parametrize("m,n", FUSED_SHAPES)
 def test_axpy_and_fused_twins_match_pallas(rng, m, n, kernel):

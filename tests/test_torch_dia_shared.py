@@ -136,6 +136,42 @@ def test_axpy_twin_matches_pallas_at_staging_edges(rng, m, n, ks, adjoint, stora
     assert rel_err(got, ref) < TOL
 
 
+#: the staged product's edges on the card: tiles of 1024 straddled (m, n
+#: not multiples of 8, m != n both ways), dim_out below one tile, one-sided
+#: bands, a band past PAIR_MAX_HALO (the product takes any that fits a tile)
+PRODUCT_EDGES = [
+    (2053, 1031, (-7, -3, 0, 1, 5)),
+    (1031, 2053, (-7, -3, 0, 1, 5)),
+    (45, 37, (-7, -3, 0, 1, 5)),
+    (601, 403, (-9, -4, 0)),
+    (403, 601, (0, 3, 11)),
+    (3001, 2003, (-1100, 0, 5)),
+]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("m,n,ks", PRODUCT_EDGES)
+def test_product_twin_matches_pallas_at_staging_edges(rng, m, n, ks, adjoint, storage):
+    """The product's wrapper on the CPU (its twin) against the Pallas kernel
+    (interpret mode) at the staged kernel's edges, f32 and bf16 stripes (the
+    same bf16 values in both packages), within TOL of the largest element:
+    the two sum in f32 in other orders."""
+    data = rng.standard_normal((len(ks), m)).astype(np.float32)
+    Aj = j_shared(m, n, ks, data, storage_dtype=storage)
+    At = lt.dia_shared_operator(m, n, ks, data, storage_dtype=getattr(torch, storage),
+                                device=DEV)
+    assert to_np(At.dp.view(torch.int16) if storage == "bfloat16" else At.dp).tobytes() \
+        == np.asarray(Aj.dp).tobytes()
+    vec = rng.standard_normal(m if adjoint else n).astype(np.float32)
+    ref = jspmv.dia_product_shared(Aj.dp, jnp.asarray(vec), offsets=ks, m=m, n=n,
+                                   adjoint=adjoint, interpret=True, tm=128)
+    got = spmv.dia_product_shared(At.dp, torch.from_numpy(vec), offsets=ks, m=m, n=n,
+                                  adjoint=adjoint)
+    assert got.dtype == torch.float32 and got.shape == ((n,) if adjoint else (m,))
+    assert rel_err(got, ref) < TOL
+
+
 @pytest.mark.parametrize("m,n,ks", PAIR_CASES + CASES[1:3] + ONE_SIDED
                          + [(1201, 997, tuple(range(-40, 41)))])
 def test_pair_twin_matches_pallas(rng, m, n, ks):
@@ -320,6 +356,81 @@ def test_axpy_tile(nd, lo, hi, esize, tile):
     assert spmv.axpy_tile(nd, lo, hi, esize, *H100_SMEM) == tile
     if tile:
         assert spmv.axpy_stage_bytes(nd, lo, hi, tile, esize) <= H100_SMEM[1]
+
+
+@pytest.mark.parametrize("nd,lo,hi,T,esize,nbytes", [
+    # the main band, f32: 2 x (11 x 1028 x 4 + 1040 x 4) + 8 x 12
+    (11, 5, 5, 1024, 4, 98_880),
+    (11, 5, 5, 1024, 2, 53_824),     # bf16 rows of 1032: 2 x (22,704 + 4,160) + 96
+    (81, 40, 40, 256, 4, 171_872),   # 2 x (81 x 260 x 4 + 340 x 4) + 8 x 84
+    (81, 40, 40, 256, 2, 88_928),    # 2 x (81 x 264 x 2 + 1,360) + 672
+    (1024, 0, 0, 16, 4, 172_192),    # 2 x (1024 x 20 x 4 + 20 x 4) + 8,192
+    (3, 1500, 1500, 1024, 4, 56_928),  # 2 x (3 x 1028 x 4 + 4028 x 4) + 32
+])
+def test_product_stage_bytes(nd, lo, hi, T, esize, nbytes):
+    """The staged product's shared memory (csrc/dia_product_staged.cuh:
+    ProductLayout): PRODUCT_STAGES stages of nd rows of T + 16/esize stripe
+    elements and the vector window (T + lo + hi + 3 floats rounded up to 4),
+    then two ints a diagonal, nd rounded up to 4: the half-step's stage
+    without y, and the phase table."""
+    assert spmv.PRODUCT_STAGES == 2
+    assert spmv.product_stage_bytes(nd, lo, hi, T, esize) == nbytes
+
+
+@pytest.mark.parametrize("nd,lo,hi,esize,tile", [
+    (11, 5, 5, 4, 1024),     # the main band: two blocks an SM (99 KB)
+    (11, 5, 5, 2, 1024),
+    (11, 5, 5, 8, 0),        # f64 stripes: the direct kernel
+    (81, 40, 40, 4, 256),    # one block of T = 256 before two of T = 128
+    (81, 40, 40, 2, 256),    # two blocks (89 KB)
+    (3, 1500, 1500, 4, 1024),  # a halo past PAIR_MAX_HALO
+    (700, 0, 0, 4, 32),      # one block of 32 (207 KB)
+    (700, 0, 0, 2, 16),      # two blocks of 16 before one of 32
+    (1024, 0, 0, 4, 16),     # the most diagonals the kernels take
+    (1024, 0, 0, 2, 16),
+    (1, 14_500, 14_500, 4, 16),
+    (1, 14_550, 14_550, 4, 0),  # no tile's window fits: the direct kernel
+])
+def test_product_tile(nd, lo, hi, esize, tile):
+    """The staged product's tile on the H100: the half-step's rule over
+    its own bytes (the largest tile of 1024, 512, 256 whose two stages fit
+    two blocks an SM, else one block, else the same with 128 down to 16);
+    0 where no window fits and for f64."""
+    assert spmv.product_tile(nd, lo, hi, esize, *H100_SMEM) == tile
+    if tile:
+        assert spmv.product_stage_bytes(nd, lo, hi, tile, esize) <= H100_SMEM[1]
+
+
+def test_operators_copy_stripes_off_the_grid(rng):
+    """The operators hold their stripes on the 16-byte grid (the staged
+    kernels copy them in 16-byte pieces): stripes given as a view off it are
+    copied once, with the same values."""
+    m, n, ks = 300, 280, (-3, 0, 7)
+    data = torch.from_numpy(rng.standard_normal((len(ks), m)).astype(np.float32))
+    At = lt.dia_operator(m, n, ks, data, device=DEV)
+    Ah = lt.dia_shared_operator(m, n, ks, data.numpy(), device=DEV)
+    views = {}
+    for name, t in (("data", At.data), ("tdata", At.tdata), ("dp", Ah.dp)):
+        big = t.new_zeros(t.numel() + 1)
+        big[1:] = t.reshape(-1)
+        views[name] = big[1:].view(t.shape)
+        assert views[name].data_ptr() % 16
+    Av = lt.DIAOperator(data=views["data"], tdata=views["tdata"], m=m, n=n, offsets=ks)
+    Sv = lt.DIASharedOperator(dp=views["dp"], m=m, n=n, offsets=ks, H=Ah.H)
+    for got, ref in ((Av.data, At.data), (Av.tdata, At.tdata), (Sv.dp, Ah.dp)):
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, ref)
+    stripes = lt.zdia_stripes(m, n, ks, seed=5, device=DEV)
+    Az = lt.dia_operator_device(m, n, ks, stripes)
+    planes = {}
+    for name in ("dr", "di", "tdr", "tdi"):
+        t = getattr(Az, name)
+        big = t.new_zeros(t.numel() + 1)
+        big[1:] = t.reshape(-1)
+        planes[name] = big[1:].view(t.shape)
+    Zv = type(Az)(m=m, n=n, offsets=ks, **planes)
+    for name in planes:
+        assert getattr(Zv, name).data_ptr() % 16 == 0
+        assert torch.equal(getattr(Zv, name), getattr(Az, name))
 
 
 #: bands of each of the card's routes: staged (one-sided), unstaged (81
