@@ -6,7 +6,7 @@
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
 from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
-from lsqr_tpu_torch/native with g++), then runs eighteen phases; each
+from lsqr_tpu_torch/native with g++), then runs nineteen phases; each
 raises on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
@@ -135,9 +135,27 @@ raises on failure:
    ``stream_ceiling`` at ``bench.py``'s roofline shape (1024 x 2^18 f32,
    1 GiB, 20 chained in-place copies after a warm-up) in GB/s beside the
    data sheet's 3.35 TB/s; kernel, twin and ``x.mul_`` times at that shape,
-   the kernel and ``x.mul_`` in five turns.
+   the kernel and ``x.mul_`` in five turns;
+19. the operator algebra, preconditioning, I/O and solver utilities, LSRN,
+   refinement and hybrid regularization on phase 2's operator (2^23, 11
+   diagonals, shared f32 stripes): ``lsqr``, ``lsmr`` and ``cgls`` warm
+   started with damp 0.01 from an 8-iteration x (the stacked [A; damp I],
+   two products an iteration), within 1e-3 of the cold solve and at
+   optimality 1e-4; ``column_scaled`` (equal to ``right_preconditioned``
+   by a diagonal) solving the damped problem in x; ``tikhonov`` with a
+   first-difference L; ``lsqr_refined`` with the host f64 CSR at damp 0.01
+   and 0 (f64 ratio <= 1e-10 and 100 times below the plain f32 solve's);
+   ``lsqr_checkpointed`` in segments of 16 through a state file, bit-equal
+   to the uninterrupted solve; ``debug_log`` at 2^20 printing the rows of
+   the throttle rule; ``lsrn`` on phase 15's WCOO Zipf operator, its damped
+   objective within 3e-8 of the COO solve's; ``hybrid_lsqr`` (k = 32,
+   reorthogonalized) against ``lsqr`` at its GCV lambda; a 2^20 x 11 f64
+   band through ``scipy.io.mmwrite`` and ``from_matrix_market`` (the packed
+   DIA operator) and ``lsqr_scipy`` against ``scipy.sparse.linalg.lsqr``;
+   ``product_rate``; the launch profiles of the stacked and column-scaled
+   solves.
 
-Every solve of phases 2-5, 7, 8, 10, 12, 13, 15 and 17 runs with the launch
+Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17 and 19 runs with the launch
 counts reset just before it and read just after, and so does a direct call
 of the kernels no solver calls (the two variants of the fused half-step,
 phase 1) and the ceiling's chain (phase 18); each path must launch the
@@ -222,6 +240,12 @@ M_SMALL = 2 ** 19  # phase 10's second timing size, the JAX megakernel's size cl
 MANY = (2 ** 20, tuple(range(-40, 41)), 40.0)
 MK_TOL = 1e-4  # megakernel vs twin after MK_K iterations, relative
 STREAM_TURNS = 5  # phase 18: stream_copy and x.mul_ timed in turns
+M_IO = 2 ** 20  # phase 19's debug_log and Matrix Market size
+REFINE_M = 2 ** 23  # phase 19's refinement size: the main shape's host CSR
+REFINE_ITNLIM = 200  # phase 19: the refinement's f32 solves stop at their guards before
+CKPT_SEG = 16  # phase 19's checkpoint segments
+HYBRID_K = 32  # phase 19's bidiagonalization steps
+TIKHONOV_LAM = 0.1  # phase 19's lam for the first-difference L
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "dia_pair_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1969"),
     "dia_product_shared": (SHARED, "lsqr_tpu/ops/pallas_spmv.py:1653"),
@@ -804,15 +828,15 @@ def iterations_run(itn, seg):
     return -(-itn // seg) * seg
 
 
-def optimality(forward, adjoint, fro, b, x):
+def optimality(forward, adjoint, fro, b, x, damp=DAMP):
     """||A'r - damp^2 x|| / (||A||_F ||(r; damp x)||) in f64 with r = b - A x,
     from f64 products (xcheck's test3, lsqr.f90:1089-1094)."""
     import torch
 
     x64 = wide(x)
     r = wide(b) - forward(x64)
-    grad = adjoint(r) - DAMP ** 2 * x64
-    rho = torch.sqrt(r.norm() ** 2 + (DAMP * x64.norm()) ** 2)
+    grad = adjoint(r) - damp ** 2 * x64
+    rho = torch.sqrt(r.norm() ** 2 + (damp * x64.norm()) ** 2)
     return float(grad.norm() / (fro * rho))
 
 
@@ -2785,6 +2809,351 @@ def phase_roofline(dev, errs, card, paths):
     return entry, gbs
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the operator algebra, preconditioning, I/O, the solver utilities,
+# LSRN, refinement and hybrid regularization on the card
+# ---------------------------------------------------------------------------
+
+
+def shared_f64(A):
+    """(forward, adjoint, ||A||_F) of a shared-stripe operator in f64, from
+    its stripes through the plain twins."""
+    from lsqr_tpu_torch.ops.spmv import dia_product_shared_plain
+
+    dp64 = A.dp.double()
+    kw = dict(offsets=A.offsets, m=A.m, n=A.n)
+    return (lambda x: dia_product_shared_plain(dp64, x, adjoint=False, **kw),
+            lambda r: dia_product_shared_plain(dp64, r, adjoint=True, **kw), dp64.norm())
+
+
+def ls_ratio(forward, adjoint, fro, b, x, damp):
+    """:func:`optimality` for damp > 0; for damp 0 on a square nonsingular
+    A (a compatible system: r goes to 0 and the ratio loses its meaning)
+    the smaller of LSQR's two stopping tests in f64, ||r|| / (||A||_F ||x||
+    + ||b||) and ||A'r|| / (||A||_F ||r||) (lsqr.f90:786-810)."""
+    if damp > 0:
+        return optimality(forward, adjoint, fro, b, x, damp)
+    x64 = wide(x)
+    r = wide(b) - forward(x64)
+    rn = r.norm()
+    test1 = rn / (fro * x64.norm() + wide(b).norm())
+    test2 = adjoint(r).norm() / (fro * rn.clamp_min(1e-300))
+    return float(min(test1, test2))
+
+
+def phase_api(dev, m, card, paths):
+    """Phase 19: the modules around the solvers on the card, on phase 2's
+    operator (m = n = 2^23, 11 diagonals, shared f32 stripes, damp DAMP)
+    unless a step names another: the damped warm start of lsqr, lsmr and
+    cgls (the stacked [A; damp I], two products an iteration); column
+    scaling with right preconditioning; ``tikhonov`` with a first-difference
+    L; ``lsqr_refined`` with host f64 products (damp DAMP and 0);
+    ``lsqr_checkpointed`` in segments through a state file; ``debug_log``
+    at M_IO; ``lsrn`` on phase 15's WCOO Zipf operator; ``hybrid_lsqr`` and
+    ``lsqr`` at its GCV lambda; a Matrix Market round trip and
+    ``lsqr_scipy`` against scipy in f64 at M_IO; ``product_rate``. Every
+    entry point runs as a counted path."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import scipy.io
+    import scipy.sparse
+    import scipy.sparse.linalg
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.models.synthetic import zipf_column_coo
+    from lsqr_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    out = {}
+    tol = dict(atol=1e-6, btol=1e-6)
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, delta = counted(fn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        paths.append(delta)
+        log(f"  {label}: wall {secs * 1e3:.1f} ms, launches "
+            f"{({k: v for k, v in delta.items() if v})}")
+        return res, delta, secs
+
+    def stops(res):
+        return dict(istop=int(res.istop), itn=int(res.itn))
+
+    data, b, _ = random_stripes(m, m, OFFSETS, dev, seed=100, boost=12.0)
+    A = lt.dia_shared_operator(m, m, OFFSETS, data)
+    del data
+    fwd, adj, fro = shared_f64(A)
+
+    # (1) damped warm start: x0 from an 8-iteration solve
+    warm, cold_x = {}, {}
+    for name in ("lsqr", "lsmr", "cgls"):
+        fn = getattr(lt, name)
+        x8 = fn(A, b, DAMP, itnlim=8).x
+        cold = fn(A, b, DAMP, **tol)
+        res, delta, secs = run(f"{name} damped warm start",
+                               lambda: fn(A, b, DAMP, x0=x8, **tol))
+        err = absdiff(res.x, cold.x) / float(cold.x.abs().max())
+        ratio = optimality(fwd, adj, fro, b, res.x)
+        log(f"    {stops(res)}, the cold solve's {stops(cold)}; x against the cold x "
+            f"{err:.3e} of max|x|; optimality {ratio:.3e}")
+        check(delta["dia_product_shared"] > 0 and delta["dia_pair_shared"] == 0,
+              f"{name} warm start: the stacked operator takes the two products: {delta}")
+        check(err <= 1e-3, f"{name} warm start: x differs from the cold solve's by {err:.3e}")
+        check(ratio <= 1e-4, f"{name} warm start: optimality {ratio:.3e} > 1e-4")
+        warm[name] = dict(stops(res), cold=stops(cold), ms=secs * 1e3, x_rel_to_cold=err,
+                          optimality=ratio)
+        cold_x[name] = cold.x
+        if name == "lsqr":
+            x8_lsqr = x8
+    out["warm_start"] = warm
+
+    # (2) column scaling and right preconditioning: x = scale * z of
+    # min ||A D z - b||^2 + damp^2 ||D z||^2, the damped problem in x
+    S, scale = lt.column_scaled(A)
+    R = lt.right_preconditioned(A, lt.diagonal_operator(scale))
+    g = torch.Generator(device=dev).manual_seed(191)
+    v, y = torch.randn(m, generator=g, device=dev), torch.randn(m, generator=g, device=dev)
+    check(torch.equal(S.matvec(v), R.matvec(v)) and torch.equal(S.rmatvec(y), R.rmatvec(y)),
+          "column_scaled and right_preconditioned(diag) give different products")
+    stacked = lt.vstack_operators([R, lt.scale_operator(lt.diagonal_operator(scale), DAMP)])
+    rhs = torch.cat([b, torch.zeros(m, device=dev)])
+    res, delta, secs = run("column-scaled damped solve (stacked, damp in x)",
+                           lambda: lt.lsqr(stacked, rhs, 0.0, **tol))
+    x = scale * res.x
+    ratio = optimality(fwd, adj, fro, b, x)
+    err = absdiff(x, cold_x["lsqr"]) / float(cold_x["lsqr"].abs().max())
+    log(f"    {stops(res)}; optimality of scale * z {ratio:.3e}; x against the unscaled "
+        f"solve's {err:.3e} of max|x|; column norms {float(1 / scale.max()):.4f}-"
+        f"{float(1 / scale.min()):.4f}")
+    check(delta["dia_product_shared"] > 0, f"the scaled solve ran no product kernel: {delta}")
+    check(ratio <= 1e-4, f"column scaling: optimality {ratio:.3e} > 1e-4")
+    check(err <= 1e-3, f"column scaling: x differs from the unscaled solve's by {err:.3e}")
+    out["column_scaled"] = dict(stops(res), ms=secs * 1e3, optimality=ratio, x_rel=err)
+    del R, stacked, rhs, v, y
+
+    # (3) tikhonov with L the (m-1) x m first-difference operator
+    lam = TIKHONOV_LAM
+    ld = torch.zeros((2, m - 1), device=dev)
+    ld[0], ld[1] = -1.0, 1.0
+    L = lt.dia_shared_operator(m - 1, m, (0, 1), ld)
+    del ld
+    res, delta, secs = run(f"tikhonov, L first differences, lam {lam}",
+                           lambda: lt.tikhonov(A, b, L, lam, **tol))
+    lf, la, lfro = shared_f64(L)
+    ratio = optimality(lambda x: torch.cat([fwd(x), lam * lf(x)]),
+                       lambda r: adj(r[:m]) + lam * la(r[m:]),
+                       torch.sqrt(fro ** 2 + lam ** 2 * lfro ** 2),
+                       torch.cat([b, torch.zeros(m - 1, device=dev)]), res.x, 0.0)
+    log(f"    {stops(res)}; optimality of the stacked system {ratio:.3e}")
+    check(delta["dia_product_shared"] > 0, f"tikhonov ran no product kernel: {delta}")
+    check(ratio <= 1e-4, f"tikhonov: optimality {ratio:.3e} > 1e-4")
+    out["tikhonov"] = dict(stops(res), ms=secs * 1e3, optimality=ratio)
+    del L, lf, la
+
+    # (4) mixed-precision refinement, host f64 products of the stored matrix
+    if REFINE_M == m:
+        Ar, br, rf = A, b, (fwd, adj, fro)
+    else:
+        d_r, br, _ = random_stripes(REFINE_M, REFINE_M, OFFSETS, dev, seed=100, boost=12.0)
+        Ar = lt.dia_shared_operator(REFINE_M, REFINE_M, OFFSETS, d_r)
+        del d_r
+        rf = shared_f64(Ar)
+    t0 = time.perf_counter()
+    hmv, hrmv = lt.host_products(Ar)
+    host_s = time.perf_counter() - t0
+    log(f"  host f64 products of the {Ar.m} x {Ar.n} stored matrix ({Ar.nnz} stored entries): "
+        f"built in {host_s:.2f} s")
+    b64 = br.double().cpu().numpy()
+    refined = dict(m=Ar.m, host_products_s=host_s)
+    for damp in (DAMP, 0.0):
+        # to the machine-precision guards (at most REFINE_ITNLIM iterations,
+        # the inner solves too)
+        plain = lt.lsqr(Ar, br, damp, atol=0.0, btol=0.0, conlim=0.0, itnlim=REFINE_ITNLIM)
+        res, delta, secs = run(f"lsqr_refined damp {damp}", lambda: lt.lsqr_refined(
+            Ar, b64, damp, host_matvec=hmv, host_rmatvec=hrmv, precondition=None,
+            itnlim=REFINE_ITNLIM))
+        ratio = ls_ratio(*rf, br, torch.from_numpy(res.x).to(dev), damp)
+        plain_ratio = ls_ratio(*rf, br, plain.x, damp)
+        log(f"    cycles {res.cycles} (converged {res.converged}), ||dx|| {res.dx_norms}; "
+            f"f64 ratio {ratio:.3e}; the plain f32 solve's {plain_ratio:.3e} ({stops(plain)})")
+        inner = "dia_pair_shared" if damp == 0.0 else "dia_product_shared"
+        check(delta[inner] > 0, f"refine damp {damp}: its inner solves ran no {inner}: {delta}")
+        check(ratio <= 1e-10, f"refine damp {damp}: f64 ratio {ratio:.3e} > 1e-10")
+        check(100 * ratio <= plain_ratio,
+              f"refine damp {damp}: {ratio:.3e} not 100 times below the f32 {plain_ratio:.3e}")
+        refined[f"damp_{damp}"] = dict(cycles=res.cycles, ms=secs * 1e3, ratio=ratio,
+                                       plain_ratio=plain_ratio, plain=stops(plain))
+    out["refine"] = refined
+    del hmv, hrmv, b64
+    if Ar is not A:
+        del Ar, br, rf
+
+    # (5) checkpointed solve: segments of CKPT_SEG, interrupted after the
+    # first and resumed from the state file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        whole, delta, secs = run(f"lsqr_checkpointed, segments of {CKPT_SEG}",
+                                 lambda: lt.lsqr_checkpointed(A, b, DAMP,
+                                                              segment_iters=CKPT_SEG, **tol))
+
+        def stop(seg, carry):
+            raise KeyboardInterrupt
+
+        try:
+            lt.lsqr_checkpointed(A, b, DAMP, segment_iters=CKPT_SEG, checkpoint_path=path,
+                                 on_segment=stop, **tol)
+        except KeyboardInterrupt:
+            pass
+        saved_itn = int(lt.load_state(path, device=dev).itn)
+        resumed, _, _ = run("  resumed from the state file",
+                            lambda: lt.lsqr_checkpointed(A, b, DAMP, segment_iters=CKPT_SEG,
+                                                         resume_from=path, **tol))
+    plain = lt.lsqr(A, b, DAMP, pair=False, fused=False, **tol)
+    same = [torch.equal(r.x, whole.x) and stops(r) == stops(whole) for r in (resumed, plain)]
+    log(f"    {stops(whole)}; saved at itn {saved_itn}; resumed {stops(resumed)}, x bit-equal "
+        f"{same[0]}; the uninterrupted lsqr on the same route (two products) bit-equal "
+        f"{same[1]}")
+    check(saved_itn == CKPT_SEG and int(whole.itn) > CKPT_SEG,
+          f"checkpoint: saved at itn {saved_itn} of {int(whole.itn)}")
+    check(all(same), "checkpoint: the resumed solve differs from the uninterrupted one")
+    out["checkpoint"] = dict(stops(whole), ms=secs * 1e3, saved_itn=saved_itn,
+                             bit_equal=same)
+
+    # (6) debug_log at M_IO: the rows the throttle rule selects
+    d_io, b_io, _ = random_stripes(M_IO, M_IO, OFFSETS, dev, seed=119, boost=12.0)
+    A_io = lt.dia_shared_operator(M_IO, M_IO, OFFSETS, d_io)
+    del d_io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, delta = counted(lambda: lt.lsqr(A_io, b_io, DAMP, debug_log=True, itnlim=64,
+                                             atol=0.0, btol=0.0, conlim=0.0, nconv=65))
+    paths.append(delta)
+    printed = [int(line.split()[0]) for line in buf.getvalue().splitlines() if line.strip()]
+    # n > 40, no tolerance (atol = btol = conlim = 0), the stop at itnlim:
+    # the first and last 10 iterations, every 10th and the last
+    expected = sorted(set(range(1, 11)) | set(range(10, 65, 10)) | set(range(54, 65)))
+    log(f"  debug_log at {M_IO}: {len(printed)} lines, iterations {printed}; "
+        f"{stops(res)}; launches {({k: v for k, v in delta.items() if v})}")
+    check(printed == expected, f"debug_log printed {printed}, the rule selects {expected}")
+    check(printed[-1] == int(res.itn), "debug_log: the last line is not the result's itn")
+    out["debug_log"] = dict(lines=len(printed), last=printed[-1])
+    del A_io, b_io
+
+    # (7) LSRN on phase 15's WCOO Zipf operator, against the COO solve
+    trip = zipf_column_coo(ZIPF_M, ZIPF_N, ZIPF_NNZ, seed=0)
+    Aw = lt.auto_operator(ZIPF_M, ZIPF_N, *trip, device=dev)
+    check(type(Aw).__name__ == "WCOOOperator", f"the Zipf pattern went to {type(Aw).__name__}")
+    coo_t = coo_on(dev, *trip)
+    coo = lt.coo_operator(ZIPF_M, ZIPF_N, *trip, device=dev)
+    del trip
+    bw = torch.randn(ZIPF_M, generator=torch.Generator(device=dev).manual_seed(15), device=dev)
+    plain_w = lt.lsqr(Aw, bw, DAMP, **tol)
+    ref = lt.lsqr(coo, bw, DAMP, **tol)
+    res, delta, secs = run("lsrn on the WCOO operator", lambda: lt.lsrn(Aw, bw, DAMP, **tol))
+    phi, phi_ref = (objective(coo_t, ZIPF_M, ZIPF_N, bw, x, DAMP) for x in (res.x, ref.x))
+    phi_err = abs(phi - phi_ref) / phi_ref
+    ratio = coo_optimality(coo_t, ZIPF_M, ZIPF_N, bw, res.x)
+    log(f"    rank {res.rank}, cond bound {res.cond_bound:.3f}; inner {stops(res.result)} "
+        f"against the plain WCOO solve's {stops(plain_w)} and the COO solve's {stops(ref)}; "
+        f"damped objective rel diff to the COO solve's {phi_err:.3e} (limit "
+        f"{OBJ_TOL['wcoo']}); optimality (f64, COO) {ratio:.3e}")
+    check(delta["wcoo_adjoint"] >= 4 * ZIPF_N and delta["wcoo_forward"] > 0,
+          f"lsrn: the sketch and the solve ran no WCOO kernels: {delta}")
+    check(phi_err <= OBJ_TOL["wcoo"],
+          f"lsrn: objective differs from the COO solve's by {phi_err:.3e}")
+    check(ratio <= 1e-4, f"lsrn: optimality {ratio:.3e} > 1e-4")
+    out["lsrn"] = dict(inner=stops(res.result), plain=stops(plain_w), coo=stops(ref),
+                       rank=res.rank, ms=secs * 1e3, objective_rel_to_coo=phi_err,
+                       optimality=ratio)
+    del Aw, coo, coo_t, bw, res, ref, plain_w
+    torch.cuda.empty_cache()
+
+    # (8) hybrid LSQR, then lsqr at its GCV lambda
+    # all HYBRID_K steps (stop_window = HYBRID_K), lambda and k at the GCV
+    # minimum: the flat-GCV stop (4 steps without a gain of 1e-4 GCV(1))
+    # ends this band's run at k ~ 12, before the projection converges
+    res, delta, secs = run(f"hybrid_lsqr k={HYBRID_K}, reorthogonalized",
+                           lambda: lt.hybrid_lsqr(A, b, k=HYBRID_K, stop_window=HYBRID_K))
+    lam = res.lam
+    ref, _, _ = run(f"  lsqr at damp = the GCV lambda", lambda: lt.lsqr(A, b, lam, **tol))
+    err = absdiff(res.x, ref.x) / float(ref.x.abs().max())
+    ratios = [optimality(fwd, adj, fro, b, x, lam) for x in (res.x, ref.x)]
+    log(f"    lambda {lam:.6e} at k {res.k} of {res.k_run}; lsqr {stops(ref)}; x against "
+        f"lsqr's {err:.3e} of max|x|; optimality at lambda {ratios[0]:.3e} (hybrid), "
+        f"{ratios[1]:.3e} (lsqr)")
+    check(delta["dia_product_shared"] > 0, f"hybrid ran no product kernel: {delta}")
+    check(err <= 1e-3, f"hybrid: x differs from lsqr's at its lambda by {err:.3e}")
+    check(max(ratios) <= 1e-4, f"hybrid: optimality at lambda {ratios}")
+    out["hybrid"] = dict(lam=lam, k=res.k, k_run=res.k_run, lsqr=stops(ref), ms=secs * 1e3,
+                         x_rel=err, optimality=ratios)
+    del res, ref
+
+    # (9) Matrix Market: a 2^20 x 11 f64 band written and read back, then
+    # lsqr_scipy against scipy.sparse.linalg.lsqr
+    rng = np.random.default_rng(19)
+    dio = rng.standard_normal((len(OFFSETS), M_IO))
+    dio[OFFSETS.index(0)] += 12.0
+    i = np.arange(M_IO)
+    ok = [(i + k >= 0) & (i + k < M_IO) for k in OFFSETS]
+    mat = scipy.sparse.coo_matrix(
+        (np.concatenate([dio[d][ok[d]] for d in range(len(OFFSETS))]),
+         (np.concatenate([i[o] for o in ok]),
+          np.concatenate([i[ok[d]] + k for d, k in enumerate(OFFSETS)]))),
+        shape=(M_IO, M_IO)).tocsr()
+    del dio
+    b_io = rng.standard_normal(M_IO)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "band.mtx")
+        t0 = time.perf_counter()
+        scipy.io.mmwrite(path, mat)
+        t1 = time.perf_counter()
+        A_mm = lt.from_matrix_market(path, dtype=torch.float64, device=dev)
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    log(f"  Matrix Market {M_IO} x {M_IO}, {mat.nnz} entries, {size / 1e6:.0f} MB: written in "
+        f"{t1 - t0:.2f} s, read to {type(A_mm).__name__} ({A_mm.dtype}) in {t2 - t1:.2f} s")
+    check(isinstance(A_mm, lt.DIAOperator) and A_mm.dtype == torch.float64
+          and A_mm.device.type == dev.type, f"the f64 band read to {type(A_mm).__name__}")
+    sk = dict(damp=DAMP, atol=1e-10, btol=1e-10, iter_lim=2 * M_IO)
+    ours, delta, secs = run("lsqr_scipy on it", lambda: lt.lsqr_scipy(A_mm, b_io, **sk))
+    ref = scipy.sparse.linalg.lsqr(mat, b_io, **sk)
+    err = float(np.abs(ours[0] - ref[0]).max() / np.abs(ref[0]).max())
+    log(f"    istop {ours[1]} itn {ours[2]}; scipy istop {ref[1]} itn {ref[2]}; x rel diff "
+        f"{err:.3e}")
+    check(delta["dia_matvec[f64]"] > 0, f"lsqr_scipy ran no f64 product kernel: {delta}")
+    check(ours[1] == ref[1] and abs(ours[2] - ref[2]) <= 1, "lsqr_scipy: istop/itn differ")
+    check(err <= 1e-8, f"lsqr_scipy: x differs from scipy's by {err:.3e}")
+    out["matrix_market"] = dict(write_s=t1 - t0, read_s=t2 - t1, mb=size / 1e6, istop=ours[1],
+                                itn=ours[2], scipy_itn=ref[2], x_rel=err)
+    del A_mm, mat
+
+    # (10) product_rate on the main operator
+    rate, delta = counted(lambda: profiling.product_rate(A, iters=50))
+    paths.append(delta)
+    log(f"  product_rate (matvec + rmatvec, 50 chained): {rate}  [{card}]")
+    # a warm-up chain and the timed one, each 50 forward and 50 adjoint
+    check(delta["dia_product_shared"] == 4 * 50, f"product_rate launches: {delta}")
+    out["product_rate"] = rate
+
+    # the launch profiles of the stacked and column-scaled solves (section 5)
+    log("  launch profile of the damped warm-start LSQR solve (stacked):")
+    out["warm_start_profile"] = phase_launches(A, b, x0=x8_lsqr)
+    log("  launch profile of the column-scaled LSQR solve:")
+    out["column_scaled_profile"] = phase_launches(S, b)
+    del A, S, fwd, adj
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2887,10 +3256,12 @@ def main():
     solves["complex"] = phase_complex_solves(dev, card, paths)
     phase("phase 18: the streaming ceiling")
     perf["stream_copy"], solves["stream_ceiling_gbs"] = phase_roofline(dev, errs, card, paths)
+    phase("phase 19: operator algebra, preconditioning, I/O, utilities, LSRN, refine, hybrid")
+    solves["api"] = phase_api(dev, M_MAIN, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
     log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15, "
-        f"17 and 18: {launches}")
+        f"17, 18 and 19: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

@@ -12,7 +12,13 @@ path: JDIA, ELL, HYB, BlockELL, WCOO, WWCOO, RWCOO, ``csr_operator``, all
 five steps of ``auto_operator`` and the reordering planner
 (``plan_general``, ``solve_general``), and complex problems: the four
 solvers, ``acheck``/``xcheck``, COO, the plane-split ZDIA and ZJDIA
-operators and ``auto_operator``'s complex branch. The DIA products on CUDA
+operators and ``auto_operator``'s complex branch; the operator algebra
+(stacks, scalings, diagonals, ``tikhonov``), right preconditioning and
+column scaling, the host and Matrix Market I/O (``host_coo``, ``to_scipy``,
+``from_matrix_market``, ``from_torch_sparse``, ``lsqr_scipy``,
+``lsmr_scipy``), the reports, ``debug_log``, checkpointed solves,
+profiling, LSRN (``lsrn``), mixed-precision refinement (``lsqr_refined``)
+and hybrid regularization (``hybrid_lsqr``). The DIA products on CUDA
 run through nine kernels written by hand for Hopper (``csrc/dia_shared.cu``,
 ``csrc/dia_packed.cu``), the complex DIA pair through one more
 (``csrc/zdia.cu``), the megakernels through three persistent cooperative
@@ -39,16 +45,24 @@ from .models.paige_saunders import PaigeSaundersOperator, lstp, suite_configs
 from .models.synthetic import (banded_dia, banded_problem, block_banded_coo,
                                jittered_band_coo, random_block_coo, random_coo_problem,
                                zdia_stripes, zipf_column_coo, zipf_coo)
-from .ops.compose import SumOperator, add_operators
+from .hybrid import (GKBasis, HybridResult, gcv_lambda, golub_kahan, hybrid_lsqr,
+                     projected_tikhonov)
+from .ops.compose import (DiagonalOperator, HStackOperator, ScaledOperator, SumOperator,
+                          VStackOperator, add_operators, diagonal_operator,
+                          hstack_operators, scale_operator, tikhonov, vstack_operators)
 from .ops.convert import operator_from_arrays, result_to_numpy
 from .ops.coo import COOOperator, coo_operator
-from .ops.interop import auto_operator, csr_operator, from_scipy
+from .ops.host import host_coo, host_products, to_scipy
+from .ops.interop import (auto_operator, csr_operator, from_bcoo, from_matrix_market,
+                          from_scipy, from_torch_sparse, lsmr_scipy, lsqr_scipy)
 from .ops.jdia import JDIAOperator, jdia_operator
 from .ops.linop import CallbackOperator, DenseOperator, LinearOperator, as_operator
 from .ops.megakernel import lsqr_megakernel, megakernel_supported
 from .ops.megakernel_craig import craig_megakernel, craig_megakernel_supported
 from .ops.megakernel_lsmr import lsmr_megakernel, lsmr_megakernel_supported
 from .ops.roofline import stream_ceiling, stream_copy
+from .ops.precondition import (ColumnScaledOperator, ComposedOperator, column_norms,
+                               column_scaled, right_preconditioned)
 from .ops.reorder import GeneralPlan, bandwidth_orders, plan_general, solve_general
 from .ops.rwcoo import RWCOOOperator, rwcoo_operator
 from .ops.structured import (BlockELLOperator, DIAOperator, DIASharedOperator,
@@ -59,7 +73,11 @@ from .ops.wcoo import WCOOOperator, wcoo_operator
 from .ops.wwcoo import WWCOOOperator, wwcoo_operator
 from .ops.zdia import (ZDIAOperator, ZJDIAOperator, zdia_operator, zdia_operator_device,
                        zjdia_operator)
+from .randomized import LSRNResult, lsrn, lsrn_preconditioner, sketch_left, sketch_right
+from .refine import RefineResult, lsqr_refined
 from .solver import ISTOP_MESSAGES, TRACE_COLUMNS, LSQRResult, lsqr
+from .utils.checkpoint import load_state, lsqr_checkpointed, save_state
+from .utils.printing import format_exit_block, format_iteration_log, format_report
 
 __version__ = "0.1.0"
 
@@ -122,7 +140,39 @@ __all__ = [
     "add_operators",
     "auto_operator",
     "from_scipy",
+    "from_matrix_market",
+    "from_bcoo",
+    "from_torch_sparse",
+    "lsqr_scipy",
+    "lsmr_scipy",
     "csr_operator",
+    "GKBasis",
+    "HybridResult",
+    "golub_kahan",
+    "hybrid_lsqr",
+    "projected_tikhonov",
+    "gcv_lambda",
+    "LSRNResult",
+    "lsrn",
+    "lsrn_preconditioner",
+    "sketch_left",
+    "sketch_right",
+    "RefineResult",
+    "lsqr_refined",
+    "host_coo",
+    "host_products",
+    "to_scipy",
+    "ComposedOperator",
+    "ColumnScaledOperator",
+    "column_norms",
+    "column_scaled",
+    "right_preconditioned",
+    "lsqr_checkpointed",
+    "save_state",
+    "load_state",
+    "format_report",
+    "format_exit_block",
+    "format_iteration_log",
     "bandwidth_orders",
     "GeneralPlan",
     "plan_general",

@@ -23,7 +23,7 @@ from .config import real_dtype
 from .lsmr import check_complex_pair, solve_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
-from .solver import _run_segments
+from .solver import _run_segments, damped_warm_start
 
 __all__ = ["CGLSResult", "cgls", "CGLS_ISTOP_MESSAGES"]
 
@@ -213,7 +213,8 @@ def cgls(
     on the normal equations; the conventions of :func:`lsqr_tpu_torch.lsqr`,
     itnlim 4n by default, a zero tolerance meaning machine precision. Pair
     mode is opt-in (``pair=True``). ``x0`` warm-starts with the
-    residual-correction recipe (lsqr.f90:303-320), undamped only."""
+    residual-correction recipe (lsqr.f90:303-320); damped, the stacked
+    form of :func:`lsqr_tpu_torch.solver.damped_warm_start`."""
     A = as_operator(A, m=m, n=n)
     b = as_tensor(b, device=A.device)
     dtype = solve_dtype(b, A)
@@ -223,13 +224,14 @@ def cgls(
     btol = eps if btol == 0 else btol
 
     if x0 is not None:
-        if float(damp) != 0.0:
-            raise NotImplementedError(
-                "a damped warm start needs ops/compose.py (ROADMAP Queue 1 "
-                "item 9); pass x0 with damp=0")
         x0 = as_tensor(x0, dtype=dtype, device=b.device)
-        res = cgls(A, b - A.matvec(x0), damp, atol=atol, btol=btol, itnlim=itnlim,
-                   safe_norms=safe_norms, loop_segment=loop_segment, pair=pair)
+        if float(damp) != 0.0:  # the stacked undamped form, as lsqr's
+            stacked, rhs = damped_warm_start(A, b, x0, damp)
+            res = cgls(stacked, rhs, 0.0, atol=atol, btol=btol, itnlim=itnlim,
+                       safe_norms=safe_norms, loop_segment=loop_segment)
+        else:
+            res = cgls(A, b - A.matvec(x0), damp, atol=atol, btol=btol, itnlim=itnlim,
+                       safe_norms=safe_norms, loop_segment=loop_segment, pair=pair)
         xw = x0 + res.x
         return res._replace(x=xw, xnorm=nrm2(xw, safe=safe_norms))
 

@@ -68,8 +68,10 @@ class LSQROptions:
     * ``loop``: both forms run the same host-stepped masked segments of
       ``loop_segment`` iterations (one host read of istop/itn per
       segment); ``istop``/``itn`` equal those of JAX's ``while_loop``.
-    * ``debug_log=True`` raises ``NotImplementedError`` (ROADMAP Queue 1
-      item 8).
+    * ``debug_log=True`` prints the reference's iteration lines under its
+      throttle rule, as JAX's ``jax.debug.print`` does, but a segment at a
+      time: the rows stay on the device and come to the host with the
+      segment's read of istop and itn.
     * ``megakernel=True`` routes the solve through the LSQR iteration
       megakernel (K iterations per launch, :mod:`.ops.megakernel`): the
       CUDA kernel on the card, its plain twin on the CPU (where JAX runs

@@ -23,7 +23,7 @@ import torch
 from .config import default_dtype, real_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
-from .solver import _run_segments
+from .solver import _run_segments, damped_warm_start
 
 __all__ = ["LSMRResult", "lsmr", "LSMR_ISTOP_MESSAGES", "LSMR_TRACE_COLUMNS"]
 
@@ -364,7 +364,8 @@ def lsmr(
     False, as in the JAX package. ``loop`` is accepted for parity: both
     forms run the same masked segments of ``loop_segment`` iterations.
     ``x0`` warm-starts with the residual-correction recipe
-    (lsqr.f90:303-320), undamped only.
+    (lsqr.f90:303-320); damped, the stacked form of
+    :func:`lsqr_tpu_torch.solver.damped_warm_start`.
     """
     A = as_operator(A, m=m, n=n)
     b = as_tensor(b, device=A.device)
@@ -387,14 +388,16 @@ def lsmr(
                                itnlim=itnlim, x0=x0)
 
     if x0 is not None:
-        if float(damp) != 0.0:
-            raise NotImplementedError(
-                "a damped warm start needs ops/compose.py (ROADMAP Queue 1 "
-                "item 9); pass x0 with damp=0")
         x0 = as_tensor(x0, dtype=dtype, device=b.device)
-        res = lsmr(A, b - A.matvec(x0), damp, atol=atol, btol=btol, conlim=conlim,
-                   itnlim=itnlim, record_trace=record_trace, safe_norms=safe_norms,
-                   loop_segment=loop_segment, pair=pair)
+        if float(damp) != 0.0:  # the stacked undamped form, as lsqr's
+            stacked, rhs = damped_warm_start(A, b, x0, damp)
+            res = lsmr(stacked, rhs, 0.0, atol=atol, btol=btol, conlim=conlim,
+                       itnlim=itnlim, record_trace=record_trace, safe_norms=safe_norms,
+                       loop_segment=loop_segment)
+        else:
+            res = lsmr(A, b - A.matvec(x0), damp, atol=atol, btol=btol, conlim=conlim,
+                       itnlim=itnlim, record_trace=record_trace, safe_norms=safe_norms,
+                       loop_segment=loop_segment, pair=pair)
         xw = x0 + res.x
         return res._replace(x=xw, normx=nrm2(xw, safe=safe_norms))
 

@@ -1,5 +1,7 @@
 """``auto_operator``, ``from_scipy`` and ``csr_operator``: pick a storage
-format for a matrix.
+format for a matrix; ``from_matrix_market`` and ``from_torch_sparse`` read
+one from a file or a torch sparse tensor; ``lsqr_scipy`` and ``lsmr_scipy``
+take scipy's calls and return scipy's tuples.
 
 PyTorch counterpart of :mod:`lsqr_tpu.ops.interop`. ``auto_operator`` takes
 the JAX package's steps in its order:
@@ -43,7 +45,8 @@ from .wcoo import WCOOPackError, wcoo_operator
 from .wwcoo import WWCOOPackError
 from .zdia import zdia_operator, zjdia_from_packings, zjdia_pack
 
-__all__ = ["auto_operator", "from_scipy", "csr_operator"]
+__all__ = ["auto_operator", "from_scipy", "csr_operator", "from_matrix_market",
+           "from_torch_sparse", "from_bcoo", "lsqr_scipy", "lsmr_scipy"]
 
 
 def auto_operator(m, n, vals, rows, cols, *, dtype=None, device=None,
@@ -193,3 +196,130 @@ def from_scipy(sp_matrix, *, dtype=None, format: Optional[str] = None,
     if builder is not None:
         return builder(m, n, coo.data, coo.row, coo.col, dtype=dtype, device=device)
     raise ValueError(f"unknown format {format!r}")
+
+
+def from_matrix_market(path, *, dtype=None, format: Optional[str] = None,
+                       device=None) -> LinearOperator:
+    """Load a Matrix Market file (.mtx or .mtx.gz) as an operator on
+    ``device`` (the card when None). Sparse files go through
+    :func:`from_scipy` (``auto_operator`` unless ``format`` is given);
+    dense arrays become a DenseOperator in ``dtype`` (complex arrays keep
+    their complex dtype, real ones default to
+    :func:`~lsqr_tpu_torch.config.default_dtype`)."""
+    import scipy.io
+    import scipy.sparse
+
+    from ..config import default_dtype
+    from .linop import DenseOperator, as_tensor
+
+    mat = scipy.io.mmread(str(path))
+    if scipy.sparse.issparse(mat):
+        return from_scipy(mat, dtype=dtype, format=format, device=device)
+    arr = np.asarray(mat)
+    if dtype is None:
+        dtype = arr.dtype if np.iscomplexobj(arr) else default_dtype()
+    return DenseOperator(as_tensor(arr, dtype=dtype, device=resolve_device(device)))
+
+
+def from_torch_sparse(mat, *, dtype=None, format: Optional[str] = None,
+                      device=None) -> LinearOperator:
+    """Convert a 2-D ``torch.sparse_coo_tensor`` or sparse CSR tensor to an
+    operator, routed as the JAX package's ``from_bcoo`` routes a BCOO or
+    BCSR matrix: duplicates summed, then :func:`auto_operator` (or
+    ``format``: 'ell', 'coo' or 'block'; complex values take 'coo' or
+    None). The operator goes to ``device``, else to the tensor's device.
+    Hybrid tensors (dense trailing dimensions) and batches are refused."""
+    import torch
+
+    if not isinstance(mat, torch.Tensor) or mat.layout not in (torch.sparse_coo,
+                                                               torch.sparse_csr):
+        raise TypeError("from_torch_sparse expects a torch sparse COO or CSR tensor, "
+                        f"got {type(mat).__name__}"
+                        + (f" ({mat.layout})" if isinstance(mat, torch.Tensor) else ""))
+    if mat.layout == torch.sparse_csr:
+        mat = mat.to_sparse_coo()
+    if mat.dim() != 2 or mat.sparse_dim() != 2:
+        raise ValueError("from_torch_sparse supports 2-D matrices without dense "
+                         f"dimensions only (ndim={mat.dim()}, "
+                         f"sparse_dim={mat.sparse_dim()})")
+    device = mat.device if device is None else torch.device(device)
+    m, n = mat.shape
+    mat = mat.coalesce()
+    rows, cols = (to_numpy(i) for i in mat.indices())
+    data = to_numpy(mat.values(), dtype)
+    if format is None:
+        return auto_operator(m, n, data, rows, cols, dtype=dtype, device=device)
+    if np.iscomplexobj(data) and format != "coo":
+        raise ValueError(f"format={format!r} is real-only; complex matrices use the COO "
+                         "path (format='coo' or None)")
+    builder = {"ell": ell_operator, "coo": coo_operator,
+               "block": block_ell_operator}.get(format)
+    if builder is None:
+        raise ValueError(f"unknown format {format!r}")
+    return builder(m, n, data, rows, cols, dtype=dtype, device=device)
+
+
+#: the JAX package's name for the bridge from a framework's own sparse type
+from_bcoo = from_torch_sparse
+
+
+def _scipy_input(A, device):
+    import scipy.sparse
+
+    return from_scipy(A, device=device) if scipy.sparse.issparse(A) else A
+
+
+def lsmr_scipy(A, b, damp: float = 0.0, atol: float = 1e-6, btol: float = 1e-6,
+               conlim: float = 1e8, maxiter=None, show: bool = False, x0=None, *,
+               device=None):
+    """Drop-in for ``scipy.sparse.linalg.lsmr``: the same argument names and
+    defaults and the same 8-tuple ``(x, istop, itn, normr, normar, norma,
+    conda, normx)``, x a numpy array. ``A`` is anything
+    :func:`~lsqr_tpu_torch.lsmr` takes, or a scipy sparse matrix (through
+    :func:`from_scipy`, on ``device``: the card when None)."""
+    from ..lsmr import lsmr
+
+    res = lsmr(_scipy_input(A, device), b, damp, atol=atol, btol=btol, conlim=conlim,
+               itnlim=maxiter, x0=x0)
+    if show:
+        print(f"istop = {int(res.istop)}  itn = {int(res.itn)}  "
+              f"normr = {float(res.normr):.3e}  normar = {float(res.normar):.3e}")
+    return (to_numpy(res.x), int(res.istop), int(res.itn), float(res.normr),
+            float(res.normar), float(res.norma), float(res.conda), float(res.normx))
+
+
+def lsqr_scipy(A, b, damp: float = 0.0, atol: float = 1e-6, btol: float = 1e-6,
+               conlim: float = 1e8, iter_lim=None, show: bool = False,
+               calc_var: bool = False, x0=None, *, device=None):
+    """Drop-in for ``scipy.sparse.linalg.lsqr``: the same argument names and
+    defaults (iter_lim 2n) and the same 10-tuple ``(x, istop, itn, r1norm,
+    r2norm, anorm, acond, arnorm, xnorm, var)``, x and var numpy arrays.
+
+    istop is translated to scipy's codes: the reference's damped 3 is
+    scipy's 2, conlim (4) is 3 and the iteration limit (5) is 7. A scipy
+    sparse ``A`` goes to ``device`` (the card when None)."""
+    from ..solver import lsqr
+
+    A = _scipy_input(A, device)
+    if iter_lim is None and hasattr(A, "n"):
+        iter_lim = 2 * int(A.n)
+    res = lsqr(A, b, damp, atol=atol, btol=btol, conlim=conlim, itnlim=iter_lim,
+               wantse=calc_var, x0=x0)
+    if show:
+        from ..utils.printing import format_report
+
+        print(format_report(res))
+    istop = {0: 0, 1: 1, 2: 2, 3: 2, 4: 3, 5: 7}[int(res.istop)]
+    x = to_numpy(res.x)
+    rnorm, xnorm = float(res.rnorm), float(res.xnorm)
+    r1sq = rnorm ** 2 - (float(damp) * xnorm) ** 2
+    r1norm = float(np.sqrt(abs(r1sq)) * (1 if r1sq >= 0 else -1))
+    var = None
+    if calc_var:
+        # se = (rnorm / sqrt(t)) sqrt(var) (lsqr.f90:857-865); scipy's var
+        m, n = A.shape if hasattr(A, "shape") else (len(b), x.shape[0])
+        t = (float(m - n) if damp == 0.0 else float(m)) if m > n else 1.0
+        se = to_numpy(res.se).astype(np.float64)
+        var = (se * np.sqrt(t) / rnorm) ** 2 if rnorm > 0 else se * 0.0
+    return (x, istop, int(res.itn), r1norm, rnorm, float(res.anorm), float(res.acond),
+            float(res.arnorm), xnorm, var)

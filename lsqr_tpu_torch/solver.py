@@ -118,12 +118,16 @@ def _build(
     fused: bool = False,
     pair: bool = False,
     scalar_dtype: Optional[torch.dtype] = None,
+    log_rows: Optional[list] = None,
 ):
     """Construct the solver pieces (carry0, cond_fun, body_fun, finalize),
     as :func:`lsqr_tpu.solver._build` does.
 
     ``body_fun(c, active)`` writes its trace row in place, and only where
-    ``active`` holds; every other field is a new tensor."""
+    ``active`` holds; every other field is a new tensor. With ``log_rows``
+    (a list: ``debug_log``) each iteration appends its log row on the
+    device, led by 1 where the reference's throttle rule prints it
+    (lsqr.f90:815-822) and the iteration ran, else 0."""
     m, n = A.shape
     dtype = b.dtype
     rdtype = real_dtype(dtype)
@@ -352,15 +356,21 @@ def _build(
         istop = torch.where((istop != 0) & (nstop < nconv) & (itn < itnlim), 0, istop)
 
         # --- iteration log (lsqr.f90:813-837), written in place ----------
-        if record_trace:
+        if record_trace or log_rows is not None:
             x0_val = x[0].real if is_complex else x[0]
             row = torch.stack([
                 s.to(sdtype) for s in
                 (itn, x0_val, rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, alfopt)
             ]).to(rdtype)
+        if record_trace:
             idx = torch.clamp(itn, max=trace_rows - 1).long().view(1)
             old = c.trace.index_select(0, idx)
             c.trace.index_copy_(0, idx, torch.where(active, row.view(1, -1), old))
+        if log_rows is not None:
+            print_iter = ((itn <= 10) | (itn >= itnlim - 10) | (itn % 10 == 0)
+                          | (test3 <= 2.0 * ctol) | (test2 <= 10.0 * atol)
+                          | (test1 <= 10.0 * rtol) | (istop != 0) | (n <= 40))
+            log_rows.append(torch.cat([(active & print_iter).to(rdtype).view(1), row]))
 
         return _Carry(
             itn=itn, istop=istop, nstop=nstop,
@@ -400,18 +410,56 @@ def _masked_step(c, cond_fun, body_fun):
     return type(c)(*[a if a is b else torch.where(active, a, b) for a, b in zip(new, c)])
 
 
-def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int):
+def _debug_line(itn, x0, rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, alfopt):
+    """The reference's iteration line (lsqr.f90:827-829), as the JAX
+    package prints it with ``debug_log``."""
+    print(f"{int(itn):6d} {x0: .9e} {rnorm: .9e} {test1: .2e} {test2: .2e} {anorm: .2e} "
+          f"{acond: .1e} {phi: .1e} {dknorm: .1e} {dxk: .1e} {alfopt: .1e}", flush=True)
+
+
+def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int, log=None,
+                  stop_at: Optional[int] = None):
     """Host-stepped solve in segments of masked iterations: one host read of
-    (istop, itn) per segment; at most ``seg_len - 1`` masked iterations."""
+    (istop, itn) per segment; at most ``seg_len - 1`` masked iterations.
+
+    ``log`` is the ``log_rows`` list of :func:`_build`: the segment's rows
+    come to the host in the same read, and the flagged ones are printed.
+    ``stop_at`` runs one segment whose iterations past that itn are masked
+    (the checkpointed solves' segment) and returns."""
     seg = min(seg_len, itnlim) if itnlim > 0 else seg_len
+    if stop_at is not None:
+        def cond(c):
+            return cond_fun(c) & (c.itn < stop_at)
+    else:
+        cond = cond_fun
     prev_itn = 0
     while True:
         for _ in range(seg):
-            carry = _masked_step(carry, cond_fun, body_fun)
-        istop, itn = torch.stack([carry.istop, carry.itn]).tolist()
-        if istop != 0 or itn >= itnlim or itn == prev_itn:
+            carry = _masked_step(carry, cond, body_fun)
+        head = torch.stack([carry.istop, carry.itn])
+        if log:
+            read = torch.cat([head.double(), torch.stack(log).double().reshape(-1)]).tolist()
+            log.clear()
+            istop, itn = int(read[0]), int(read[1])
+            for i in range(2, len(read), 12):
+                if read[i]:
+                    _debug_line(*read[i + 1:i + 12])
+        else:
+            istop, itn = head.tolist()
+        if stop_at is not None or istop != 0 or itn >= itnlim or itn == prev_itn:
             return carry
         prev_itn = itn
+
+
+def damped_warm_start(A: LinearOperator, b: torch.Tensor, x0: torch.Tensor, damp):
+    """(stacked operator, right-hand side) of a damped warm start: with
+    x = x0 + dx, min ||[A; damp I] x - [b; 0]|| is the undamped
+    min ||[A; damp I] dx - [b - A x0; -damp x0]||."""
+    from .ops.compose import diagonal_operator, vstack_operators
+
+    d = torch.full((A.n,), float(damp), dtype=b.dtype, device=b.device)
+    stacked = vstack_operators([A, diagonal_operator(d)])
+    return stacked, torch.cat([b - A.matvec(x0), -d * x0])
 
 
 def lsqr(
@@ -433,18 +481,14 @@ def lsqr(
         (matvec, rmatvec) tuple with ``m``/``n``.
       b: right-hand side (m,); moved to the operator's device.
       damp: damping parameter, a number or 0-d tensor.
-      x0: optional warm start, undamped only (lsqr.f90:303-320): solve
-        ``A dx = b - A x0`` and return ``x = x0 + dx``.
+      x0: optional warm start (lsqr.f90:303-320): solve
+        ``A dx = b - A x0`` and return ``x = x0 + dx``; with damp > 0 the
+        stacked form of :func:`damped_warm_start` (istop 2 maps to 3).
       options / option_overrides: see :class:`LSQROptions`.
     """
     opts = options or LSQROptions()
     if option_overrides:
         opts = opts.replace(**option_overrides)
-    if opts.debug_log:
-        raise NotImplementedError(
-            "debug_log=True is not ported yet (ROADMAP Queue 1 item 8, "
-            "utils/printing.py); use record_trace=True"
-        )
 
     A = as_operator(A, m=m, n=n)
     b = as_tensor(b, device=A.device)
@@ -462,12 +506,12 @@ def lsqr(
         # None means False, as in the JAX package (LSQROptions.megakernel)
         from .ops.megakernel import lsqr_megakernel, megakernel_supported
 
-        if not (dtype == torch.float32 and opts.scalar_dtype is None
+        if not (dtype == torch.float32 and opts.scalar_dtype is None and not opts.debug_log
                 and megakernel_supported(A, wantse=opts.wantse,
                                          record_trace=opts.record_trace)):
             raise ValueError(
                 "megakernel=True requires an f32 DIAOperator (f32 or bf16 "
-                "stripes) without wantse, record_trace or scalar_dtype (see "
+                "stripes) without wantse, record_trace, debug_log or scalar_dtype (see "
                 "ops.megakernel.megakernel_supported)"
             )
         return lsqr_megakernel(A, b, damp, atol=opts.atol, btol=opts.btol,
@@ -475,12 +519,16 @@ def lsqr(
                                nconv=opts.nconv, x0=x0)
 
     if x0 is not None:
-        if float(damp) != 0.0:
-            raise NotImplementedError(
-                "a damped warm start needs ops/compose.py (ROADMAP Queue 1 "
-                "item 9); pass x0 with damp=0"
-            )
         x0 = as_tensor(x0, dtype=dtype, device=b.device)
+        if float(damp) != 0.0:
+            # x = x0 + dx turns min ||[A; damp I] x - [b; 0]|| into the
+            # undamped stacked problem, whose norms are Abar's; istop 2
+            # maps back to 3 (lsqr.f90:871)
+            stacked, rhs = damped_warm_start(A, b, x0, damp)
+            res = lsqr(stacked, rhs, 0.0, options=opts)
+            xw = x0 + res.x
+            return res._replace(x=xw, istop=torch.where(res.istop == 2, 3, res.istop),
+                                xnorm=nrm2(xw, safe=opts.safe_norms))
         res = lsqr(A, b - A.matvec(x0), damp, options=opts)
         xw = x0 + res.x
         return res._replace(x=xw, xnorm=nrm2(xw, safe=opts.safe_norms))
@@ -504,12 +552,13 @@ def lsqr(
     def scalar(v):  # damp and the tolerances are real, also for complex problems
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
+    log = [] if opts.debug_log else None
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, scalar(damp), scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
         itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
         record_trace=opts.record_trace, safe_norms=opts.safe_norms,
-        fused=fused, pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype),
+        fused=fused, pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype), log_rows=log,
     )
     final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim,
-                          seg_len=opts.loop_segment)
+                          seg_len=opts.loop_segment, log=log)
     return finalize(final)

@@ -6,8 +6,8 @@ Over C the Paige–Saunders bidiagonalization holds with A' read as the
 conjugate transpose: alpha, beta and every rotation scalar and norm estimate
 are real, the vectors complex. Both packages run in complex128 on the CPU
 (x64 for JAX), complex64 where a case says so. Cases that need modules the
-port does not have yet (multidamp, lsqr_grad, refine, hybrid, lsrn,
-regpath, the sharded solvers, composite operators) wait for those modules.
+port does not have yet (multidamp, lsqr_grad, regpath, the sharded
+solvers) wait for those modules.
 """
 
 import numpy as np
@@ -130,8 +130,8 @@ def test_lsqr_complex_coo_and_xcheck(rng):
 
 
 def test_lsqr_complex_wantse_trace_warmstart(rng):
-    """tests/test_complex.py:97-111, with the undamped warm start (a damped
-    one needs the operator algebra, ROADMAP item 9)."""
+    """tests/test_complex.py:97-111: se, the trace, and the warm start,
+    undamped and damped (the stacked form; JAX's istop, itn and x)."""
     A, b, damp = _cproblem(rng, m=50, n=20)
     res = lt.lsqr(_dense(A), b, damp, wantse=True, record_trace=True, itnlim=40)
     assert res.se.shape == (20,) and not res.se.is_complex()
@@ -152,8 +152,11 @@ def test_lsqr_complex_wantse_trace_warmstart(rng):
     res2 = lt.lsqr(_dense(A), b, 0.0, x0=x0, atol=1e-12, btol=1e-12)
     assert int(res2.itn) < int(ref.itn)
     np.testing.assert_allclose(to_np(res2.x), to_np(ref.x), atol=1e-9)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lt.lsqr(_dense(A), b, damp, x0=x0)
+    res3 = lt.lsqr(_dense(A), b, damp, x0=x0, atol=1e-12, btol=1e-12)
+    res3_j = lj.lsqr(A, b, damp, x0=x0, atol=1e-12, btol=1e-12)
+    assert int(res3.istop) == int(res3_j.istop) and int(res3.itn) == int(res3_j.itn)
+    np.testing.assert_allclose(to_np(res3.x), np.asarray(res3_j.x), atol=1e-10)
+    np.testing.assert_allclose(to_np(res3.x), _damped_solution(A, b, damp), atol=1e-9)
 
 
 def test_lsmr_complex_matches_scipy_and_jax(rng):
@@ -247,8 +250,8 @@ def test_ez_api_complex(rng):
 
 
 def test_complex_routes_that_raise(rng):
-    """The megakernels and the fused half-steps are real-f32 only; damped
-    x0 waits for item 9 in every solver."""
+    """The megakernels and the fused half-steps are real-f32 only; a damped
+    x0 (item 9) now solves in lsqr, lsmr and cgls as JAX's does."""
     A, b, _ = _cproblem(rng, m=30, n=20)
     D = _dense(A)
     for fn in (lt.lsqr, lt.lsmr, lt.craig):
@@ -257,6 +260,153 @@ def test_complex_routes_that_raise(rng):
     Z = lt.dia_operator(30, 30, (0, 1), np.ones((2, 30), np.complex128), device=DEV)
     with pytest.raises(ValueError, match="fused_halfstep"):
         lt.lsqr(Z, b, fused=True, pair=False)
-    for fn in (lt.lsqr, lt.lsmr, lt.cgls):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(D, b, 0.1, x0=np.zeros(20, complex))
+    for name in ("lsqr", "lsmr", "cgls"):
+        rt = getattr(lt, name)(D, b, 0.1, x0=np.zeros(20, complex))
+        rj = getattr(lj, name)(A, b, 0.1, x0=np.zeros(20, complex))
+        assert int(rt.istop) == int(rj.istop) and int(rt.itn) == int(rj.itn)
+        np.testing.assert_allclose(to_np(rt.x), np.asarray(rj.x), atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# composites, checkpoints, refinement, hybrid regularization and LSRN over C
+# ---------------------------------------------------------------------------
+
+
+def test_complex_composites_adjoint(rng):
+    """tests/test_complex.py:162-177: a stack of A over alpha * diag(d)
+    conjugates alpha and d in its adjoint, as JAX's does."""
+    A, _, _ = _cproblem(rng, m=30, n=20)
+    d = rng.standard_normal(20) + 1j * rng.standard_normal(20)
+    alpha = 0.7 - 0.3j
+    op = lt.vstack_operators([_dense(A), lt.scale_operator(lt.diagonal_operator(d, device=DEV),
+                                                           alpha)])
+    op_j = lj.vstack_operators([lj.as_operator(A),
+                                lj.scale_operator(lj.diagonal_operator(d), alpha)])
+    assert int(lt.acheck(op).inform) == 0
+    dense = np.vstack([A, alpha * np.diag(d)])
+    y = rng.standard_normal(50) + 1j * rng.standard_normal(50)
+    got = to_np(op.rmatvec(torch.from_numpy(y)))
+    np.testing.assert_allclose(got, dense.conj().T @ y, rtol=1e-11)
+    np.testing.assert_allclose(got, np.asarray(op_j.rmatvec(y)), rtol=1e-12)
+
+
+def test_checkpoint_resume_complex(rng, tmp_path):
+    """tests/test_complex.py:282: segments and a resume from the written
+    carry give the one-shot solve's complex x bit for bit."""
+    A, b, damp = _cproblem(rng)
+    ref = lt.lsqr(_dense(A), b, damp, atol=1e-12, btol=1e-12)
+    path = str(tmp_path / "carry.npz")
+    res = lt.lsqr_checkpointed(_dense(A), b, damp, segment_iters=7, checkpoint_path=path,
+                               atol=1e-12, btol=1e-12)
+    assert int(res.itn) == int(ref.itn) and torch.equal(res.x, ref.x)
+    again = lt.lsqr_checkpointed(_dense(A), b, damp, segment_iters=7, resume_from=path,
+                                 atol=1e-12, btol=1e-12)
+    assert torch.equal(again.x, ref.x) and again.x.is_complex()
+    ref_j = lj.lsqr(A, b, damp, atol=1e-12, btol=1e-12)
+    assert int(res.itn) == int(ref_j.itn)
+    np.testing.assert_allclose(to_np(res.x), np.asarray(ref_j.x), atol=1e-10)
+
+
+def _ill_conditioned_complex(rng, m, n, cond):
+    U, _ = np.linalg.qr(rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    return (U * np.logspace(0, -np.log10(cond), n)) @ V.conj().T
+
+
+@pytest.mark.parametrize("cond", [1e2, 1e4], ids=["plain", "preconditioned"])
+def test_refine_complex_matches_jax(rng, cond):
+    """tests/test_complex.py:335-362: complex64 solves and complex128 host
+    residuals reach the c128 LS solution of the stored matrix; at cond 1e4
+    the auto-LSRN path takes over (complex Gaussian sketch). JAX's switch
+    and x (1e-9), its cycle count within 1 (the complex64 inner solves sum
+    in other orders, and ||dx|| can cross tol * ||x|| a cycle apart)."""
+    m, n = 120, 60
+    A32 = _ill_conditioned_complex(rng, m, n, cond).astype(np.complex64)
+    b = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    xtrue = np.linalg.lstsq(A32.astype(np.complex128), b, rcond=None)[0]
+    res = lt.lsqr_refined(_dense(A32), b)
+    res_j = lj.lsqr_refined(lj.as_operator(A32), b)
+    assert res.x.dtype == np.complex128 and res.results[0].x.dtype == torch.complex64
+    assert res.preconditioned == (cond > 1e3) == res_j.preconditioned
+    assert abs(res.cycles - res_j.cycles) <= 1
+    rel = np.abs(res.x - xtrue).max() / np.abs(xtrue).max()
+    assert rel < (1e-12 if cond < 1e3 else 1e-9)
+    assert np.abs(res.x - res_j.x).max() / np.abs(xtrue).max() < 1e-9
+
+
+def test_refine_complex_damped_and_min_norm(rng):
+    """tests/test_complex.py:365-380."""
+    mu, nu = 40, 80
+    Au = (rng.standard_normal((mu, nu)) + 1j * rng.standard_normal((mu, nu))).astype(
+        np.complex64)
+    bu = rng.standard_normal(mu) + 1j * rng.standard_normal(mu)
+    Ad = Au.astype(np.complex128)
+    resd = lt.lsqr_refined(_dense(Au), bu, 0.1)
+    xd = Ad.conj().T @ np.linalg.solve(Ad @ Ad.conj().T + 0.01 * np.eye(mu), bu)
+    np.testing.assert_allclose(resd.x, xd, atol=1e-12)
+    resm = lt.lsqr_refined(_dense(Au), bu, 0.0)
+    np.testing.assert_allclose(resm.x, np.linalg.pinv(Ad) @ bu, atol=1e-12)
+    assert abs(resm.cycles - lj.lsqr_refined(lj.as_operator(Au), bu, 0.0).cycles) <= 1
+
+
+def test_golub_kahan_complex_factorization(rng):
+    """tests/test_complex.py:422-448: conj-orthonormal V, a real bidiagonal
+    (JAX's within 1e-10), the projected-norm identity, and the full-k
+    projected Tikhonov equal to the damped closed form."""
+    m, n = 40, 20
+    A = rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+    b = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    basis = lt.golub_kahan(_dense(A), b, n)
+    basis_j = lj.golub_kahan(A, b, n)
+    V = to_np(basis.V)
+    assert not basis.alpha.is_complex()
+    np.testing.assert_allclose(V.conj() @ V.T, np.eye(n), atol=1e-12)
+    B, beta0 = basis.bidiagonal(), float(basis.beta[0])
+    np.testing.assert_allclose(B, basis_j.bidiagonal(), rtol=1e-10, atol=1e-14)
+    y = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    e1 = np.zeros(n + 1)
+    e1[0] = beta0
+    np.testing.assert_allclose(np.linalg.norm(A @ (y @ V) - b), np.linalg.norm(B @ y - e1),
+                               rtol=1e-12)
+    x = lt.projected_tikhonov(B, beta0, 0.3) @ V
+    np.testing.assert_allclose(x, _damped_solution(A, b, 0.3), atol=1e-12)
+
+
+def test_hybrid_lsqr_complex_runs_gcv(rng):
+    """tests/test_complex.py:435: complex x, finite, JAX's selected k."""
+    m, n = 60, 30
+    A = rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+    b = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    res = lt.hybrid_lsqr(_dense(A), b, k=20)
+    res_j = lj.hybrid_lsqr(A, b, k=20)
+    assert res.x.is_complex() and bool(torch.isfinite(res.x.real).all())
+    assert 1 <= res.k <= 20 and (res.k, res.k_run) == (res_j.k, res_j.k_run)
+    np.testing.assert_allclose(to_np(res.x), np.asarray(res_j.x), atol=1e-8)
+
+
+def test_lsrn_complex_conditioning_independent(rng):
+    """tests/test_complex.py:449-462: a complex Gaussian sketch keeps the
+    iterations at the cond(AN) <~ 3 level for a cond-1e6 matrix."""
+    m, n = 150, 60
+    A = _ill_conditioned_complex(rng, m, n, 1e6)
+    b = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    res = lt.lsrn(_dense(A), b, atol=1e-12, btol=1e-12)
+    xt = np.linalg.lstsq(A, b, rcond=None)[0]
+    assert np.abs(to_np(res.x) - xt).max() / np.abs(xt).max() < 1e-8
+    assert int(res.result.itn) < 60
+    res_j = lj.lsrn(A, b, atol=1e-12, btol=1e-12)
+    assert np.abs(to_np(res.x) - np.asarray(res_j.x)).max() / np.abs(xt).max() < 1e-7
+
+
+def test_lsrn_complex_underdetermined_and_damped(rng):
+    """tests/test_complex.py:465-476."""
+    mu, nu = 50, 120
+    Au = rng.standard_normal((mu, nu)) + 1j * rng.standard_normal((mu, nu))
+    bu = rng.standard_normal(mu) + 1j * rng.standard_normal(mu)
+    resu = lt.lsrn(_dense(Au), bu, atol=1e-12, btol=1e-12)
+    np.testing.assert_allclose(to_np(resu.x), np.linalg.pinv(Au) @ bu, atol=1e-10)
+    m, n = 80, 40
+    A = rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+    b = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    resd = lt.lsrn(_dense(A), b, damp=0.1, atol=1e-12, btol=1e-12)
+    np.testing.assert_allclose(to_np(resd.x), _damped_solution(A, b, 0.1), atol=1e-9)

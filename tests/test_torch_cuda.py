@@ -1470,3 +1470,47 @@ def test_cuda_halfstep_solve_is_bit_stable(rng, cuda_device, storage):
     again = lt.lsqr(A, b, 0.01, **kw)
     assert int(first.istop) in (1, 2, 3) and int(first.istop) == int(again.istop)
     assert int(first.itn) == int(again.itn) and torch.equal(first.x, again.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr", "cgls"])
+def test_cuda_damped_warm_start_and_checkpoint_are_bit_stable(rng, cuda_device, tmp_path,
+                                                              solver):
+    """A damped warm start (the stacked [A; damp I], two dia_product_shared
+    launches an iteration) and a checkpointed LSQR solve, saved and resumed
+    from disk between segments, on a shared-stripe operator: the same bits
+    over two runs, the checkpointed one equal to the uninterrupted solve on
+    its route (two products), and both within 1e-4 of the CPU twins'."""
+    m = n = 20_000
+    ks = (-3, 0, 1, 5)
+    data, _ = banded(rng, m, n, ks, np.float32, boost=6.0, dense=False)
+    A = lt.dia_shared_operator(m, n, ks, data, device=cuda_device)
+    H = lt.dia_shared_operator(m, n, ks, data, device=DEV)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    x0 = 0.01 * torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    fn = getattr(lt, solver)
+    kw = dict(atol=1e-6, btol=1e-6)
+    spmv.reset_launch_counts()
+    r1, r2 = (fn(A, b.to(cuda_device), 0.05, x0=x0.to(cuda_device), **kw) for _ in range(2))
+    counts = spmv.launch_counts()
+    assert counts["dia_product_shared"] > 0 and counts["dia_pair_shared"] == 0
+    assert int(r1.itn) == int(r2.itn) and torch.equal(r1.x, r2.x)
+    assert rel_err(r1.x.cpu(), fn(H, b, 0.05, x0=x0, **kw).x) < 1e-4
+    if solver != "lsqr":
+        return
+    path = str(tmp_path / "state.npz")
+
+    def stop(seg, carry):
+        if seg >= 2:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        lt.lsqr_checkpointed(A, b.to(cuda_device), 0.05, segment_iters=4,
+                             checkpoint_path=path, on_segment=stop, **kw)
+    runs = [lt.lsqr_checkpointed(A, b.to(cuda_device), 0.05, segment_iters=4,
+                                 resume_from=path, **kw) for _ in range(2)]
+    whole = lt.lsqr_checkpointed(A, b.to(cuda_device), 0.05, segment_iters=4, **kw)
+    plain = lt.lsqr(A, b.to(cuda_device), 0.05, pair=False, fused=False, **kw)
+    for res in (runs[1], whole, plain):
+        assert int(res.itn) == int(runs[0].itn) and int(res.istop) == int(runs[0].istop)
+        assert torch.equal(res.x, runs[0].x)

@@ -165,9 +165,10 @@ def test_siblings_zero_rhs_and_warm_start_match_jax(rng, solver):
     rj = _solve(lj, solver, Aj, b, damp0, x0=x0, **kw)
     rt = _solve(lt, solver, At, b, damp0, x0=x0, **kw)
     _hold(rt, rj, np.float64)
-    if damp is not None:  # the damped warm start needs ops/compose.py
-        with pytest.raises(NotImplementedError, match="item 9"):
-            _solve(lt, solver, At, b, damp, x0=x0)
+    if damp is not None:  # the damped warm start: the stacked form in both
+        rj = _solve(lj, solver, Aj, b, damp, x0=x0, **kw)
+        rt = _solve(lt, solver, At, b, damp, x0=x0, **kw)
+        _hold(rt, rj, np.float64)
 
 
 def test_siblings_refuse_what_they_do_not_take(rng):

@@ -248,16 +248,24 @@ def test_dtype_follows_inputs(rng):
         lt.lsqr(A32, b[:-1])
 
 
-def test_deferred_options_raise():
+def test_deferred_options_raise(capfd):
+    """The options once deferred: debug_log prints JAX's lines (item 8), a
+    damped x0 gives JAX's solve (item 9); what is still refused raises."""
     A = lt.as_operator(np.eye(3), device=DEV)
     b = np.ones(3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lt.lsqr(A, b, debug_log=True)
+    res = lt.lsqr(A, b, debug_log=True)
+    ours = capfd.readouterr().out.split()
+    res_j = lj.lsqr(jnp.eye(3), b, debug_log=True)
+    res_j.x.block_until_ready()
+    assert ours == capfd.readouterr().out.split() and int(res.itn) == int(res_j.itn) == 1
     # megakernel=True is ported (item 13); a dense operator is unsupported
     with pytest.raises(ValueError, match="megakernel=True requires"):
         lt.lsqr(A, b, megakernel=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lt.lsqr(A, b, 0.1, x0=np.zeros(3))
+    warm = lt.lsqr(A, b, 0.1, x0=np.zeros(3))
+    warm_j = lj.lsqr(jnp.eye(3), b, 0.1, x0=np.zeros(3))
+    assert int(warm.istop) == int(warm_j.istop) and int(warm.itn) == int(warm_j.itn)
+    np.testing.assert_allclose(to_np(warm.x), np.asarray(warm_j.x), rtol=1e-12)
+    np.testing.assert_allclose(to_np(warm.x), b / 1.01, rtol=1e-12)
     # complex solves are ported (item 12): b = (1+1j) * ones solves the identity
     xc = lt.lsqr(A, (1 + 1j) * b).x
     assert xc.dtype == torch.complex128 and np.allclose(xc.numpy(), (1 + 1j) * b)
