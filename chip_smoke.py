@@ -23,7 +23,11 @@ raises on failure:
    ``[column]``, data's column side) at every shape, f32 and bf16 stripes,
    bit-equal to the direct kernel (one thread an output), the main shape's
    through the staged route, and each timed there beside its bound and,
-   f32, the CSR product (of A' for the adjoint calls);
+   f32, the CSR product (of A' for the adjoint calls); the two variants of
+   the fused half-step (v2, v3) on data and tdata at every shape, f32 and
+   bf16 stripes, out bit-equal to their direct kernel and ssq within TOL of
+   it, the main shape's through the staged route, timed there on both
+   routes (the kernels line's ``direct_ms``);
 2. the main-path solve at m = n = 2^23 on the shared-stripe layout: f32
    stripes from a seeded generator with 12 added to the main diagonal, damp
    0.01 — a run to the machine-precision guards within 64 iterations, a
@@ -163,7 +167,8 @@ kernels it runs, and every kernel variant must have launched on some path.
 The second-to-last line of output is a JSON object describing each kernel
 (its time, its twin's, the least time the card could take for the bytes or
 operations it must handle, and a PyTorch library call's time where one
-computes the same function), and the BlockELL packings timed apart; the
+computes the same function; the fused half-step's two variants also their
+direct kernel's, ``direct_ms``), and the BlockELL packings timed apart; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -192,7 +197,8 @@ STREAM = "lsqr_tpu_torch/csrc/stream_copy.cu"
 #: include it): the source of the pairs' staged variants
 STAGED_PAIR = "lsqr_tpu_torch/csrc/dia_pair_staged.cuh"
 #: the staged product of both layouts (included likewise): the source of the
-#: products' f32 and bf16 variants (f64 takes the direct kernel)
+#: products' f32 and bf16 variants (f64 takes the direct kernel) and of the
+#: fused half-step's two variants (its kernel with y)
 STAGED_PRODUCT = "lsqr_tpu_torch/csrc/dia_product_staged.cuh"
 M_JDIA = 2 ** 22  # phase 11-12's jittered-diagonal size
 M_BELL = 2 ** 18  # phase 11-12's BlockELL size
@@ -479,6 +485,42 @@ def product_calls(As, Ap, v, y):
     }
 
 
+def halfsteps_match_direct(Ap, v, y, label):
+    """The two variants of the fused half-step (v2, v3) on data and tdata,
+    through the route the wrappers take, against their direct kernel
+    (``tile=0``): out bit-equal, ssq within TOL. Returns (the tile,
+    {variant: the direct route's call on data, for timing})."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    dev = Ap.data.device
+    c1, c2 = torch.tensor(0.8, device=dev), torch.tensor(1.1, device=dev)
+    sfx = "" if Ap.data.dtype == torch.float32 else "[bf16]"
+    tile = spmv._halfstep_rule(Ap.data, Ap.offsets)
+    sides = {"": (Ap.data, y, v, dict(offsets=Ap.offsets, m=Ap.m, n=Ap.n,
+                                         offsets_t=Ap.offsets_t)),
+             "[t]": (Ap.tdata, v, y, dict(offsets=Ap.toffsets, m=Ap.n, n=Ap.m,
+                                          offsets_t=Ap.toffsets_t))}
+    direct = {}
+    for fn in (spmv.dia_fused_halfstep_v2, spmv.dia_fused_halfstep_v3):
+        for side, (stripes, yy, vec, kw) in sides.items():
+            out, ssq = fn(stripes, yy, vec, c1, c2, **kw)
+            d_out, d_ssq = spmv._halfstep_launch(fn, stripes, yy, vec, c1, c2, tile=0, **kw)
+            torch.cuda.synchronize()
+            same, r = torch.equal(out, d_out), rel(ssq, d_ssq)
+            name = f"{fn.__name__}{sfx}{side}"
+            log(f"  {name:34s} {label}: {f'staged tiles of {tile}' if tile else 'direct'}, "
+                f"out bit-equal to the direct kernel {same}, ssq rel {r:.2e}")
+            check(same and r <= TOL, f"{name} {label}: the staged route differs from the "
+                  f"direct kernel (out equal {same}, ssq rel {r:.2e})")
+        stripes, yy, vec, kw = sides[""]
+        direct[fn.__name__ + sfx] = (
+            lambda fn=fn, a=(stripes, yy, vec), kw=kw:
+            spmv._halfstep_launch(fn, *a, c1, c2, tile=0, **kw))
+    return tile, direct
+
+
 def products_match_direct(As, Ap, v, y, label):
     """Every call of the two products (``product_calls``, the route the
     wrappers take) bit-equal to the direct kernel (``tile=0``: one thread
@@ -695,17 +737,22 @@ def library_ms(csr, x, kernel_out):
 def phase_kernels(dev, shapes, errs, paths):
     """Phase 1: every kernel against its twin on the card; returns
     {variant: (kernel ms, twin ms, m, n, nd, stripe bytes per element,
-    library ms or None)} of the first call of each, at the first (main-path)
-    shape for f32 and bf16 and at the second for f64, and of the other calls
-    of the products and the half-step (OTHER_CALLS: ``<variant>[adjoint]``,
-    ``[t]``, ``[column]``, each with its (dim_out, dim_in) or, for the
-    packed column side, its stripes' (m, n)). The library call is
+    library ms or None, direct kernel ms or None)} of the first call of
+    each, at the first (main-path) shape for f32 and bf16 and at the second
+    for f64, and of the other calls of the products and the half-step
+    (OTHER_CALLS: ``<variant>[adjoint]``, ``[t]``, ``[column]``, each with
+    its (dim_out, dim_in) or, for the packed column side, its stripes' (m,
+    n)). The library call is
     ``torch.sparse_csr_tensor @ x`` of the same matrix (of A' for the
     products' other calls), for the products in f32 and f64. At every shape,
     f32 and bf16, each call of the two products is held bit for bit to the
     direct kernel; the main shape's must take the staged route. At the main
     shape the kernels no solver calls (DIRECT) run once more as a counted
-    path of their own, the direct call."""
+    path of their own, the direct call. The fused half-step's two variants
+    (DIRECT) are held to their direct kernel at every shape, f32 and bf16
+    (``halfsteps_match_direct``); the main shape's must take the staged
+    route, and their direct kernel is timed there too: the last item of
+    their entries, None for the others."""
     import torch
 
     from lsqr_tpu_torch.ops import spmv
@@ -718,6 +765,9 @@ def phase_kernels(dev, shapes, errs, paths):
             As, Ap = dia_operators(data, m, n, ks, storage)
             tile = products_match_direct(As, Ap, v, y, f"m={m} n={n} nd={len(ks)}")
             check(si != 0 or tile > 0, "the main shape's products must take the staged route")
+            tile, direct_calls = halfsteps_match_direct(Ap, v, y, f"m={m} n={n} nd={len(ks)}")
+            check(si != 0 or tile > 0,
+                  "the main shape's fused half-steps must take the staged route")
             if si and storage == torch.bfloat16:  # held to the twins at the main shape
                 del As, Ap
                 continue
@@ -742,15 +792,17 @@ def phase_kernels(dev, shapes, errs, paths):
                     lib = None
                     if csr is not None and name in ("dia_product_shared", "dia_matvec"):
                         lib = library_ms(csr, v, pairs[0][0]())
+                    direct_ms = (time_ms(direct_calls[name]) if name in direct_calls
+                                 else None)
                     times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
-                                   len(ks), storage.itemsize, lib)
+                                   len(ks), storage.itemsize, lib, direct_ms)
                     for tag, i, transposed in OTHER_CALLS.get(base(name), ()):
                         lib = (library_ms(csr_t, y, pairs[i][0]())
                                if csr_t is not None and transposed else None)
                         # the packed column side reads data's (m, n) stripes
                         shape = (m, n) if tag == "[column]" else (n, m)
                         times[name + tag] = (time_ms(pairs[i][0]), time_ms(pairs[i][1]),
-                                             *shape, len(ks), storage.itemsize, lib)
+                                             *shape, len(ks), storage.itemsize, lib, None)
                 direct = [fn for name, pairs in calls.items() if base(name) in DIRECT
                           for fn, _ in pairs]
                 _, delta = counted(lambda: [fn() for fn in direct])
@@ -791,7 +843,7 @@ def phase_kernels(dev, shapes, errs, paths):
             csr = stripes_csr(d64, ks, m, n)
             for name, pairs in calls.items():
                 times[name] = (time_ms(pairs[0][0]), time_ms(pairs[0][1]), m, n,
-                               len(ks), 8, library_ms(csr, x64, pairs[0][0]()))
+                               len(ks), 8, library_ms(csr, x64, pairs[0][0]()), None)
             del calls, As, Ap, d64, csr
         del data, y, v
         torch.cuda.empty_cache()
@@ -3187,9 +3239,12 @@ def main():
                                 (300_001, 200_003, (-60, -3, 0, 5)),
                                 (200_000, 300_007, (0, 1, 7)), WIDE], errs, paths)
     perf = {}
-    for name, (ms, plain_ms, m, n, nd, esize, lib) in times.items():
+    for name, (ms, plain_ms, m, n, nd, esize, lib, direct_ms) in times.items():
         perf[name] = dia_perf(name, ms, plain_ms, m, n, nd, esize, lib)
         report(name, perf[name], card)
+        if direct_ms is not None:  # the fused half-steps' direct kernel
+            perf[name]["direct_ms"] = direct_ms
+            log(f"  {name:30s} direct kernel {direct_ms:.4f} ms")
     halfstep, products = ({name: dict(perf[name], bound_ms=bound(
         perf[name]["bytes"], perf[name]["flops"], perf[name]["esize"])[0])
         for name in perf if base(name) in kernels} for kernels in (
@@ -3279,7 +3334,7 @@ def main():
         source = KERNELS[base(name)][0]
         if base(name) in ("dia_pair", "dia_pair_shared") and "unstaged" not in name:
             source = STAGED_PAIR
-        elif base(name) in ("dia_matvec", "dia_product_shared") and "f64" not in name:
+        elif base(name) in ("dia_matvec", "dia_product_shared", *DIRECT) and "f64" not in name:
             source = STAGED_PRODUCT
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": KERNELS[base(name)][1],
@@ -3288,6 +3343,8 @@ def main():
                      "ms": entry["ms"],
                      "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": entry["library_ms"]})
+        if "direct_ms" in entry:  # the fused half-steps' route where no tile fits
+            rows[-1]["direct_ms"] = entry["direct_ms"]
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

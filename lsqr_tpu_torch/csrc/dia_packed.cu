@@ -36,19 +36,24 @@
 // 4. dia_pair_kernel            <- dia_pair / _dia_pair_kernel_carry,
 //                                  _dia_pair_kernel
 //    u = A(vec * c1) - c2 * y and z = A' u in one pass over data.
-// 5. dia_fused_halfstep_v2_kernel <- dia_fused_halfstep_v2 /
-//                                    _dia_axpy_ssq_kernel
+// 5. dia_product_staged_kernel     <- dia_fused_halfstep_v2 /
+//    <..., kTicketed>                   _dia_axpy_ssq_kernel
+//    (dia_fused_halfstep_v2_kernel
+//    where no tile fits)
 //    as 3, f32 or bf16 stripes, out in the stripes' dtype; ssq reduced in
-//    the launch as 3 does (the TPU kernel accumulates it across its grid in
-//    one SMEM scalar or one revisited VMEM block).
-// 6. dia_fused_halfstep_v3_kernel <- dia_fused_halfstep_v3 /
-//                                    _dia_axpy_ssq_rows_kernel
-//    as 5, but each block writes its partial sum to a slot of its own and
-//    the wrapper adds the slots (the TPU kernel writes one partial per grid
-//    step to rows of its own): no ticket, no block reads another's slot.
+//    the launch (the TPU kernel accumulates it across its grid in one SMEM
+//    scalar or one revisited VMEM block).
+// 6. dia_product_staged_kernel     <- dia_fused_halfstep_v3 /
+//    <..., kPartials>                   _dia_axpy_ssq_rows_kernel
+//    (dia_fused_halfstep_v3_kernel
+//    where no tile fits)
+//    as 5, but the partial sums stay in their slots and the wrapper adds
+//    them (the TPU kernel writes one partial per grid step to rows of its
+//    own): no ticket, no block reads another's slot.
 //
-// Kernels 2, 3, 5 and 6 share one row helper (axpy_row), so they sum each
-// row in the same order.
+// Kernels 2, 3 and the direct forms of 5 and 6 share one row helper
+// (axpy_row), so they sum each row in the same order; the staged forms of
+// 5 and 6 keep that order and expression, so out has the same bits.
 //
 // What bounds them on the H100: bytes. ~2 flops per stripe element read
 // (4 bytes, 2 in bf16) is far below the card's ~20 flop/byte ridge, so the
@@ -63,6 +68,16 @@
 //   memory by cp.async, two stages deep (csrc/dia_product_staged.cuh); T
 //   from ops/spmv.py: product_tile. Where T is 0 (a vector window too wide
 //   for any tile) and for f64 stripes, the direct kernel below;
+// * the fused half-step's two variants (kernels 5 and 6) stream the same
+//   way: the staged product's kernel with y's rows in each stage, the sum
+//   started at -c2 y and the vector scaled by c1, out stored in the
+//   stripes' dtype, and one partial sum of squares a tile (its slot fixed
+//   by the tile, so the bits do not depend on the grid); T from
+//   ops/spmv.py: halfstep_tile. The first design, one thread an output
+//   (below), spent its time issuing loads: in bf16 a warp's stripe load is
+//   64 bytes, twice the load instructions per byte of f32, and it took
+//   longer than f32 for 57% of the bytes. Where T is 0 the direct kernels
+//   below;
 // * the others run one thread per output element in a grid-stride loop: for
 //   each diagonal a warp reads 32 neighbouring stripe and vector addresses,
 //   so every load is coalesced and each stripe byte comes from device
@@ -72,9 +87,10 @@
 //   last block to finish (an integer ticket after __threadfence) sums the
 //   slots in a fixed order and resets the ticket. The result does not
 //   depend on block timing. The grid is capped at kReduceBlocks so that
-//   sum stays short. v3 leaves that sum to the wrapper (one more small
-//   launch, torch.sum over at most kReduceBlocks floats, also in a fixed
-//   order); the norm is of the f32 sums, before a bf16 out is rounded;
+//   sum stays short (the staged variants: one slot a tile). v3 leaves that
+//   sum to the wrapper (one more small launch, torch.sum over the slots,
+//   also in a fixed order); the norm is of the f32 sums, before a bf16 out
+//   is rounded;
 // * the pair (kernel 4) is the staged pair of csrc/dia_pair_staged.cuh on
 //   the packed layout (row stride m, row base 0): one-sided halos
 //   recomputed, each tile's stripe rows, x window and y rows staged in
@@ -262,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) dia_fused_halfstep_kernel(
   fused_halfstep_ticketed(LSQR_TICKETED_ARGS);
 }
 
-// Kernel 5 (f32 or bf16 stripes, out in the stripes' dtype).
+// Kernel 5's direct form (f32 or bf16 stripes, out in the stripes' dtype).
 template <typename S, typename O>
 __global__ void __launch_bounds__(kThreads) dia_fused_halfstep_v2_kernel(
     LSQR_TICKETED_PARAMS) {
@@ -272,7 +288,8 @@ __global__ void __launch_bounds__(kThreads) dia_fused_halfstep_v2_kernel(
 #undef LSQR_TICKETED_PARAMS
 #undef LSQR_TICKETED_ARGS
 
-// Kernel 6: each block's partial sum to its own slot, nothing more.
+// Kernel 6's direct form: each block's partial sum to its own slot,
+// nothing more.
 template <typename S, typename O>
 __global__ void __launch_bounds__(kThreads) dia_fused_halfstep_v3_kernel(
     const S* __restrict__ data, const float* __restrict__ vec,
@@ -325,6 +342,49 @@ int launch_matvec_axpy(const void* data, const void* vec, const void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A fused half-step: Step kTicketed (kernels 3 and 5: ssq reduced in the
+// launch) or kPartials (kernel 6: the caller adds the slots); Variant picks
+// kernel 5 over 3 for the direct form. T > 0: the staged kernel, one slot a
+// tile. T = 0: the direct kernel on a grid of min(blocks needed, slots,
+// kReduceBlocks) blocks, one slot a block; without a ticket the caller adds
+// the first that many slots, which the wrapper sizes to exactly that. With a
+// ticket it is 0 on entry and the kernel leaves it 0.
+template <typename S, typename O, int Step, bool Variant>
+int launch_fused(const void* data, const void* vec, const void* y, const void* c1,
+                 const void* c2, void* out, void* partial, void* ticket, void* ssq,
+                 const void* offsets, int nd, long long dim_out, long long dim_in, int slots,
+                 int lo, int hi, int T, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (T > 0) {
+    const StepArgs step{static_cast<const float*>(y), static_cast<const float*>(c1),
+                        static_cast<const float*>(c2), static_cast<float*>(partial),
+                        static_cast<unsigned int*>(ticket), static_cast<float*>(ssq)};
+    return launch_halfstep_staged<S, O, Step>(data, vec, out, offsets, nd, dim_out, dim_in, lo,
+                                              hi, T, slots, step, s);
+  }
+  const unsigned blocks = reduce_grid(dim_out, slots);
+  if (blocks == 0 || T < 0 || (Step == kPartials && static_cast<long long>(blocks) != slots)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* dp = static_cast<const S*>(data);
+  const auto* vp = static_cast<const float*>(vec);
+  const auto* yp = static_cast<const float*>(y);
+  const auto* c1p = static_cast<const float*>(c1);
+  const auto* c2p = static_cast<const float*>(c2);
+  auto* op = static_cast<O*>(out);
+  auto* pp = static_cast<float*>(partial);
+  const auto* off = static_cast<const int*>(offsets);
+  if constexpr (Step == kPartials) {
+    dia_fused_halfstep_v3_kernel<S, O><<<blocks, kThreads, 0, s>>>(
+        dp, vp, yp, c1p, c2p, op, pp, off, nd, dim_out, dim_in);
+  } else {
+    auto kernel = Variant ? dia_fused_halfstep_v2_kernel<S, O> : dia_fused_halfstep_kernel<S, O>;
+    kernel<<<blocks, kThreads, 0, s>>>(dp, vp, yp, c1p, c2p, op, pp,
+                                       static_cast<unsigned int*>(ticket),
+                                       static_cast<float*>(ssq), off, nd, dim_out, dim_in);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -374,55 +434,50 @@ LSQR_PAIR(bf16, __nv_bfloat16)
 #undef LSQR_MATVEC_AXPY
 #undef LSQR_PAIR
 
-// partial holds at least `slots` floats; the grid is min(blocks needed,
-// slots, kReduceBlocks). With a ticket (kernels 3 and 5) it is 0 on entry and
-// the kernel leaves it 0; without one (kernel 6) the caller adds partial's
-// first min(blocks needed, slots, kReduceBlocks) slots, which the wrapper
-// sizes to exactly that.
-#define LSQR_FUSED(NAME, KERNEL, S, O)                                          \
-  int NAME(const void* data, const void* vec, const void* y, const void* c1,    \
-           const void* c2, void* out, void* partial, void* ticket, void* ssq,   \
-           const void* offsets, int nd, long long dim_out, long long dim_in,    \
-           int slots, void* stream) {                                           \
-    const unsigned blocks = reduce_grid(dim_out, slots);                        \
-    if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);            \
-    KERNEL<S, O><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(  \
-            static_cast<const S*>(data), static_cast<const float*>(vec),        \
-            static_cast<const float*>(y), static_cast<const float*>(c1),        \
-            static_cast<const float*>(c2), static_cast<O*>(out),                \
-            static_cast<float*>(partial), static_cast<unsigned int*>(ticket),   \
-            static_cast<float*>(ssq), static_cast<const int*>(offsets), nd,     \
-            dim_out, dim_in);                                                   \
-    return static_cast<int>(cudaGetLastError());                                \
+// partial holds at least `slots` floats. Row 7 (f32) takes the direct
+// kernel. The two variants take lo = max(0, -k_min), hi = max(0, k_max) and
+// the tile T (ops/spmv.py: halfstep_tile): where T > 0 the staged kernel,
+// slots = ceil(dim_out / T) (data, vec and y 16-byte aligned); where T is 0
+// the direct kernel (see launch_fused).
+int lsqr_dia_fused_halfstep_f32(const void* data, const void* vec, const void* y,
+                                const void* c1, const void* c2, void* out, void* partial,
+                                void* ticket, void* ssq, const void* offsets, int nd,
+                                long long dim_out, long long dim_in, int slots, void* stream) {
+  return launch_fused<float, float, kTicketed, false>(data, vec, y, c1, c2, out, partial, ticket,
+                                                      ssq, offsets, nd, dim_out, dim_in, slots, 0,
+                                                      0, 0, stream);
+}
+
+#define LSQR_FUSED_V2(SUFFIX, S, O)                                             \
+  int lsqr_dia_fused_halfstep_v2_##SUFFIX(                                      \
+      const void* data, const void* vec, const void* y, const void* c1,         \
+      const void* c2, void* out, void* partial, void* ticket, void* ssq,        \
+      const void* offsets, int nd, long long dim_out, long long dim_in,         \
+      int slots, int lo, int hi, int T, void* stream) {                         \
+    return launch_fused<S, O, kTicketed, true>(data, vec, y, c1, c2, out,       \
+                                               partial, ticket, ssq, offsets,   \
+                                               nd, dim_out, dim_in, slots, lo,  \
+                                               hi, T, stream);                  \
   }
 
 #define LSQR_FUSED_V3(SUFFIX, S, O)                                             \
   int lsqr_dia_fused_halfstep_v3_##SUFFIX(                                      \
       const void* data, const void* vec, const void* y, const void* c1,         \
       const void* c2, void* out, void* partial, const void* offsets, int nd,    \
-      long long dim_out, long long dim_in, int slots, void* stream) {           \
-    const unsigned blocks = reduce_grid(dim_out, slots);                        \
-    if (blocks == 0 || static_cast<long long>(blocks) != slots) {               \
-      return static_cast<int>(cudaErrorInvalidValue);                           \
-    }                                                                           \
-    dia_fused_halfstep_v3_kernel<S, O>                                          \
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(           \
-            static_cast<const S*>(data), static_cast<const float*>(vec),        \
-            static_cast<const float*>(y), static_cast<const float*>(c1),        \
-            static_cast<const float*>(c2), static_cast<O*>(out),                \
-            static_cast<float*>(partial), static_cast<const int*>(offsets), nd, \
-            dim_out, dim_in);                                                   \
-    return static_cast<int>(cudaGetLastError());                                \
+      long long dim_out, long long dim_in, int slots, int lo, int hi, int T,    \
+      void* stream) {                                                           \
+    return launch_fused<S, O, kPartials, true>(data, vec, y, c1, c2, out,       \
+                                               partial, nullptr, nullptr,       \
+                                               offsets, nd, dim_out, dim_in,    \
+                                               slots, lo, hi, T, stream);       \
   }
 
-LSQR_FUSED(lsqr_dia_fused_halfstep_f32, dia_fused_halfstep_kernel, float, float)
-LSQR_FUSED(lsqr_dia_fused_halfstep_v2_f32, dia_fused_halfstep_v2_kernel, float, float)
-LSQR_FUSED(lsqr_dia_fused_halfstep_v2_bf16, dia_fused_halfstep_v2_kernel, __nv_bfloat16,
-           __nv_bfloat16)
+LSQR_FUSED_V2(f32, float, float)
+LSQR_FUSED_V2(bf16, __nv_bfloat16, __nv_bfloat16)
 LSQR_FUSED_V3(f32, float, float)
 LSQR_FUSED_V3(bf16, __nv_bfloat16, __nv_bfloat16)
 
-#undef LSQR_FUSED
+#undef LSQR_FUSED_V2
 #undef LSQR_FUSED_V3
 
 }  // extern "C"

@@ -5,6 +5,15 @@
 // include it; it replaces, with them, the TPU kernels dia_matvec and
 // dia_product_shared (lsqr_tpu/ops/pallas_spmv.py).
 //
+// The same kernel, instantiated with a half-step (Step != kPlain), is the
+// staged route of the fused half-step's two variants, dia_fused_halfstep_v2
+// and _v3 (csrc/dia_packed.cu), forward on packed rows (data, or tdata with
+// offsets -k):
+//     out[i] = -c2 y[i] + sum_d rows[d * stride + i] * (vec[i + k_d] c1),
+// out in O (f32, or bf16 rounded to nearest even), and the sum of the
+// unrounded f32 out[i] squared. Every half-step part sits behind
+// `if constexpr`, so the plain product's instantiations take none of it.
+//
 // A side is a row stride, a row base and a direction:
 //     forward  r_d(i) = i,        kk_d = k_d
 //              packed data (stride m), packed tdata (stride n, offsets -k),
@@ -45,6 +54,29 @@
 // comes from ops/spmv.py: product_tile (ProductLayout's bytes, mirrored
 // there as product_stage_bytes: change both together); T = 0 (a vector
 // window too wide for any tile, and f64 stripes) takes the direct kernel.
+//
+// The half-step adds to a stage y's T rows (so it stages what row 3's
+// dia_axpy_staged_kernel stages, on the packed layout) and starts each sum
+// at (-c2) y[i], then adds stripe * (vec * c1) in offset order: the direct
+// kernel's expression and order (csrc/dia_packed.cu: axpy_row), so out has
+// its bits. The sum of squares takes one partial a tile, in slot `tile` of
+// `partial` (tiles = ceil(dim_out / T) slots, whatever the grid): each
+// thread adds its outputs' squares in order, each warp folds its lanes in a
+// fixed tree (__shfl_down_sync), and after the next tile's barrier thread 0
+// adds the tile's warp sums in warp order (no barrier of its own). A slot
+// a tile, not a block, keeps the bits independent of the grid (blocks an
+// SM, the card's SM count). kPartials stops there (v3: the wrapper adds the
+// slots); kTicketed (v2) then takes an integer ticket after __threadfence,
+// and the last block adds the slots in slot order into ssq and resets the
+// ticket. No float atomics: the same bits from run to run. T comes from
+// ops/spmv.py: halfstep_tile (halfstep_stage_bytes mirrors the layout). On
+// the H100 at 2^23 x 11 (tools/product_designs.py, PERF.md) it takes
+// 0.100-0.104 ms in bf16 and 0.169-0.173 in f32 against the direct
+// kernel's 0.194-0.197, 77-83% of its bound; three stages, one or three
+// blocks an SM, 128 threads, a batch of 8, other tiles and one slot a block
+// were none faster. In f32 where only one block an SM fits (61 and 81
+// diagonals at 2^20) the direct kernel was the faster, so halfstep_tile
+// gives f32 only tiles two blocks of which fit (up to 53 diagonals).
 
 #pragma once
 
@@ -61,24 +93,63 @@ constexpr int kProductThreads = 256;
 constexpr int kProductStages = 2;  // tiles in shared memory, the one summed included
 constexpr int kProductBatch = 4;   // diagonals whose loads a thread issues together
 constexpr int kProductBlocks = 2;  // most blocks an SM of the persistent grid
+constexpr int kSlotBatch = 16;     // slots a thread of v2's last block loads together
 static_assert(kProductStages >= 2 && kProductBatch % 4 == 0, "product shape");
+constexpr int kProductWarps = kProductThreads / 32;
+
+// What a staged launch computes: the product, or a half-step whose sum of
+// squares stops at the per-tile slots (v3) or is added up by the last block
+// (v2).
+constexpr int kPlain = 0, kPartials = 1, kTicketed = 2;
+
+// The half-step's operands (all null for the product): y (dim_out floats),
+// the device scalars c1 and c2, the per-tile slots, and for kTicketed the
+// ticket (0 on entry, left 0) and the result.
+struct StepArgs {
+  const float* y;
+  const float* c1;
+  const float* c2;
+  float* partial;
+  unsigned int* ticket;
+  float* ssq;
+};
 
 // A stage: nd rows of L = T + V stripe elements (V = 16 bytes' worth) and
 // the vector window (T + lo + hi floats and up to 3 in front, rounded up to
-// 4); kProductStages of them, then two ints a diagonal (nd rounded up to 4
-// each): the offsets in the direction taken and the rows' phases. T is a
-// multiple of 16, so every part starts on the 16-byte grid.
+// 4), and for a half-step T floats of y; kProductStages of them, then two
+// ints a diagonal (nd rounded up to 4 each): the offsets in the direction
+// taken and the rows' phases; a half-step then keeps two tiles' warp sums
+// (2 kProductWarps floats). T is a multiple of 16, so every part starts on
+// the 16-byte grid.
 struct ProductLayout {
   long long L, LX, stage, bytes;
   int nd4;
-  __host__ __device__ ProductLayout(int nd, int lo, int hi, int T, int esize) {
+  __host__ __device__ ProductLayout(int nd, int lo, int hi, int T, int esize, bool step = false) {
     L = static_cast<long long>(T) + 16 / esize;
     LX = round_up(static_cast<long long>(T) + lo + hi + 3, 4);
-    stage = static_cast<long long>(nd) * L * esize + LX * 4;
+    stage = static_cast<long long>(nd) * L * esize + LX * 4 + (step ? 4LL * T : 0LL);
     nd4 = static_cast<int>(round_up(nd, 4));
-    bytes = kProductStages * stage + 8LL * nd4;
+    bytes = kProductStages * stage + 8LL * nd4 + (step ? 8LL * kProductWarps : 0LL);
   }
 };
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// v summed over the warp's lanes in a fixed tree; lane 0 holds the sum.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// A tile's warp sums, in warp order.
+__device__ __forceinline__ float warps_total(const float* w) {
+  float t = w[0];
+#pragma unroll
+  for (int i = 1; i < kProductWarps; ++i) t += w[i];
+  return t;
+}
 
 // The place in 16 bytes of diagonal d's element c0 + s_d (s_d = kk_d on the
 // column side, else 0), from cb = tile_phase(ph, c0) and either s_d (Uniform:
@@ -94,15 +165,17 @@ __device__ __forceinline__ int piece_shift(int cb, int kk, int pq, int column) {
 }
 
 // Stage the tile of outputs [c0, c0 + T) into `buf` (no commit). [lim_lo,
-// lim_hi): the stripe allocation's elements relative to rows.
-template <typename S, bool Uniform>
+// lim_hi): the stripe allocation's elements relative to rows. A half-step
+// also stages y's rows of the tile.
+template <typename S, bool Uniform, bool Step = false>
 __device__ __forceinline__ void product_stage(unsigned char* buf, const ProductLayout& lay,
                                               const S* __restrict__ rows, long long stride,
                                               long long lim_lo, long long lim_hi, int ph,
                                               const int* kk, const int* pq,
                                               const float* __restrict__ vec, int nd,
                                               long long dim_out, long long dim_in, int lo,
-                                              int hi, int T, long long c0, int column) {
+                                              int hi, int T, long long c0, int column,
+                                              const float* __restrict__ y = nullptr) {
   constexpr int V = 16 / sizeof(S);
   const int len = static_cast<int>(dim_out - c0 < T ? dim_out - c0 : T);
   const int P = static_cast<int>(lay.L / V);  // 16-byte pieces a row holds
@@ -125,24 +198,43 @@ __device__ __forceinline__ void product_stage(unsigned char* buf, const ProductL
       cp_async16(xs + q, vec + xa - shx + q);
     }
   }
+  if constexpr (Step) {
+    float* const ys = xs + lay.LX;
+    for (int q = threadIdx.x * 4; q < len; q += blockDim.x * 4) cp_async16(ys + q, y + c0 + q);
+  }
+}
+
+// A vector element as the sum takes it: times c1 in a half-step.
+template <bool Step>
+__device__ __forceinline__ float scaled(float x, float c1) {
+  if constexpr (Step) {
+    return x * c1;
+  } else {
+    return x;
+  }
 }
 
 // Sum the staged tile [c0, c0 + T) into out: R outputs a thread,
-// kProductThreads apart, from +0, the diagonals in offset order.
-template <typename S, int R, bool Uniform>
-__device__ __forceinline__ void product_sum(const unsigned char* buf, const ProductLayout& lay,
-                                            int ph, const int* kk, const int* pq, int nd,
-                                            float* __restrict__ out, long long dim_out,
-                                            long long dim_in, int lo, int hi, int T,
-                                            long long c0, int column) {
+// kProductThreads apart, from +0 (a half-step: from (-c2) y), the diagonals
+// in offset order. Returns the sum of this thread's outputs squared in a
+// half-step (in the order it stores them), else 0.
+template <typename S, int R, bool Uniform, typename O = float, bool Step = false>
+__device__ __forceinline__ float product_sum(const unsigned char* buf, const ProductLayout& lay,
+                                             int ph, const int* kk, const int* pq, int nd,
+                                             O* __restrict__ out, long long dim_out,
+                                             long long dim_in, int lo, int hi, int T,
+                                             long long c0, int column, float c1 = 0.0f,
+                                             float c2 = 0.0f) {
   constexpr int V = 16 / sizeof(S);
   constexpr int kS = kProductThreads;
   constexpr int B = kProductBatch;
   const S* const st = reinterpret_cast<const S*>(buf);
   const float* const xs = reinterpret_cast<const float*>(buf + nd * lay.L * sizeof(S));
+  const float* const ys = xs + lay.LX;  // a half-step's y
   const long long xa = c0 - lo > 0 ? c0 - lo : 0;
   const int cb = tile_phase<V, Uniform>(ph, c0);
   const int nb = nd / B * B;  // diagonals taken in whole batches
+  float ssq = 0.0f;
   for (int g = 0; g < T; g += kS * R) {
     const int t0 = g + threadIdx.x;  // this thread's outputs c0 + t0 + kS q
     const long long i0 = c0 + t0;
@@ -153,6 +245,9 @@ __device__ __forceinline__ void product_sum(const unsigned char* buf, const Prod
     for (int q = 0; q < R; ++q) {
       ok[q] = t0 + q * kS < T && i0 + q * kS < dim_out;
       acc[q] = 0.0f;
+      if constexpr (Step) {
+        if (ok[q]) acc[q] = (-c2) * ys[t0 + q * kS];
+      }
     }
     if (ok[R - 1] && i0 >= lo && i0 + (R - 1) * kS + hi < dim_in) {
       for (int d = 0; d < nb; d += B) {
@@ -182,7 +277,7 @@ __device__ __forceinline__ void product_sum(const unsigned char* buf, const Prod
 #pragma unroll
         for (int q = 0; q < R; ++q) {
 #pragma unroll
-          for (int b = 0; b < B; ++b) acc[q] += sv[q][b] * xv[q][b];
+          for (int b = 0; b < B; ++b) acc[q] += sv[q][b] * scaled<Step>(xv[q][b], c1);
         }
       }
       for (int d = nb; d < nd; ++d) {
@@ -190,7 +285,9 @@ __device__ __forceinline__ void product_sum(const unsigned char* buf, const Prod
         const S* sd = st + d * lay.L + t0 +
                       piece_shift<V, Uniform>(cb, k, Uniform ? 0 : pq[d], column);
 #pragma unroll
-        for (int q = 0; q < R; ++q) acc[q] += lds(sd + q * kS) * xb[q * kS + k];
+        for (int q = 0; q < R; ++q) {
+          acc[q] += lds(sd + q * kS) * scaled<Step>(xb[q * kS + k], c1);
+        }
       }
     } else {
       for (int d = 0; d < nd; ++d) {
@@ -200,32 +297,46 @@ __device__ __forceinline__ void product_sum(const unsigned char* buf, const Prod
 #pragma unroll
         for (int q = 0; q < R; ++q) {
           const long long src = i0 + q * kS + k;
-          if (ok[q] && src >= 0 && src < dim_in) acc[q] += lds(sd + q * kS) * xb[q * kS + k];
+          if (ok[q] && src >= 0 && src < dim_in) {
+            acc[q] += lds(sd + q * kS) * scaled<Step>(xb[q * kS + k], c1);
+          }
         }
       }
     }
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      if (ok[q]) out[i0 + q * kS] = acc[q];
+      if (ok[q]) {
+        put(out + i0 + q * kS, acc[q]);
+        if constexpr (Step) ssq += acc[q] * acc[q];
+      }
     }
   }
+  return ssq;
 }
 
 // lo, hi: the halos of the direction taken. Each iteration waits for its
 // tile's copies, synchronises (so every thread has also left the tile
 // before, whose stage the next copies reuse), stages the tile
-// kProductStages - 1 ahead and sums its own: one barrier a tile.
-template <typename S, int R, bool Uniform>
+// kProductStages - 1 ahead and sums its own: one barrier a tile. A
+// half-step's thread 0 writes the tile before's slot after that barrier.
+template <typename S, int R, bool Uniform, typename O = float, int Step = kPlain>
 __global__ void __launch_bounds__(kProductThreads) dia_product_staged_kernel(
     const S* __restrict__ rows, long long stride, long long lim_lo, long long lim_hi,
-    const float* __restrict__ vec, float* __restrict__ out, const int* __restrict__ offsets,
+    const float* __restrict__ vec, O* __restrict__ out, const int* __restrict__ offsets,
     int nd, long long dim_out, long long dim_in, int lo, int hi, int T, long long tiles,
-    int column) {
+    int column, StepArgs step) {
   constexpr int V = 16 / sizeof(S);
+  constexpr bool kStep = Step != kPlain;
   extern __shared__ __align__(16) unsigned char smem[];
-  const ProductLayout lay(nd, lo, hi, T, sizeof(S));
+  const ProductLayout lay(nd, lo, hi, T, sizeof(S), kStep);
   int* const kk = reinterpret_cast<int*>(smem + kProductStages * lay.stage);
   int* const pq = kk + lay.nd4;
+  float* const red = reinterpret_cast<float*>(pq + lay.nd4);  // a half-step's warp sums
+  float c1 = 0.0f, c2 = 0.0f;
+  if constexpr (kStep) {
+    c1 = __ldg(step.c1);
+    c2 = __ldg(step.c2);
+  }
   const unsigned long long r0 = reinterpret_cast<uintptr_t>(rows) / sizeof(S);
   for (int d = threadIdx.x; d < nd; d += blockDim.x) {
     const int k = __ldg(offsets + d);
@@ -241,8 +352,9 @@ __global__ void __launch_bounds__(kProductThreads) dia_product_staged_kernel(
   for (int s = 0; s < kProductStages - 1; ++s) {
     const long long tile = blockIdx.x + s * grid;
     if (tile < tiles) {
-      product_stage<S, Uniform>(smem + s * lay.stage, lay, rows, stride, lim_lo, lim_hi, ph,
-                                kk, pq, vec, nd, dim_out, dim_in, lo, hi, T, tile * T, column);
+      product_stage<S, Uniform, kStep>(smem + s * lay.stage, lay, rows, stride, lim_lo, lim_hi,
+                                       ph, kk, pq, vec, nd, dim_out, dim_in, lo, hi, T, tile * T,
+                                       column, step.y);
     }
     cp_async_commit();
   }
@@ -250,26 +362,70 @@ __global__ void __launch_bounds__(kProductThreads) dia_product_staged_kernel(
   for (long long tile = blockIdx.x; tile < tiles; tile += grid, ++it) {
     cp_async_wait_group<kProductStages - 2>();  // this tile's copies
     __syncthreads();
+    if constexpr (kStep) {  // the tile before's warp sums are all in
+      if (threadIdx.x == 0 && it > 0) {
+        step.partial[tile - grid] = warps_total(red + (it - 1) % 2 * kProductWarps);
+      }
+    }
     const long long ahead = tile + (kProductStages - 1) * grid;
     if (ahead < tiles) {
-      product_stage<S, Uniform>(smem + (it + kProductStages - 1) % kProductStages * lay.stage,
-                                lay, rows, stride, lim_lo, lim_hi, ph, kk, pq, vec, nd, dim_out,
-                                dim_in, lo, hi, T, ahead * T, column);
+      product_stage<S, Uniform, kStep>(
+          smem + (it + kProductStages - 1) % kProductStages * lay.stage, lay, rows, stride,
+          lim_lo, lim_hi, ph, kk, pq, vec, nd, dim_out, dim_in, lo, hi, T, ahead * T, column,
+          step.y);
     }
     cp_async_commit();
-    product_sum<S, R, Uniform>(smem + it % kProductStages * lay.stage, lay, ph, kk, pq, nd, out,
-                               dim_out, dim_in, lo, hi, T, tile * T, column);
+    const float ssq = product_sum<S, R, Uniform, O, kStep>(
+        smem + it % kProductStages * lay.stage, lay, ph, kk, pq, nd, out, dim_out, dim_in, lo,
+        hi, T, tile * T, column, c1, c2);
+    if constexpr (kStep) {
+      const float w = warp_sum(ssq);
+      if ((threadIdx.x & 31) == 0) red[it % 2 * kProductWarps + threadIdx.x / 32] = w;
+    }
   }
   cp_async_wait_group<0>();  // the empty groups of the last steps
+  if constexpr (kStep) {
+    __syncthreads();  // the last tile's warp sums
+    if (threadIdx.x == 0 && it > 0) {
+      step.partial[blockIdx.x + (it - 1) * grid] = warps_total(red + (it - 1) % 2 * kProductWarps);
+    }
+  }
+  if constexpr (Step == kTicketed) {
+    __shared__ bool last;
+    if (threadIdx.x == 0) {
+      __threadfence();  // this block's slots are visible before the ticket counts them
+      last = atomicAdd(step.ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    float acc = 0.0f;  // slots threadIdx.x + kProductThreads j, j = 0, 1, ... in order
+    for (long long b0 = threadIdx.x; b0 < tiles; b0 += kSlotBatch * kProductThreads) {
+      float p[kSlotBatch];
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {  // from L2: other blocks wrote the slots
+        const long long b = b0 + static_cast<long long>(j) * kProductThreads;
+        p[j] = b < tiles ? __ldcg(step.partial + b) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) acc += p[j];
+    }
+    const float w = warp_sum(acc);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = w;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      *step.ssq = warps_total(red);
+      *step.ticket = 0u;  // ready for the next launch
+    }
+  }
 }
 
-template <typename S, int R, bool Uniform>
+template <typename S, int R, bool Uniform, typename O, int Step>
 int launch_product_tiles(const S* rows, long long stride, long long lim_lo, long long lim_hi,
-                         const float* vec, float* out, const int* offsets, int nd,
+                         const float* vec, O* out, const int* offsets, int nd,
                          long long dim_out, long long dim_in, int lo, int hi, int T, int column,
-                         cudaStream_t stream) {
-  const ProductLayout lay(nd, lo, hi, T, sizeof(S));
-  auto kernel = dia_product_staged_kernel<S, R, Uniform>;
+                         StepArgs step, cudaStream_t stream) {
+  const ProductLayout lay(nd, lo, hi, T, sizeof(S), Step != kPlain);
+  auto kernel = dia_product_staged_kernel<S, R, Uniform, O, Step>;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes)));
   int dev = 0, sms = 0, per_sm = 0;
@@ -286,25 +442,28 @@ int launch_product_tiles(const S* rows, long long stride, long long lim_lo, long
   const long long slots = static_cast<long long>(per_sm) * sms;
   kernel<<<static_cast<unsigned>(tiles < slots ? tiles : slots), kProductThreads, lay.bytes,
            stream>>>(rows, stride, lim_lo, lim_hi, vec, out, offsets, nd, dim_out, dim_in, lo,
-                     hi, T, tiles, column);
+                     hi, T, tiles, column, step);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S, bool Uniform>
+template <typename S, bool Uniform, typename O = float, int Step = kPlain>
 int launch_product_rows(const S* rows, long long stride, long long lim_lo, long long lim_hi,
-                        const float* vec, float* out, const int* offsets, int nd,
+                        const float* vec, O* out, const int* offsets, int nd,
                         long long dim_out, long long dim_in, int lo, int hi, int T, int column,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, StepArgs step = StepArgs{}) {
   if (T >= 4 * kProductThreads) {
-    return launch_product_tiles<S, 4, Uniform>(rows, stride, lim_lo, lim_hi, vec, out, offsets,
-                                               nd, dim_out, dim_in, lo, hi, T, column, stream);
+    return launch_product_tiles<S, 4, Uniform, O, Step>(rows, stride, lim_lo, lim_hi, vec, out,
+                                                        offsets, nd, dim_out, dim_in, lo, hi, T,
+                                                        column, step, stream);
   }
   if (T >= 2 * kProductThreads) {
-    return launch_product_tiles<S, 2, Uniform>(rows, stride, lim_lo, lim_hi, vec, out, offsets,
-                                               nd, dim_out, dim_in, lo, hi, T, column, stream);
+    return launch_product_tiles<S, 2, Uniform, O, Step>(rows, stride, lim_lo, lim_hi, vec, out,
+                                                        offsets, nd, dim_out, dim_in, lo, hi, T,
+                                                        column, step, stream);
   }
-  return launch_product_tiles<S, 1, Uniform>(rows, stride, lim_lo, lim_hi, vec, out, offsets,
-                                             nd, dim_out, dim_in, lo, hi, T, column, stream);
+  return launch_product_tiles<S, 1, Uniform, O, Step>(rows, stride, lim_lo, lim_hi, vec, out,
+                                                      offsets, nd, dim_out, dim_in, lo, hi, T,
+                                                      column, step, stream);
 }
 
 // The staged product in tiles of T on stripes of `count` elements (16-byte
@@ -333,6 +492,34 @@ int launch_product_staged(const void* stripes, long long count, long long stride
   }
   return launch_product_rows<S, false>(rows, stride, -base, count - base, vp, op, off, nd,
                                        dim_out, dim_in, lo_, hi_, T, column, stream);
+}
+
+// The staged half-step (Step kPartials or kTicketed) in tiles of T on packed
+// rows (nd, dim_out), 16-byte aligned, forward: out (O) = A (vec c1) - c2 y
+// and a sum of squares a tile into step.partial, which holds `slots` =
+// ceil(dim_out / T) floats (kTicketed: step.ssq their sum); lo, hi of the
+// offsets given; vec and y 16-byte aligned.
+template <typename S, typename O, int Step>
+int launch_halfstep_staged(const void* data, const void* vec, void* out, const void* offsets,
+                           int nd, long long dim_out, long long dim_in, int lo, int hi, int T,
+                           long long slots, StepArgs step, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(S);
+  if (T < 16 || T % 16 || lo < 0 || hi < 0 || !aligned16(data) || !aligned16(vec) ||
+      !aligned16(step.y) || slots != (dim_out + T - 1) / T) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dim_out == 0) return 0;
+  const auto* rows = static_cast<const S*>(data);
+  const auto* vp = static_cast<const float*>(vec);
+  auto* op = static_cast<O*>(out);
+  const auto* off = static_cast<const int*>(offsets);
+  const long long count = nd * dim_out;
+  if (dim_out % V == 0) {  // every row at row 0's 16-byte phase
+    return launch_product_rows<S, true, O, Step>(rows, dim_out, 0, count, vp, op, off, nd, dim_out,
+                                                 dim_in, lo, hi, T, 0, stream, step);
+  }
+  return launch_product_rows<S, false, O, Step>(rows, dim_out, 0, count, vp, op, off, nd, dim_out,
+                                                dim_in, lo, hi, T, 0, stream, step);
 }
 
 }  // namespace

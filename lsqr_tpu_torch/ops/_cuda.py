@@ -60,13 +60,16 @@ _SIGNATURES = {
        for s in ("f32", "bf16", "bf16_f32out")},
     # data, vec, y, c1, c2, out, partial, ticket, ssq, offsets, nd, dim_out,
     # dim_in, slots, stream
-    **{f"lsqr_dia_fused_halfstep_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
-                                        _I, _P)
-       for s in ("f32", "v2_f32", "v2_bf16")},
+    "lsqr_dia_fused_halfstep_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
+                                    _P),
+    # the same, then lo, hi, T (0: the direct kernel), stream
+    **{f"lsqr_dia_fused_halfstep_v2_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
+                                           _I, _I, _I, _I, _P)
+       for s in ("f32", "bf16")},
     # data, vec, y, c1, c2, out, partial, offsets, nd, dim_out, dim_in, slots,
-    # stream
+    # lo, hi, T, stream
     **{f"lsqr_dia_fused_halfstep_v3_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
-                                           _P)
+                                           _I, _I, _I, _P)
        for s in ("f32", "bf16")},
     # data, vec, y, c1, c2, u, z, offsets, nd, m, n, lo, hi, T, stream
     **{f"lsqr_dia_pair_{s}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P)

@@ -16,10 +16,10 @@ dia_matvec                 A x, packed (f32, f64, bf16)       csrc/dia_packed.cu
                                                               dia_product_staged.cuh
 dia_matvec_axpy            A(win*c1) - c2*y, packed           csrc/dia_packed.cu
 dia_fused_halfstep         as dia_matvec_axpy, and sum(out^2) csrc/dia_packed.cu
-dia_fused_halfstep_v2      the same in f32 or bf16, the sum   csrc/dia_packed.cu
-                           reduced in the launch
-dia_fused_halfstep_v3      the same, one partial sum per      csrc/dia_packed.cu
-                           block, added by the wrapper
+dia_fused_halfstep_v2      the same in f32 or bf16, the sum   csrc/dia_packed.cu,
+                           reduced in the launch              dia_product_staged.cuh
+dia_fused_halfstep_v3      the same, the partial sums added   csrc/dia_packed.cu,
+                           by the wrapper                     dia_product_staged.cuh
 dia_pair                   the pair on packed stripes         csrc/dia_packed.cu,
                                                               dia_pair_staged.cuh
 zdia_pair                  the complex pair on two stripe     csrc/zdia.cu
@@ -92,6 +92,8 @@ __all__ = [
     "axpy_tile",
     "product_stage_bytes",
     "product_tile",
+    "halfstep_stage_bytes",
+    "halfstep_tile",
     "mk_stage_bytes",
     "mk_tile",
     "zpair_stage_bytes",
@@ -121,6 +123,9 @@ AXPY_TILES = ((1024, 512, 256), (128, 64, 32, 16))
 #: their tiles, best first, in the half-step's two tiers
 PRODUCT_STAGES = 2
 PRODUCT_TILES = AXPY_TILES
+#: the warps of the staged product's 256-thread block (kProductWarps: the
+#: staged fused half-step keeps two tiles' warp sums)
+PRODUCT_WARPS = 8
 
 #: the megakernels' staged product phases (csrc/megakernel.cu: kMkStages,
 #: kThreads x kMkRows): tiles in shared memory, the one summed included;
@@ -555,13 +560,15 @@ def _round_up(v, q):
     return -(-v // q) * q
 
 
-def _fit_tile(tiers, nbytes, per_sm, optin):
+def _fit_tile(tiers, nbytes, per_sm, optin, one_block=True):
     """A tile from ``tiers`` (lists of tiles, best first): in the first tier
     that has one, the first tile whose shared memory (``nbytes(T)``) fits
     two blocks an SM (the card keeps 1 KB a block) or, where none in the
-    tier does, the first that fits one block; 0 where no tile fits."""
+    tier does and ``one_block`` allows it, the first that fits one block; 0
+    where no tile fits."""
+    budgets = (per_sm // 2 - 1024, optin) if one_block else (per_sm // 2 - 1024,)
     for tier in tiers:
-        for budget in (per_sm // 2 - 1024, optin):
+        for budget in budgets:
             for T in tier:
                 if nbytes(T) <= budget:
                     return T
@@ -619,6 +626,38 @@ def product_tile(nd, lo, hi, esize, per_sm, optin):
         return 0
     return _fit_tile(PRODUCT_TILES, lambda T: product_stage_bytes(nd, lo, hi, T, esize),
                      per_sm, optin)
+
+
+def halfstep_stage_bytes(nd, lo, hi, T, esize, stages=PRODUCT_STAGES):
+    """The dynamic shared memory of the staged fused half-step
+    (:func:`dia_fused_halfstep_v2`, ``_v3``: csrc/dia_product_staged.cuh,
+    ProductLayout with a step) in tiles of T: the staged product's
+    (:func:`product_stage_bytes`) with T floats of y in each stage, and two
+    tiles' warp sums (2 PRODUCT_WARPS floats) after the offsets and
+    phases."""
+    return (product_stage_bytes(nd, lo, hi, T, esize, stages) + stages * 4 * T
+            + 8 * PRODUCT_WARPS)
+
+
+@functools.lru_cache(maxsize=None)
+def halfstep_tile(nd, lo, hi, esize, per_sm, optin):
+    """The staged fused half-step's tile on a card with ``per_sm`` bytes of
+    shared memory an SM and ``optin`` a block. bf16 stripes: the product's
+    rule (:func:`product_tile`) over :func:`halfstep_stage_bytes` and the
+    tiers of PRODUCT_TILES. f32 stripes: a tile of the first tier (at
+    least a block's 256 threads) whose stages fit two blocks an SM, else 0:
+    on the H100 at 2^20 rows the staged f32 route beat the direct kernel by
+    up to 10% or matched it within 1.2% from 11 to 53 diagonals (two blocks
+    of 256 or more), and lost to it by 12-20% at 61 and 81 (one block) and
+    by 22% with two blocks of 128 at 81 (PERF.md, ``tools/product_designs.py``).
+    0 also where no tile fits (a vector window
+    too wide: lo + hi above about 28,900 in bf16, 11,100 in f32), and the
+    two variants then take their direct kernels. Each tile writes one
+    partial sum of squares: the wrappers size the slots to ceil(m / T)."""
+    nbytes = lambda T: halfstep_stage_bytes(nd, lo, hi, T, esize)  # noqa: E731
+    if esize == 4:
+        return _fit_tile(PRODUCT_TILES[:1], nbytes, per_sm, optin, one_block=False)
+    return _fit_tile(PRODUCT_TILES, nbytes, per_sm, optin)
 
 
 def mk_stage_bytes(nd, lo, hi, T, esize, stages=MK_STAGES):
@@ -869,35 +908,28 @@ def dia_fused_halfstep(data, y, win_vec, c1, c2, *, offsets: Sequence[int],
     if not data.is_cuda:
         return dia_fused_halfstep_plain(data, y, win_vec, c1, c2, offsets=offsets,
                                         m=m, n=n)
-    return _ssq_in_launch(dia_fused_halfstep, (torch.float32,), data, y, win_vec, c1,
-                          c2, offsets, m, n, offsets_t)
-
-
-def _reduce_args(wrapper, dtypes, data, y, win_vec, c1, c2, offsets, m, n, offsets_t):
-    """The launcher, the checked arguments, ``out`` (the stripes' dtype)
-    and the partial-sum slots of a fused half-step kernel."""
-    fn = _kernel(wrapper.kernel_name, data, dtypes, offsets)
+    # one thread an output; the last block adds the blocks' partial sums in
+    # slot order
+    fn = _kernel("dia_fused_halfstep", data, (torch.float32,), offsets)
     offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
                                           offsets_t)
     out = torch.empty(m, dtype=data.dtype, device=data.device)
-    slots = min(-(-m // 256), _REDUCE_BLOCKS)
-    partial = torch.empty(slots, dtype=torch.float32, device=data.device)
-    return fn, offsets_t, c1, c2, out, partial
-
-
-def _ssq_in_launch(wrapper, dtypes, data, y, win_vec, c1, c2, offsets, m, n, offsets_t):
-    """Launch a fused half-step kernel whose last block adds the blocks'
-    partial sums in slot order (rows 7 and 8): (out, ssq)."""
-    fn, offsets_t, c1, c2, out, partial = _reduce_args(
-        wrapper, dtypes, data, y, win_vec, c1, c2, offsets, m, n, offsets_t)
     if m == 0:
         return out, torch.zeros((), dtype=torch.float32, device=data.device)
+    partial = torch.empty(min(-(-m // 256), _REDUCE_BLOCKS), dtype=torch.float32,
+                          device=data.device)
     ssq = torch.empty((), dtype=torch.float32, device=data.device)
-    _launch(wrapper, fn, data, data.data_ptr(), win_vec.data_ptr(), y.data_ptr(),
+    _launch(dia_fused_halfstep, fn, data, data.data_ptr(), win_vec.data_ptr(), y.data_ptr(),
             c1.data_ptr(), c2.data_ptr(), out.data_ptr(), partial.data_ptr(),
             _ticket(data.device).data_ptr(), ssq.data_ptr(), offsets_t.data_ptr(),
             len(offsets), m, n, partial.shape[0])
     return out, ssq
+
+
+def _halfstep_rule(data, offsets):
+    """The tile :func:`halfstep_tile` gives these stripes on their card."""
+    return halfstep_tile(len(offsets), *_halos(offsets), data.dtype.itemsize,
+                         *_smem_limits(data.device))
 
 
 def dia_fused_halfstep_v2(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
@@ -907,35 +939,65 @@ def dia_fused_halfstep_v2(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m
     ssq = sum of the unrounded out squared), for f32 or bf16 stripes: out
     in the stripes' dtype, ssq an f32 0-d tensor reduced in the same
     launch. ``ssq_out`` picks a TPU memory space in the JAX kernel; any
-    value computes the same here. On CUDA: f32 vectors."""
+    value computes the same here. On CUDA: f32 vectors, ``data`` 16-byte
+    aligned; the staged kernel in tiles of :func:`halfstep_tile` (vectors
+    off the 16-byte grid are copied), or, where no tile fits, the direct
+    kernel (one launch either way, out with the same bits)."""
     offsets = tuple(int(k) for k in offsets)
     if not data.is_cuda:
         return dia_fused_halfstep_v2_plain(data, y, win_vec, c1, c2, offsets=offsets,
                                            m=m, n=n, ssq_out=ssq_out)
-    return _ssq_in_launch(dia_fused_halfstep_v2, (torch.float32, torch.bfloat16), data, y,
-                          win_vec, c1, c2, offsets, m, n, offsets_t)
+    return _halfstep_launch(dia_fused_halfstep_v2, data, y, win_vec, c1, c2, offsets=offsets,
+                            m=m, n=n, offsets_t=offsets_t, tile=_halfstep_rule(data, offsets))
 
 
 def dia_fused_halfstep_v3(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
                           n: int, offsets_t: Optional[torch.Tensor] = None):
-    """As :func:`dia_fused_halfstep_v2`, but each block of the launch writes
-    its own partial sum of squares to a slot of its own (no ticket, no
-    block reads another's slot), and the wrapper adds the slots, as the JAX
-    wrapper adds its per-tile partials."""
+    """As :func:`dia_fused_halfstep_v2`, but the launch leaves its partial
+    sums of squares in slots of their own (no ticket, no block reads
+    another's slot), and the wrapper adds the slots with ``torch.sum``, as
+    the JAX wrapper adds its per-tile partials: one slot a tile on the
+    staged route, one a block on the direct one."""
     offsets = tuple(int(k) for k in offsets)
     if not data.is_cuda:
         return dia_fused_halfstep_v3_plain(data, y, win_vec, c1, c2, offsets=offsets,
                                            m=m, n=n)
-    fn, offsets_t, c1, c2, out, partial = _reduce_args(
-        dia_fused_halfstep_v3, (torch.float32, torch.bfloat16), data, y, win_vec, c1, c2,
-        offsets, m, n, offsets_t)
+    return _halfstep_launch(dia_fused_halfstep_v3, data, y, win_vec, c1, c2, offsets=offsets,
+                            m=m, n=n, offsets_t=offsets_t, tile=_halfstep_rule(data, offsets))
+
+
+def _halfstep_launch(wrapper, data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int,
+                     n: int, offsets_t: Optional[torch.Tensor] = None, tile: int):
+    """One launch of a fused half-step variant (``wrapper`` is
+    :func:`dia_fused_halfstep_v2` or ``_v3``) on CUDA tensors: (out, ssq).
+    The staged kernel in tiles of ``tile``, one partial sum of squares a
+    tile (ceil(m / tile) slots), or the direct kernel where ``tile`` is 0,
+    one a block (min(ceil(m / 256), _REDUCE_BLOCKS) slots). The wrappers
+    pick the tile (:func:`halfstep_tile`); a comparison of the two kernels
+    passes 0."""
+    offsets = tuple(int(k) for k in offsets)
+    fn = _kernel(wrapper.kernel_name, data, (torch.float32, torch.bfloat16), offsets)
+    offsets_t, c1, c2 = _packed_axpy_args(data, y, win_vec, c1, c2, offsets, m, n,
+                                          offsets_t)
+    if tile:
+        if data.data_ptr() % 16:
+            raise ValueError("data must be 16-byte aligned (the staged half-step copies it "
+                             "in 16-byte pieces)")
+        win_vec, y = _aligned(win_vec, y)
+    out = torch.empty(m, dtype=data.dtype, device=data.device)
     if m == 0:
         return out, torch.zeros((), dtype=torch.float32, device=data.device)
-    _launch(dia_fused_halfstep_v3, fn, data, data.data_ptr(), win_vec.data_ptr(),
-            y.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), offsets_t.data_ptr(), len(offsets), m, n,
-            partial.shape[0])
-    return out, torch.sum(partial)
+    slots = -(-m // tile) if tile else min(-(-m // 256), _REDUCE_BLOCKS)
+    partial = torch.empty(slots, dtype=torch.float32, device=data.device)
+    head = (data.data_ptr(), win_vec.data_ptr(), y.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+            out.data_ptr(), partial.data_ptr())
+    tail = (offsets_t.data_ptr(), len(offsets), m, n, slots, *_halos(offsets), tile)
+    if wrapper is dia_fused_halfstep_v3:
+        _launch(wrapper, fn, data, *head, *tail)
+        return out, torch.sum(partial)
+    ssq = torch.empty((), dtype=torch.float32, device=data.device)
+    _launch(wrapper, fn, data, *head, _ticket(data.device).data_ptr(), ssq.data_ptr(), *tail)
+    return out, ssq
 
 
 def dia_pair(data, y, win_vec, c1, c2, *, offsets: Sequence[int], m: int, n: int,

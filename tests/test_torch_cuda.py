@@ -1153,7 +1153,8 @@ def test_cuda_zdia_kernels_match_twins(rng, cuda_device, m, n, ks):
 @pytest.mark.parametrize("m,n,ks", CASES + WIDE)
 def test_cuda_fused_halfstep_variants_match_twins(rng, cuda_device, m, n, ks, storage):
     """v2 (both ssq_out values) and v3 on both stripe arrays: out in the
-    stripes' dtype, ssq of the unrounded sum, the same from run to run."""
+    stripes' dtype, ssq of the unrounded sum, the same from run to run; out
+    bit-equal to the direct kernel's (tile 0), ssq within 1e-5 of it."""
     data, _ = banded(rng, m, n, ks, np.float32, dense=False)
     Ah = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=DEV)
     A = lt.DIAOperator(data=Ah.data.to(cuda_device), tdata=Ah.tdata.to(cuda_device),
@@ -1172,15 +1173,133 @@ def test_cuda_fused_halfstep_variants_match_twins(rng, cuda_device, m, n, ks, st
                           **extra)
             again = fn(stripes, yy.to(cuda_device), vec.to(cuda_device), c1, 1.3, **kw,
                        **extra)[1]
+            direct = spmv._halfstep_launch(fn, stripes, yy.to(cuda_device),
+                                           vec.to(cuda_device), c1, 1.3, tile=0, **kw)
             torch.cuda.synchronize()
             assert out.dtype == ref_out.dtype == stripes.dtype and ssq.shape == ()
             assert rel_err(out, ref_out) < (1e-2 if storage == "bfloat16" else TOL)
             np.testing.assert_allclose(float(ssq), float(ref_ssq), rtol=1e-5)
             assert torch.equal(ssq, again)  # a fixed summation order
+            assert torch.equal(out, direct[0])
+            np.testing.assert_allclose(float(ssq), float(direct[1]), rtol=1e-5)
     suffix = "" if storage == "float32" else "[bf16]"
     counts = spmv.launch_counts(by_variant=True)
-    assert counts["dia_fused_halfstep_v2" + suffix] == 8
-    assert counts["dia_fused_halfstep_v3" + suffix] == 4
+    assert counts["dia_fused_halfstep_v2" + suffix] == 12
+    assert counts["dia_fused_halfstep_v3" + suffix] == 6
+
+
+#: the staged fused half-step's edges: m, n not multiples of 8 (every packed
+#: row at a 16-byte phase of its own, f32 and bf16), m != n both ways, m one
+#: tile of 1024 exactly, one row past it, and below one tile, 81 diagonals
+#: (bf16 tiles of 256; f32 takes the direct kernel by rule), a band past
+#: PAIR_MAX_HALO, and the ragged shape of chip_smoke.py's phase 1
+HALFSTEP_CASES = [
+    (4099, 2053, (-7, -3, 0, 1, 5)),
+    (2053, 4099, (-7, -3, 0, 1, 5)),
+    (1024, 1000, (-3, 0, 2)),
+    (1025, 1030, (-3, 0, 2)),
+    (301, 203, (-7, -3, 0, 1, 5)),
+    (3001, 2001, tuple(range(-40, 41))),
+    (5000, 4000, (-1500, -2, 0, 3, 1100)),
+    (65_536, 65_536, tuple(range(-5, 6))),
+    (300_001, 200_003, (-60, -3, 0, 5)),
+]
+
+
+def _halfstep_calls(A, v, y):
+    """(stripes, y, vector, keywords) of the fused half-step on both packed
+    arrays: data (out has m rows) and tdata (n rows, the offsets negated)."""
+    return [(A.data, y, v, dict(offsets=A.offsets, m=A.m, n=A.n, offsets_t=A.offsets_t)),
+            (A.tdata, v, y, dict(offsets=A.toffsets, m=A.n, n=A.m, offsets_t=A.toffsets_t))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,ks", HALFSTEP_CASES)
+def test_cuda_staged_fused_halfsteps_match_the_direct_kernel(rng, cuda_device, m, n, ks,
+                                                            storage):
+    """v2 and v3 through the route the wrappers take (the staged kernel in
+    tiles of halfstep_tile; f32 at 81 diagonals the direct kernel) and the
+    staged kernel forced to tiles of 256, on data and tdata: out bit-equal
+    to the direct kernel's (tile 0: one thread an output, the same order and
+    expression) and equal from run to run and for vectors off the 16-byte
+    grid (the wrapper copies them); ssq within 1e-5 of the direct kernel's
+    and the twin's, and bit-equal from run to run (one slot a tile, added in
+    a fixed order)."""
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    A = lt.dia_operator(m, n, ks, data, storage_dtype=storage, device=cuda_device)
+    v, y = (t.to(cuda_device) for t in _vectors(rng, m, n))
+    c1 = torch.tensor(0.8, device=cuda_device)
+    tile = spmv.halfstep_tile(len(ks), *spmv._halos(ks), A.data.dtype.itemsize,
+                              *spmv._smem_limits(cuda_device))
+    assert tile > 0 or (storage == "float32" and len(ks) == 81)
+    spmv.reset_launch_counts()
+    for fn in (spmv.dia_fused_halfstep_v2, spmv.dia_fused_halfstep_v3):
+        for stripes, yy, vec, kw in _halfstep_calls(A, v, y):
+            plain_kw = {k: a for k, a in kw.items() if k != "offsets_t"}
+            (out, ssq), (out2, ssq2) = (fn(stripes, yy, vec, c1, 1.3, **kw) for _ in range(2))
+            yo, vo = (torch.cat([t.new_zeros(1), t])[1:] for t in (yy, vec))
+            assert yo.data_ptr() % 16 and vo.data_ptr() % 16
+            off_out, off_ssq = fn(stripes, yo, vo, c1, 1.3, **kw)
+            d_out, d_ssq = spmv._halfstep_launch(fn, stripes, yy, vec, c1, 1.3, tile=0, **kw)
+            f_out, f_ssq = spmv._halfstep_launch(fn, stripes, yy, vec, c1, 1.3, tile=256, **kw)
+            r_out, r_ssq = spmv.dia_fused_halfstep_plain(stripes.cpu(), yy.cpu(), vec.cpu(),
+                                                         0.8, 1.3, **plain_kw)
+            torch.cuda.synchronize()
+            assert out.dtype == stripes.dtype and out.shape == r_out.shape
+            assert torch.equal(out, d_out) and torch.equal(out, f_out)
+            np.testing.assert_allclose(float(f_ssq), float(d_ssq), rtol=1e-5)
+            assert torch.equal(out, out2) and torch.equal(out, off_out)
+            assert torch.equal(ssq, ssq2) and torch.equal(ssq, off_ssq)
+            np.testing.assert_allclose(float(ssq), float(d_ssq), rtol=1e-5)
+            np.testing.assert_allclose(float(ssq), float(r_ssq), rtol=1e-5)
+    suffix = "" if storage == "float32" else "[bf16]"
+    counts = spmv.launch_counts(by_variant=True)
+    assert counts["dia_fused_halfstep_v2" + suffix] == counts[
+        "dia_fused_halfstep_v3" + suffix] == 10
+    assert sum(spmv.launch_counts().values()) == 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_fused_halfsteps_take_the_staged_route_at_the_main_shape(cuda_device, storage):
+    """At chip_smoke.py's main shape (m = n = 2^23, offsets -5..5) both
+    variants take the staged kernel in tiles of 1024 (one slot a tile:
+    8192), and out is bit-equal to the direct kernel's."""
+    m, ks = 2 ** 23, tuple(range(-5, 6))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((len(ks), m), generator=g, device=cuda_device)
+    y, v = (torch.randn(m, generator=g, device=cuda_device) for _ in range(2))
+    A = lt.dia_operator_device(m, m, ks, data, storage_dtype=getattr(torch, storage))
+    assert spmv._halfstep_rule(A.data, ks) == 1024
+    kw = dict(offsets=ks, m=m, n=m, offsets_t=A.offsets_t)
+    for fn in (spmv.dia_fused_halfstep_v2, spmv.dia_fused_halfstep_v3):
+        out, ssq = fn(A.data, y, v, 0.8, 1.1, **kw)
+        d_out, d_ssq = spmv._halfstep_launch(fn, A.data, y, v, 0.8, 1.1, tile=0, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, d_out)
+        np.testing.assert_allclose(float(ssq), float(d_ssq), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_staged_fused_halfsteps_refuse_unaligned_stripes(rng, cuda_device):
+    """The staged half-step copies the stripes in 16-byte pieces: stripes off
+    the grid are refused (the vectors are copied instead), and the direct
+    kernel (tile 0) takes them."""
+    m, n, ks = 300, 300, (-1, 0, 1)
+    data, _ = banded(rng, m, n, ks, np.float32, dense=False)
+    big = torch.zeros(data.size + 1, device=cuda_device)
+    big[1:] = torch.from_numpy(np.ascontiguousarray(data)).reshape(-1).to(cuda_device)
+    off = big[1:].view(len(ks), m)
+    v, y = (t.to(cuda_device) for t in _vectors(rng, m, n))
+    kw = dict(offsets=ks, m=m, n=n)
+    for fn in (spmv.dia_fused_halfstep_v2, spmv.dia_fused_halfstep_v3):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(off, y, v, 1.0, 1.0, **kw)
+        got = spmv._halfstep_launch(fn, off, y, v, 1.0, 1.0, tile=0, **kw)
+        ref = fn(off.clone(), y, v, 1.0, 1.0, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0])
 
 
 @pytest.mark.cuda

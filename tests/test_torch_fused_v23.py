@@ -133,3 +133,61 @@ def test_variants_take_the_twins_on_the_cpu_and_are_counted(rng):
                    spmv.dia_fused_halfstep_v3_plain)]
     for out, ssq in t[1:]:
         assert torch.equal(out, t[0][0]) and torch.equal(ssq, t[0][1])
+
+
+#: (shared memory an SM, the most one block may opt in to) of the H100
+H100_SMEM = (233_472, 232_448)
+
+
+@pytest.mark.parametrize("nd,lo,hi,T,esize,nbytes", [
+    # the main band, f32: 2 x (11 x 1028 x 4 + 1040 x 4 + 1024 x 4) + 8 x 12 + 64
+    (11, 5, 5, 1024, 4, 107_136),
+    (11, 5, 5, 1024, 2, 62_080),     # bf16 rows of 1032: 2 x (22,704 + 8,256) + 96 + 64
+    (81, 40, 40, 256, 4, 173_984),   # 2 x (81 x 260 x 4 + 340 x 4 + 1,024) + 672 + 64
+    (81, 40, 40, 256, 2, 91_040),    # 2 x (81 x 264 x 2 + 1,360 + 1,024) + 672 + 64
+    (1024, 0, 0, 16, 4, 172_384),    # 2 x (1024 x 20 x 4 + 20 x 4 + 64) + 8,192 + 64
+    (1024, 0, 0, 16, 2, 106_848),    # 2 x (1024 x 24 x 2 + 80 + 64) + 8,192 + 64
+    (3, 1500, 1500, 1024, 4, 65_184),  # 2 x (3 x 1028 x 4 + 4028 x 4 + 4,096) + 32 + 64
+])
+def test_halfstep_stage_bytes(nd, lo, hi, T, esize, nbytes):
+    """The staged fused half-step's shared memory (csrc/dia_product_staged.cuh:
+    ProductLayout with a step): the staged product's stages with T floats of
+    y in each, the offsets and phases (two ints a diagonal, nd rounded up to
+    4), and two tiles' warp sums (2 x 8 floats)."""
+    assert spmv.PRODUCT_STAGES == 2 and spmv.PRODUCT_WARPS == 8
+    assert spmv.halfstep_stage_bytes(nd, lo, hi, T, esize) == nbytes
+    assert nbytes == spmv.product_stage_bytes(nd, lo, hi, T, esize) + 2 * 4 * T + 64
+
+
+@pytest.mark.parametrize("nd,lo,hi,esize,tile", [
+    (11, 5, 5, 4, 1024),     # the main band: two blocks an SM (107 KB)
+    (11, 5, 5, 2, 1024),     # (62 KB)
+    (21, 10, 10, 4, 512),
+    (53, 5, 5, 4, 256),      # f32: the most diagonals with two blocks of 256
+    (54, 5, 5, 4, 0),        # f32: one block of 256 would fit: the direct kernel
+    (81, 40, 40, 4, 0),
+    (81, 40, 40, 2, 256),    # bf16: two blocks (91 KB)
+    (3, 1500, 1500, 4, 1024),  # a halo past PAIR_MAX_HALO
+    (700, 0, 0, 4, 0),
+    (700, 0, 0, 2, 16),      # bf16: two blocks of 16 before one of 32
+    (1024, 0, 0, 2, 16),     # bf16: the most diagonals the kernels take still get a tile
+    (11, 5_530, 5_530, 4, 256),
+    (11, 5_540, 5_540, 4, 0),  # f32: no window fits two blocks of 256
+    (11, 14_430, 14_430, 2, 16),
+    (11, 14_440, 14_440, 2, 0),  # bf16: no window fits one block of 16
+])
+def test_halfstep_tile(nd, lo, hi, esize, tile):
+    """The staged fused half-step's tile on the H100. bf16: the product's
+    rule over its own bytes (the largest tile of 1024, 512, 256 whose two
+    stages fit two blocks an SM, else one block, else the same with 128 down
+    to 16). f32: only a tile of 1024, 512, 256 that fits two blocks an SM.
+    0 elsewhere, and v2 and v3 then take their direct kernels."""
+    assert spmv.halfstep_tile(nd, lo, hi, esize, *H100_SMEM) == tile
+    two_blocks = H100_SMEM[0] // 2 - 1024
+    if tile:
+        assert spmv.halfstep_stage_bytes(nd, lo, hi, tile, esize) <= (
+            two_blocks if esize == 4 else H100_SMEM[1])
+    elif esize == 4:
+        assert spmv.halfstep_stage_bytes(nd, lo, hi, 256, esize) > two_blocks
+    else:
+        assert spmv.halfstep_stage_bytes(nd, lo, hi, 16, esize) > H100_SMEM[1]

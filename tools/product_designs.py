@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Designs of the staged DIA product (``dia_matvec`` and
-``dia_product_shared``, csrc/dia_product_staged.cuh), and their times
-against the parent's, on one card.
+``dia_product_shared``, csrc/dia_product_staged.cuh) and of the staged
+fused half-step that shares its kernel (``dia_fused_halfstep_v2`` and
+``_v3``), and their times against the parent's, on one card.
 
     python3 tools/product_designs.py designs [--reps N] [--out FILE]
     python3 tools/product_designs.py times ROOT [ROOT ...] [--reps N] [--out FILE]
@@ -11,35 +12,50 @@ phase 1's stripes, seed 0) and its 81-diagonal band (``chip_smoke.MANY``,
 2^20, phase 4's stripes, seed 104), f32 and bf16 stripes, and at each every
 call of the two products (``chip_smoke.product_calls``): the shared forward
 and ``[adjoint]``, the packed data forward, ``[t]`` on tdata and
-``[column]``, data's column side.
+``[column]``, data's column side; and the two half-step variants on
+packed data (out = A (v c1) - c2 y, ssq).
 
 ``designs`` writes one source per design into ``build/product_designs/``
 (the shipped header with a constant or a function replaced, and the staged
-launcher's C entries), builds them all at once with nvcc (the library's
+launchers' C entries), builds them all at once with nvcc (the library's
 flags) and times each with ``chip_smoke.time_ms`` after holding its result
-to the shipped build's bit for bit (every design sums in the same order).
-The designs:
+(a half-step's out) to the shipped build's bit for bit (every design sums
+in the same order; a half-step's ssq, whose grouping a design may change,
+is logged against the shipped one's). The designs:
 
 * ``T``: the shipped build at other tiles than the rule's
-  (``product_tile``), and the direct kernel (T = 0, the parent's design:
-  one thread an output);
+  (``product_tile``, ``halfstep_tile``), and the direct kernel (T = 0, the
+  parent's design: one thread an output);
 * ``stages S``: S tiles in shared memory (``kProductStages``);
-* ``blocks P``: at most P blocks an SM (``kProductBlocks``; 32: as many as
-  fit);
+* ``blocks P``: at most P blocks an SM (``kProductBlocks``; 32: as many
+  as fit);
 * ``threads 128``: blocks of 128 threads (``kProductThreads``), at most four
   an SM;
 * ``batch 8``: 8 diagonals' loads issued together (``kProductBatch``);
 * ``table``: every side through the per-diagonal phase table, also where
   all rows share one 16-byte phase (``UNIFORM_LINE`` never taken);
-* ``bulk``: each stage by 1-D bulk copies (TMA) that one thread issues and
-  an mbarrier counts, instead of 16-byte cp.async copies (``BULK`` below).
+* ``slot batch 1``: v2's last block loads the slots one at a time
+  (``kSlotBatch``; the half-step's first design);
+* ``block partials``: a half-step's sum of squares in one slot a block
+  (each thread's squares over all its tiles, one block sum at the end)
+  instead of one a tile (``BLOCK_PARTIALS`` below; its bits follow the
+  grid).
+
+Then the half-step's band sweep (``BANDS``): at 2^20 rows and 11 to 121
+diagonals, f32 and bf16, v2 and v3 through the shipped build at each tile
+of 1024, 512, 256 that fits against the direct kernel (the sweep behind
+``halfstep_tile``'s f32 rule).
+
+The ``bulk`` design (TMA stages: 3% faster at 11 diagonals in f32, 1.7-2x
+slower at 81; PERF.md) is no longer built.
 
 ``times`` runs each ROOT (a checkout; to compare a commit with its parent,
 ``git archive <parent> | tar -x -C build/parent`` and pass
 ``build/parent . . build/parent``) in a process of its own: every call at
 the shapes above through each checkout's wrappers, the kernels of rows 1,
 3 and 4 that share their sources (``dia_pair_shared``, both directions of
-``dia_product_shared_axpy``, ``dia_pair``) at the main band, and the solves that
+``dia_product_shared_axpy``, ``dia_pair``) and rows 8 and 9 (v2 and v3 on
+packed data, out and ssq) at the main band, and the solves that
 launch the products each iteration: phase 7's 2^23 f32 packed LSQR with
 ``fused=False`` (phase 2's stripes, seed 100, +12 on the diagonal), phase
 10's regular ``cgls`` on the same packed operator, and phase 17's 2^21 ZDIA
@@ -69,8 +85,8 @@ HEADER = "dia_product_staged.cuh"
 
 #: the tiles timed on the shipped build
 PRODUCT_TS = (2048, 1024, 512, 256, 128, 64)
-#: (design, {constant: value} of the header); a "bulk" value replaces the
-#: stage; "blocks 32" lets as many blocks an SM run as fit
+#: (design, {constant: value} of the header); "blocks 32" lets as many
+#: blocks an SM run as fit; "table" and "block partials" patch functions
 VARIANTS = [
     ("stages 3", {"kProductStages": 3}),
     ("blocks 1", {"kProductBlocks": 1}),
@@ -79,8 +95,16 @@ VARIANTS = [
     ("threads 128", {"kProductThreads": 128, "kProductBlocks": 4}),
     ("batch 8", {"kProductBatch": 8}),
     ("table", {"table": True}),
-    ("bulk", {"bulk": True}),
+    ("slot batch 1", {"kSlotBatch": 1}),
+    ("block partials", {"block partials": True}),
 ]
+#: the designs that change only the half-step (the product's times under
+#: them would repeat the shipped build's)
+HALFSTEP_ONLY = ("slot batch 1", "block partials")
+#: the half-step's band sweep at 2^20 rows (offsets -nd//2 .. nd//2): the
+#: shipped build at every tile of the first tier that fits one block
+#: against the direct kernel, f32 and bf16 (where the staged route pays)
+BANDS = (11, 21, 31, 41, 53, 61, 81, 121)
 #: the staged launcher's choice of the kernel without the phase table
 UNIFORM_LINE = "  if (stride % V == 0) {  // every row at row 0's 16-byte phase\n"
 
@@ -105,131 +129,66 @@ int design_product_bf16(const void* stripes, long long count, long long stride,
                                               offsets, nd, dim_out, dim_in, column, lo, hi,
                                               T, static_cast<cudaStream_t>(stream));
 }
+#define DESIGN_HALFSTEP(SUFFIX, S)                                                          \
+  int design_halfstep_v2_##SUFFIX(const void* data, const void* vec, const void* y,         \
+                                  const void* c1, const void* c2, void* out, void* partial, \
+                                  void* ticket, void* ssq, const void* offsets, int nd,     \
+                                  long long dim_out, long long dim_in, int slots, int lo,   \
+                                  int hi, int T, void* stream) {                            \
+    const StepArgs step{static_cast<const float*>(y), static_cast<const float*>(c1),        \
+                        static_cast<const float*>(c2), static_cast<float*>(partial),        \
+                        static_cast<unsigned int*>(ticket), static_cast<float*>(ssq)};      \
+    return launch_halfstep_staged<S, S, kTicketed>(data, vec, out, offsets, nd, dim_out,    \
+                                                   dim_in, lo, hi, T, slots, step,          \
+                                                   static_cast<cudaStream_t>(stream));      \
+  }                                                                                         \
+  int design_halfstep_v3_##SUFFIX(const void* data, const void* vec, const void* y,         \
+                                  const void* c1, const void* c2, void* out, void* partial, \
+                                  const void* offsets, int nd, long long dim_out,           \
+                                  long long dim_in, int slots, int lo, int hi, int T,       \
+                                  void* stream) {                                           \
+    const StepArgs step{static_cast<const float*>(y), static_cast<const float*>(c1),        \
+                        static_cast<const float*>(c2), static_cast<float*>(partial),        \
+                        nullptr, nullptr};                                                  \
+    return launch_halfstep_staged<S, S, kPartials>(data, vec, out, offsets, nd, dim_out,    \
+                                                   dim_in, lo, hi, T, slots, step,          \
+                                                   static_cast<cudaStream_t>(stream));      \
+  }
+DESIGN_HALFSTEP(f32, float)
+DESIGN_HALFSTEP(bf16, __nv_bfloat16)
 }
 """
 
-#: the bulk design: product_stage replaced by one that thread 0 runs, one
-#: bulk copy a diagonal (its pieces inside the stripe allocation), one for
-#: the window, all counted in bytes by the stage's mbarrier; the kernel
-#: waits on the mbarrier instead of the cp.async groups (BULK_KERNEL)
-BULK_STAGE = r"""
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
-}
-__device__ __forceinline__ void bar_expect(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-__device__ __forceinline__ void bulk(void* dst, const void* src, unsigned bytes,
-                                     unsigned long long* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
-               "r"(smem_u32(bar)) : "memory");
-}
-
-template <typename S, bool Uniform>
-__device__ void product_stage_bulk(unsigned char* buf, const ProductLayout& lay,
-                                   const S* __restrict__ rows, long long stride,
-                                   long long lim_lo, long long lim_hi, int ph, const int* kk,
-                                   const int* pq, const float* __restrict__ vec, int nd,
-                                   long long dim_out, long long dim_in, int lo, int hi, int T,
-                                   long long c0, int column, unsigned long long* bar) {
-  constexpr int V = 16 / sizeof(S);
-  const int len = static_cast<int>(dim_out - c0 < T ? dim_out - c0 : T);
-  const int cb = tile_phase<V, Uniform>(ph, c0);
-  const long long xa = c0 - lo > 0 ? c0 - lo : 0;
-  const long long xb = c0 + len + hi < dim_in ? c0 + len + hi : dim_in;
-  const int shx = static_cast<int>(xa & 3);
-  unsigned total = xa < xb ? static_cast<unsigned>((shx + (xb - xa) + 3) / 4) * 16u : 0u;
-  // each diagonal's pieces [q0, q1) of V elements inside [lim_lo, lim_hi)
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int d = 0; d < nd; ++d) {
-      const int sh = piece_shift<V, Uniform>(cb, kk[d], Uniform ? 0 : pq[d], column);
-      const long long g0 = d * stride + c0 + (column ? kk[d] : 0) - sh;
-      long long q0 = 0, q1 = (sh + len + V - 1) / V;
-      if (g0 < lim_lo) q0 = (lim_lo - g0) / V;
-      if (g0 + q1 * V > lim_hi) q1 = (lim_hi - g0 + V - 1) / V;
-      if (q0 >= q1) continue;
-      if (pass == 0) {
-        total += static_cast<unsigned>(q1 - q0) * 16u;
-      } else {
-        bulk(reinterpret_cast<S*>(buf) + d * lay.L + q0 * V, rows + g0 + q0 * V,
-             static_cast<unsigned>(q1 - q0) * 16u, bar);
+#: the block-partials design: (shipped text, replacement) pairs of the
+#: staged kernel: no slot a tile, each thread's squares over all its tiles,
+#: one block sum into slot blockIdx.x, and v2's last block adds gridDim.x
+#: slots
+BLOCK_PARTIALS = [
+    ("""    if constexpr (kStep) {  // the tile before's warp sums are all in
+      if (threadIdx.x == 0 && it > 0) {
+        step.partial[tile - grid] = warps_total(red + (it - 1) % 2 * kProductWarps);
       }
     }
-    if (pass == 0) bar_expect(bar, total);
-  }
-  float* const xs = reinterpret_cast<float*>(buf + nd * lay.L * sizeof(S));
-  if (xa < xb) bulk(xs, vec + xa - shx, static_cast<unsigned>((shx + (xb - xa) + 3) / 4) * 16u,
-                    bar);
-}
-"""
-
-BULK_KERNEL = r"""
-template <typename S, int R, bool Uniform>
-__global__ void __launch_bounds__(kProductThreads) dia_product_staged_kernel(
-    const S* __restrict__ rows, long long stride, long long lim_lo, long long lim_hi,
-    const float* __restrict__ vec, float* __restrict__ out, const int* __restrict__ offsets,
-    int nd, long long dim_out, long long dim_in, int lo, int hi, int T, long long tiles,
-    int column) {
-  constexpr int V = 16 / sizeof(S);
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ProductLayout lay(nd, lo, hi, T, sizeof(S));
-  int* const kk = reinterpret_cast<int*>(smem + kProductStages * lay.stage);
-  int* const pq = kk + lay.nd4;
-  auto* const bars = reinterpret_cast<unsigned long long*>(smem + lay.bytes);
-  const unsigned long long r0 = reinterpret_cast<uintptr_t>(rows) / sizeof(S);
-  for (int d = threadIdx.x; d < nd; d += blockDim.x) {
-    const int k = __ldg(offsets + d);
-    kk[d] = column ? -k : k;
-    const long long s = column ? -k : 0;
-    pq[d] = static_cast<int>((r0 + static_cast<unsigned long long>(d) * stride +
-                              static_cast<unsigned long long>(s)) & (V - 1));
-  }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kProductStages; ++s) bar_init(bars + s);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  const int ph = static_cast<int>(r0 & (V - 1));
-  const long long grid = gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kProductStages - 1; ++s) {
-      const long long tile = blockIdx.x + s * grid;
-      if (tile < tiles) {
-        product_stage_bulk<S, Uniform>(smem + s * lay.stage, lay, rows, stride, lim_lo, lim_hi,
-                                       ph, kk, pq, vec, nd, dim_out, dim_in, lo, hi, T,
-                                       tile * T, column, bars + s);
-      }
+""", ""),
+    ("  int it = 0;\n  for (long long tile = blockIdx.x;",
+     "  int it = 0;\n  float blk = 0.0f;\n  for (long long tile = blockIdx.x;"),
+    ("""    if constexpr (kStep) {
+      const float w = warp_sum(ssq);
+      if ((threadIdx.x & 31) == 0) red[it % 2 * kProductWarps + threadIdx.x / 32] = w;
     }
-  }
-  int it = 0;
-  for (long long tile = blockIdx.x; tile < tiles; tile += grid, ++it) {
-    bar_wait(bars + it % kProductStages, (it / kProductStages) & 1);
+""", "    if constexpr (kStep) blk += ssq;\n"),
+    ("""    __syncthreads();  // the last tile's warp sums
+    if (threadIdx.x == 0 && it > 0) {
+      step.partial[blockIdx.x + (it - 1) * grid] = warps_total(red + (it - 1) % 2 * kProductWarps);
+    }
+""", """    const float w = warp_sum(blk);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = w;
     __syncthreads();
-    const long long ahead = tile + (kProductStages - 1) * grid;
-    if (threadIdx.x == 0 && ahead < tiles) {
-      const int b = (it + kProductStages - 1) % kProductStages;
-      product_stage_bulk<S, Uniform>(smem + b * lay.stage, lay, rows, stride, lim_lo, lim_hi,
-                                     ph, kk, pq, vec, nd, dim_out, dim_in, lo, hi, T, ahead * T,
-                                     column, bars + b);
-    }
-    product_sum<S, R, Uniform>(smem + it % kProductStages * lay.stage, lay, ph, kk, pq, nd, out,
-                               dim_out, dim_in, lo, hi, T, tile * T, column);
-  }
-}
-"""
+    if (threadIdx.x == 0) step.partial[blockIdx.x] = warps_total(red);
+"""),
+    ("b0 < tiles;", "b0 < gridDim.x;"),
+    ("p[j] = b < tiles ?", "p[j] = b < gridDim.x ?"),
+]
 
 
 def yardstick():
@@ -252,8 +211,8 @@ def _replace_block(src, start, end_marker, new):
 
 
 def design_header(constants):
-    """csrc/dia_product_staged.cuh with these constants (and, for "bulk",
-    TMA stages; for "table", the phase table on every side)."""
+    """csrc/dia_product_staged.cuh with these constants (and, for "table",
+    the phase table on every side; for "block partials", BLOCK_PARTIALS)."""
     src = (CSRC / HEADER).read_text().replace(
         '#include "dia_pair_staged.cuh"', f'#include "{CSRC / "dia_pair_staged.cuh"}"')
     constants = dict(constants)
@@ -261,19 +220,11 @@ def design_header(constants):
         if src.count(UNIFORM_LINE) != 1:
             raise RuntimeError(f"csrc/{HEADER}: the launcher's uniform-phase test moved")
         src = src.replace(UNIFORM_LINE, "  if (false) {\n")
-    if constants.pop("bulk", False):
-        if src.count("template <typename S, int R, bool Uniform>\n__global__") != 1:
-            raise RuntimeError(f"csrc/{HEADER}: the staged kernel moved")
-        src = src.replace("// Sum the staged tile [c0, c0 + T) into out", BULK_STAGE
-                          + "\n// Sum the staged tile [c0, c0 + T) into out")
-        src = _replace_block(src, "template <typename S, int R, bool Uniform>\n__global__",
-                             "  cp_async_wait_group<0>();  // the empty groups of the last "
-                             "steps\n}\n", BULK_KERNEL)
-        src = src.replace("  const ProductLayout lay(nd, lo, hi, T, sizeof(S));\n"
-                          "  auto kernel = dia_product_staged_kernel<S, R, Uniform>;\n",
-                          "  ProductLayout lay(nd, lo, hi, T, sizeof(S));\n"
-                          "  lay.bytes += 8 * kProductStages;  // the mbarriers\n"
-                          "  auto kernel = dia_product_staged_kernel<S, R, Uniform>;\n")
+    if constants.pop("block partials", False):
+        for old, new in BLOCK_PARTIALS:
+            if src.count(old) != 1:
+                raise RuntimeError(f"csrc/{HEADER}: the staged kernel's sum of squares moved")
+            src = src.replace(old, new)
     for const, value in constants.items():
         line = next((ln for ln in src.splitlines()
                      if ln.startswith(f"constexpr int {const} = ")), None)
@@ -308,20 +259,25 @@ def build(out_dir):
         for s in ("f32", "bf16"):
             fn = getattr(lib, f"design_product_{s}")
             fn.argtypes = [P, L, L, L, P, P, P, I, L, L, I, I, I, I, P]
-            fn.restype = ctypes.c_int
+            v2 = getattr(lib, f"design_halfstep_v2_{s}")
+            v2.argtypes = [P] * 10 + [I, L, L, I, I, I, I, P]
+            v3 = getattr(lib, f"design_halfstep_v3_{s}")
+            v3.argtypes = [P] * 8 + [I, L, L, I, I, I, I, P]
+            for f in (fn, v2, v3):
+                f.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def stage_bytes(name, nd, lo, hi, T, esize):
-    """A design's shared memory at tile T: the rule's mirror at the design's
-    stage count, with the bulk design's mbarriers."""
+def stage_bytes(name, nd, lo, hi, T, esize, halfstep=False):
+    """A design's shared memory at tile T: the rule's mirror (the product's
+    or the half-step's) at the design's stage count."""
     from lsqr_tpu_torch.ops import spmv
 
     constants = dict(next((c for n, c in VARIANTS if n == name), {}))
     stages = constants.get("kProductStages", spmv.PRODUCT_STAGES)
-    return spmv.product_stage_bytes(nd, lo, hi, T, esize, stages) + (
-        8 * stages if constants.get("bulk") else 0)
+    mirror = spmv.halfstep_stage_bytes if halfstep else spmv.product_stage_bytes
+    return mirror(nd, lo, hi, T, esize, stages)
 
 
 def shapes(smoke):
@@ -360,15 +316,23 @@ def run_designs(reps):
     dev = torch.device("cuda")
     optin = spmv._smem_limits(dev)[1]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    res = {"times": {}, "max_abs_diff_to_shipped": {}, "tiles": {}}
+    res = {"times": {}, "max_abs_diff_to_shipped": {}, "tiles": {}, "ssq_rel_to_shipped": {}}
 
     def record(tag, fn, ref):
+        """Time fn after holding its result (a half-step's out) to ref's."""
         got = fn()
         torch.cuda.synchronize()
+        ssq = ""
+        if isinstance(ref, tuple):  # a half-step: (out, ssq)
+            rel = abs(float(got[1]) - float(ref[1])) / abs(float(ref[1]))
+            res["ssq_rel_to_shipped"][tag] = rel
+            ssq = f", ssq rel {rel:.2e}"
+            got, ref = got[0], ref[0]
         diff = smoke.absdiff(got, ref)
         res["max_abs_diff_to_shipped"][tag] = diff
         res["times"][tag] = smoke.time_ms(fn, reps)
-        smoke.log(f"  {tag:60s} {res['times'][tag]:.5f} ms  (max |diff| to shipped {diff:.3e})")
+        smoke.log(f"  {tag:60s} {res['times'][tag]:.5f} ms  (max |diff| to shipped {diff:.3e}"
+                  f"{ssq})")
         smoke.check(diff == 0.0 and torch.equal(got, ref), f"{tag}: not the shipped kernel's bits")
 
     for label, shape in shapes(smoke).items():
@@ -395,7 +359,8 @@ def run_designs(reps):
                     record(f"{side} shipped T {T}", lambda w=wrapper, s=stripes, x=vec, k=kw,
                            T=T: spmv._product_launch(w, s, x, tile=T, **k), ref)
                 for design, lib in libs.items():
-                    if stage_bytes(design, len(ks), lo, hi, rule, storage.itemsize) > optin:
+                    if design in HALFSTEP_ONLY or stage_bytes(design, len(ks), lo, hi, rule,
+                                                              storage.itemsize) > optin:
                         continue
                     entry = getattr(lib, f"design_product_{sfx}")
 
@@ -410,11 +375,95 @@ def run_designs(reps):
                             raise RuntimeError(f"CUDA error {err}")
                         return out
                     record(f"{side} {design} T {rule}", call, ref)
+            halfsteps(Ap, y, v, ks, m, label, sfx, libs, record, optin)
             del As, Ap
             torch.cuda.empty_cache()
         del data, y, v
         torch.cuda.empty_cache()
+    band_sweep(smoke, dev, record, optin)
     return res
+
+
+def band_sweep(smoke, dev, record, optin):
+    """BANDS: v2 and v3 on packed data at 2^20 rows through the shipped
+    build at each tile of the first tier that fits, held to the direct
+    kernel (the reference here), f32 and bf16."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.ops import spmv
+
+    m = smoke.MANY[0]
+    c1, c2 = torch.tensor(0.8, device=dev), torch.tensor(1.1, device=dev)
+    for nd in BANDS:
+        ks = tuple(range(-(nd // 2), nd - nd // 2))
+        data, y, g = smoke.random_stripes(m, m, ks, dev, seed=nd)
+        v = torch.randn(m, generator=g, device=dev)
+        for storage in (torch.float32, torch.bfloat16):
+            A = lt.dia_operator_device(m, m, ks, data, storage_dtype=storage)
+            kw = dict(offsets=ks, m=m, n=m, offsets_t=A.offsets_t)
+            rule = spmv._halfstep_rule(A.data, ks)
+            sfx = "" if storage == torch.float32 else "[bf16]"
+            for wrapper in (spmv.dia_fused_halfstep_v2, spmv.dia_fused_halfstep_v3):
+                side = f"{wrapper.__name__}{sfx} 2^20 x {nd} (rule's T {rule})"
+                launch = lambda w=wrapper, T=0: spmv._halfstep_launch(  # noqa: E731
+                    w, A.data, y, v, c1, c2, tile=T, **kw)
+                ref = launch()
+                record(f"{side} direct (T 0)", launch, ref)
+                for T in spmv.PRODUCT_TILES[0]:
+                    if spmv.halfstep_stage_bytes(nd, *spmv._halos(ks), T,
+                                                 storage.itemsize) <= optin:
+                        record(f"{side} shipped T {T}", lambda w=wrapper, T=T: launch(w, T), ref)
+            del A
+        del data, y, v
+        torch.cuda.empty_cache()
+
+
+def halfsteps(Ap, y, v, ks, m, label, sfx, libs, record, optin):
+    """Rows 8 and 9 (v2, v3) on packed data through ``record``: the shipped
+    build at the rule's tile (``halfstep_tile``), the direct kernel, the
+    shipped build at other tiles, each design at the rule's tile."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv
+
+    dev = Ap.data.device
+    c1, c2 = torch.tensor(0.8, device=dev), torch.tensor(1.1, device=dev)
+    kw = dict(offsets=ks, m=m, n=m, offsets_t=Ap.offsets_t)
+    lo, hi = spmv._halos(ks)
+    esize = Ap.data.dtype.itemsize
+    rule = spmv._halfstep_rule(Ap.data, ks)
+    stream = torch.cuda.current_stream().cuda_stream
+    for wrapper in (spmv.dia_fused_halfstep_v2, spmv.dia_fused_halfstep_v3):
+        v2 = wrapper is spmv.dia_fused_halfstep_v2
+        side = f"{wrapper.__name__}{'' if sfx == 'f32' else '[bf16]'} {label}"
+        shipped = lambda w=wrapper, T=rule: spmv._halfstep_launch(  # noqa: E731
+            w, Ap.data, y, v, c1, c2, tile=T, **kw)
+        ref = shipped()
+        record(f"{side} shipped, the rule's T {rule}", shipped, ref)
+        record(f"{side} direct (T 0)", lambda w=wrapper: spmv._halfstep_launch(
+            w, Ap.data, y, v, c1, c2, tile=0, **kw), ref)
+        for T in PRODUCT_TS:
+            if T != rule and spmv.halfstep_stage_bytes(len(ks), lo, hi, T, esize) <= optin:
+                record(f"{side} shipped T {T}", lambda w=wrapper, T=T: shipped(w, T), ref)
+        for design, lib in libs.items():
+            if stage_bytes(design, len(ks), lo, hi, rule, esize, halfstep=True) > optin:
+                continue
+            entry = getattr(lib, f"design_halfstep_{'v2' if v2 else 'v3'}_{sfx}")
+
+            def call(entry=entry, v2=v2):
+                out = torch.empty(m, dtype=Ap.data.dtype, device=dev)
+                partial = torch.zeros(-(-m // rule), device=dev)
+                ssq = torch.empty((), device=dev)
+                extra = (spmv._ticket(dev).data_ptr(), ssq.data_ptr()) if v2 else ()
+                err = entry(Ap.data.data_ptr(), v.data_ptr(), y.data_ptr(), c1.data_ptr(),
+                            c2.data_ptr(), out.data_ptr(), partial.data_ptr(), *extra,
+                            Ap.offsets_t.data_ptr(), len(ks), m, m, partial.shape[0], lo, hi,
+                            rule, stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+                return out, (ssq if v2 else torch.sum(partial))
+            record(f"{side} {design} T {rule}", call, ref)
 
 
 def profiled_solve(smoke, fn, args, kw):
@@ -497,6 +546,10 @@ def one(root, reps, dump):
                             As.dp, y, v, c1, c2, adjoint=True, offsets_t=As.offsets_t, **kw),
                     f"dia_pair{sfx}": lambda: spmv.dia_pair(Ap.data, y, v, c1, c2,
                                                             offsets_t=Ap.offsets_t, **kw),
+                    f"dia_fused_halfstep_v2{sfx}": lambda: spmv.dia_fused_halfstep_v2(
+                        Ap.data, y, v, c1, c2, offsets_t=Ap.offsets_t, **kw),
+                    f"dia_fused_halfstep_v3{sfx}": lambda: spmv.dia_fused_halfstep_v3(
+                        Ap.data, y, v, c1, c2, offsets_t=Ap.offsets_t, **kw),
                 })
             for name, fn in calls.items():
                 tag = f"{name} {label}"
