@@ -6,7 +6,7 @@
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
 from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
-from lsqr_tpu_torch/native with g++), then runs nineteen phases; each
+from lsqr_tpu_torch/native with g++), then runs twenty phases; each
 raises on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
@@ -157,9 +157,21 @@ raises on failure:
    band through ``scipy.io.mmwrite`` and ``from_matrix_market`` (the packed
    DIA operator) and ``lsqr_scipy`` against ``scipy.sparse.linalg.lsqr``;
    ``product_rate``; the launch profiles of the stacked and column-scaled
-   solves.
+   solves;
+20. the solves over rows on phase 2's operator: ``lsqr_multidamp`` over 8
+   damps (0 to 1.0; one pair launch an iteration for all of them) and
+   ``lsmr_multidamp`` over 4, each damp's istop, itn and x bit for bit its
+   standalone pair solve, with the sweep's launch profile (as phase 6);
+   ``lsqr_batch`` of 4 right-hand sides with their own damps, column for
+   column against ``lsqr``; at 2^20 the sweep on the plain products,
+   ``lsqr_batch`` with pair=False (the half-step), ``lsmr_batch`` and
+   ``cgls_batch`` against their standalone solves, ``reg_sweep`` with the
+   computed residual (against f64 products), ``discrepancy_damp``,
+   ``lcurve_corner`` and ``gcv_damp``, and ``lsqr_grad`` on an f64 band
+   (directional derivatives in b and in one stripe against central
+   differences).
 
-Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17 and 19 runs with the launch
+Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17, 19 and 20 runs with the launch
 counts reset just before it and read just after, and so does a direct call
 of the kernels no solver calls (the two variants of the fused half-step,
 phase 1) and the ceiling's chain (phase 18); each path must launch the
@@ -1212,11 +1224,11 @@ def phase_f64(dev, m, paths):
                                                rtol=1e-5), "README 3x3")
 
 
-def profile_run(A, b, itnlim, **extra):
-    """One fixed ``itnlim``-iteration LSQR solve under the profiler, after
-    an unprofiled one: (device events, runtime launch calls, device ms,
-    {kernel name: (events, device ms)}, {wrapper: launches it counted in
-    the profiled solve})."""
+def profile_run(A, b, itnlim, solve=None, **extra):
+    """One fixed ``itnlim``-iteration LSQR solve (or ``solve(A, b, damp,
+    **kw)``'s) under the profiler, after an unprofiled one: (device events,
+    runtime launch calls, device ms, {kernel name: (events, device ms)},
+    {wrapper: launches it counted in the profiled solve})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1225,11 +1237,12 @@ def profile_run(A, b, itnlim, **extra):
     from lsqr_tpu_torch.ops import spmv
 
     kw = dict(itnlim=itnlim, atol=0.0, btol=0.0, conlim=0.0, nconv=itnlim + 1, **extra)
-    lt.lsqr(A, b, DAMP, **kw)
+    solve = solve or lt.lsqr
+    solve(A, b, DAMP, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         before = spmv.launch_counts()
-        lt.lsqr(A, b, DAMP, **kw)
+        solve(A, b, DAMP, **kw)
         torch.cuda.synchronize()
         after = spmv.launch_counts()
     events = prof.events()
@@ -1243,9 +1256,10 @@ def profile_run(A, b, itnlim, **extra):
             {k: after[k] - before[k] for k in after})
 
 
-def phase_launches(A, b, own=None, **extra):
-    """Phase 6 (and 7, 8, 10): CUDA launches per iteration of a solve (the
-    pair solve, or ``extra``'s), from the profiler: (device events of a
+def phase_launches(A, b, own=None, solve=None, **extra):
+    """Phase 6 (and 7, 8, 10, 19, 20): CUDA launches per iteration of a
+    solve (the pair solve, or ``extra``'s, or ``solve``'s: see
+    :func:`profile_run`), from the profiler: (device events of a
     128-iteration run - a 64-iteration run) / 64, with the kernel time per
     iteration likewise.
 
@@ -1261,7 +1275,7 @@ def phase_launches(A, b, own=None, **extra):
     ``PROFILE_ATTEMPTS`` times, and each run's events must equal its
     launches."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        counts = {itnlim: profile_run(A, b, itnlim, **extra) for itnlim in (64, 128)}
+        counts = {itnlim: profile_run(A, b, itnlim, solve, **extra) for itnlim in (64, 128)}
         if own is None:
             break
         seen = {it: (sum(c for kernel, (c, _) in counts[it][3].items() if own[0] in kernel),
@@ -3206,6 +3220,233 @@ def phase_api(dev, m, card, paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: many right-hand sides, multi-damp sweeps, regularization paths
+# and gradients through the solver
+# ---------------------------------------------------------------------------
+
+#: phase 20's damp grid on the main operator (k = 8, with 0, DAMP and 1.0),
+#: the LSMR sweep's (k = 4) and the per-problem damps of its batches
+MD_DAMPS = (0.0, 1e-4, 1e-3, 3e-3, 0.01, 0.03, 0.1, 1.0)
+MD_LSMR_DAMPS = (0.0, 0.01, 0.1, 1.0)
+BATCH_DAMPS = (0.0, 0.01, 0.1, 1.0)
+M_ROWS = 2 ** 20  # phase 20's second size (pair=False sweep, sibling batches, paths, gradient)
+#: phase 20's regularization path at M_ROWS: damps where the residual is
+#: well above f32 rounding (the band's singular values lie near 12)
+PATH_GRID = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
+PATH_TOL = 1e-3  # its computed residual norms against f64 products of the same x
+GRAD_TOL = 1e-6  # the gradient's directional derivatives against central differences
+
+
+def rows_equal(label, res, refs):
+    """Each row of a multi-damp or batched solve against its standalone
+    solve: (istop, itn) and x bit for bit. Returns the readings; fails unless
+    every row equals its solve."""
+    import torch
+
+    rows = [dict(istop=int(res.istop[j]), itn=int(res.itn[j]),
+                 standalone=[int(ref.istop), int(ref.itn)],
+                 bit_equal=bool(torch.equal(res.x[j], ref.x)), x_rel=rel(res.x[j], ref.x))
+            for j, ref in enumerate(refs)]
+    log(f"    {label}: (istop, itn) {[[r['istop'], r['itn']] for r in rows]}, standalone "
+        f"{[r['standalone'] for r in rows]}; x bit-equal {[r['bit_equal'] for r in rows]}")
+    for j, r in enumerate(rows):
+        check([r["istop"], r["itn"]] == r["standalone"],
+              f"{label}: row {j} stops at {[r['istop'], r['itn']]}, its solve at {r['standalone']}")
+        check(r["bit_equal"], f"{label}: row {j}'s x differs from its solve's by {r['x_rel']:.3e}")
+    return rows
+
+
+def phase_rows(dev, m, card, paths):
+    """Phase 20: the solves over rows on phase 2's operator (m = n = 2^23,
+    11 diagonals, shared f32 stripes, seed 100): ``lsqr_multidamp`` over
+    MD_DAMPS (one pair launch an iteration for all 8 damps) and
+    ``lsmr_multidamp`` over MD_LSMR_DAMPS, each damp against its standalone
+    pair solve (istop, itn, x bit for bit), with the multi-damp launch
+    profile; ``lsqr_batch`` of 4 right-hand sides with BATCH_DAMPS, column
+    for column against ``lsqr``. At M_ROWS: the sweep with pair=False (two
+    ``dia_product_shared`` an iteration) against ``lsqr(pair=False,
+    fused=False)``; ``lsqr_batch`` with pair=False (the half-step),
+    ``lsmr_batch`` and ``cgls_batch`` against their standalone solves;
+    ``reg_sweep`` with the computed residual (against f64 products),
+    ``discrepancy_damp``, ``lcurve_corner`` and ``gcv_damp``; ``lsqr_grad``
+    on an f64 band: directional derivatives in b and in one stripe against
+    central differences. Every entry point runs as a counted path."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+
+    t_phase = time.perf_counter()
+    out = {}
+    tol = dict(atol=1e-6, btol=1e-6)
+    seg = lt.LSQROptions().loop_segment
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, delta = counted(fn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        paths.append(delta)
+        log(f"  {label}: wall {secs * 1e3:.1f} ms, launches "
+            f"{({k: v for k, v in delta.items() if v})}")
+        return res, delta, secs
+
+    def standalone(label, solve, args):
+        """The standalone solves a solve over rows replaces, each a counted
+        path: (results, wall ms of each)."""
+        results = [run(f"  {label} {a}", lambda a=a: solve(*a)) for a in args]
+        return [r[0] for r in results], [r[2] * 1e3 for r in results]
+
+    data, b, g = random_stripes(m, m, OFFSETS, dev, seed=100, boost=12.0)
+    A = lt.dia_shared_operator(m, m, OFFSETS, data)
+    del data
+
+    # (1) lsqr_multidamp, k = 8, on the pair route: a warm-up run (the
+    # allocator's first (k, n) blocks), then the timed one
+    run("lsqr_multidamp warm-up", lambda: lt.lsqr_multidamp(A, b, MD_DAMPS, **tol))
+    res, delta, secs = run(f"lsqr_multidamp k={len(MD_DAMPS)} (pair)",
+                           lambda: lt.lsqr_multidamp(A, b, MD_DAMPS, **tol))
+    body = iterations_run(int(res.itn.max()), seg)
+    check(delta["dia_pair_shared"] == body and delta["dia_product_shared"] == 1,
+          f"lsqr_multidamp: expected {body} pair launches (itn + masked, all damps) and one "
+          f"setup product: {delta}")
+    refs, walls = standalone("lsqr damp", lambda d: lt.lsqr(A, b, d, **tol),
+                             [(d,) for d in MD_DAMPS])
+    pairs = sum(iterations_run(int(r.itn), seg) for r in refs)
+    log(f"    {body} pair launches for the sweep against {pairs} for the 8 solves; wall "
+        f"{secs * 1e3:.1f} ms ({secs * 1e3 / body:.3f} ms an iteration run) against "
+        f"{sum(walls):.1f} ms  [{card}]")
+    out["lsqr_multidamp"] = dict(damps=MD_DAMPS, rows=rows_equal("lsqr_multidamp", res, refs),
+                                 ms=secs * 1e3, standalone_ms=walls, pair_launches=body,
+                                 standalone_pair_launches=pairs)
+    log("  launch profile of lsqr_multidamp k=8 (pair):")
+    out["multidamp_profile"] = phase_launches(
+        A, b, solve=lambda A_, b_, damp, **kw: lt.lsqr_multidamp(A_, b_, MD_DAMPS, **kw))
+
+    # (2) lsmr_multidamp, k = 4, on the pair route
+    res, delta, secs = run(f"lsmr_multidamp k={len(MD_LSMR_DAMPS)} (pair)",
+                           lambda: lt.lsmr_multidamp(A, b, MD_LSMR_DAMPS, **tol))
+    body = iterations_run(int(res.itn.max()), seg)
+    check(delta["dia_pair_shared"] == body and delta["dia_product_shared"] == 1,
+          f"lsmr_multidamp: expected {body} pair launches and one setup product: {delta}")
+    refs, walls = standalone("lsmr damp", lambda d: lt.lsmr(A, b, d, **tol),
+                             [(d,) for d in MD_LSMR_DAMPS])
+    out["lsmr_multidamp"] = dict(damps=MD_LSMR_DAMPS, ms=secs * 1e3, standalone_ms=walls,
+                                 rows=rows_equal("lsmr_multidamp", res, refs))
+
+    # (3) lsqr_batch: 4 right-hand sides, one damp each, the pair kernel a row
+    B = torch.stack([b] + [torch.randn(m, generator=g, device=dev) for _ in range(3)])
+    res, delta, secs = run(f"lsqr_batch k={len(BATCH_DAMPS)} (pair)",
+                           lambda: lt.lsqr_batch(A, B, BATCH_DAMPS, **tol))
+    body = iterations_run(int(res.itn.max()), seg)
+    check(delta["dia_pair_shared"] == len(B) * body and delta["dia_product_shared"] == len(B),
+          f"lsqr_batch: expected {len(B)} x {body} pair launches and {len(B)} setup products: "
+          f"{delta}")
+    refs, walls = standalone("lsqr column", lambda j: lt.lsqr(A, B[j], BATCH_DAMPS[j], **tol),
+                             [(j,) for j in range(len(B))])
+    out["lsqr_batch"] = dict(damps=BATCH_DAMPS, ms=secs * 1e3, standalone_ms=walls,
+                             rows=rows_equal("lsqr_batch", res, refs))
+    del A, B, b, refs, res
+    torch.cuda.empty_cache()
+
+    # (4) at M_ROWS: the sweep on the plain products, the other batches
+    d20, b20, g20 = random_stripes(M_ROWS, M_ROWS, OFFSETS, dev, seed=120, boost=12.0)
+    A20 = lt.dia_shared_operator(M_ROWS, M_ROWS, OFFSETS, d20)
+    del d20
+    damps3 = (0.0, DAMP, 1.0)
+    res, delta, _ = run("lsqr_multidamp k=3, pair=False",
+                        lambda: lt.lsqr_multidamp(A20, b20, damps3, pair=False, **tol))
+    body = iterations_run(int(res.itn.max()), seg)
+    check(delta["dia_pair_shared"] == 0 and delta["dia_product_shared"] == 2 * body + 1,
+          f"pair=False sweep: expected {2 * body + 1} products: {delta}")
+    refs, _ = standalone("lsqr pair=False, fused=False, damp",
+                         lambda d: lt.lsqr(A20, b20, d, pair=False, fused=False, **tol),
+                         [(d,) for d in damps3])
+    out["multidamp_pair_false"] = rows_equal("lsqr_multidamp pair=False", res, refs)
+    B20 = torch.stack([b20] + [torch.randn(M_ROWS, generator=g20, device=dev)
+                               for _ in range(2)])
+    batches = {}
+    for name, kw, kernel in (("lsqr", dict(pair=False), "dia_product_shared_axpy"),
+                             ("lsmr", {}, "dia_pair_shared"),
+                             ("cgls", {}, "dia_product_shared")):
+        res, delta, _ = run(f"{name}_batch k=3 {kw}",
+                            lambda: getattr(lt, name + "_batch")(A20, B20, damps3, **tol, **kw))
+        check(delta[kernel] > 0, f"{name}_batch ran no {kernel}: {delta}")
+        refs, _ = standalone(f"{name} column", lambda j: getattr(lt, name)(
+            A20, B20[j], damps3[j], **tol, **kw), [(j,) for j in range(len(B20))])
+        batches[name] = rows_equal(f"{name}_batch", res, refs)
+    out["batches_m20"] = batches
+    del B20
+
+    # (5) the regularization path, its choices, GCV
+    path, delta, _ = run("reg_sweep, computed residual",
+                         lambda: lt.reg_sweep(A20, b20, PATH_GRID, exact_residual=True, **tol))
+    check(delta["dia_product_shared"] == 1 + len(PATH_GRID) and delta["dia_pair_shared"] > 0,
+          f"reg_sweep: expected the pair, a setup product and one product a damp: {delta}")
+    est, _, _ = run("reg_sweep, exit estimates", lambda: lt.reg_sweep(A20, b20, PATH_GRID, **tol))
+    fwd, _, _ = shared_f64(A20)
+    r64 = torch.stack([(wide(b20) - fwd(wide(x))).norm() for x in path.x])
+    err, est_err = rel(path.residual_norm, r64), rel(est.residual_norm, r64)
+    grows = bool((path.residual_norm[1:] > path.residual_norm[:-1]).all())
+    log(f"    residual norms {[f'{float(v):.6e}' for v in path.residual_norm]}: against f64 "
+        f"products {err:.3e}, the exit estimates' {est_err:.3e}; growing with damp {grows}")
+    check(err <= PATH_TOL and grows, f"reg_sweep: residual {err:.3e} from f64, growing {grows}")
+    target = float(torch.sqrt(path.residual_norm[3] * path.residual_norm[4]))
+    damp_d, _, path_d = run("discrepancy_damp", lambda: lt.discrepancy_damp(
+        A20, b20, target, damps=PATH_GRID, **tol))[0]
+    damp_l, _, kappa = lt.lcurve_corner(path)
+    gcv_out, delta, _ = run("gcv_damp, 1 probe", lambda: lt.gcv_damp(
+        A20, b20, damps=PATH_GRID, probes=1, **tol))
+    damp_g, gcv = gcv_out[0], gcv_out[3]
+    log(f"    discrepancy (target {target:.6e}): damp {float(damp_d)}; L-curve corner "
+        f"{float(damp_l)}, curvature {[f'{float(v):.3e}' for v in kappa]}; GCV damp "
+        f"{float(damp_g)}, values {[f'{float(v):.4e}' for v in gcv]}")
+    check(float(damp_d) == PATH_GRID[3], f"discrepancy picked {float(damp_d)}, not {PATH_GRID[3]}")
+    check(bool(torch.isfinite(kappa[1:-1]).all()) and float(damp_l) in PATH_GRID,
+          "lcurve_corner: no finite corner")
+    check(bool(torch.isfinite(gcv).all()) and float(damp_g) == PATH_GRID[int(torch.argmin(gcv))],
+          "gcv_damp: the choice is not the minimum")
+    out["regpath"] = dict(residual_rel_f64=err, estimate_rel_f64=est_err,
+                          discrepancy=float(damp_d), lcurve=float(damp_l), gcv=float(damp_g))
+    del A20, path, est, path_d, fwd
+
+    # (6) lsqr_grad on an f64 band: directional derivatives against central
+    # differences (x is linear in b, so the difference in b is exact)
+    f64 = torch.float64
+    d64, b64, g64 = random_stripes(M_ROWS, M_ROWS, OFFSETS, dev, seed=121, boost=12.0, dtype=f64)
+    weights, db, ds = (torch.randn(M_ROWS, generator=g64, device=dev, dtype=f64)
+                       for _ in range(3))
+    grad_tol = dict(atol=1e-12, btol=1e-12)
+    stripe = OFFSETS.index(2)
+
+    def loss(stripes, vec):
+        op = lt.dia_shared_operator(M_ROWS, M_ROWS, OFFSETS, stripes)
+        return torch.dot(lt.lsqr_grad(op, vec, DAMP, **grad_tol), weights)
+
+    leaves = (d64.clone().requires_grad_(), b64.clone().requires_grad_())
+    (gs, gb), delta, secs = run("lsqr_grad f64, forward and backward",
+                                lambda: torch.autograd.grad(loss(*leaves), leaves))
+    check(delta["dia_product_shared[f64]"] > 0, f"lsqr_grad ran no f64 product: {delta}")
+    pert = torch.zeros_like(d64)
+    pert[stripe] = ds
+    eps = 1e-4
+    with torch.no_grad():
+        fd_b = float(loss(d64, b64 + db) - loss(d64, b64 - db)) / 2
+        fd_s = float(loss(d64 + eps * pert, b64) - loss(d64 - eps * pert, b64)) / (2 * eps)
+    an_b, an_s = float(torch.dot(gb, db)), float(torch.sum(gs * pert))
+    errs = [abs(an_b - fd_b) / abs(fd_b), abs(an_s - fd_s) / abs(fd_s)]
+    log(f"    d/db: {an_b:.12e} against {fd_b:.12e}; d/d(stripe {OFFSETS[stripe]}): "
+        f"{an_s:.12e} against {fd_s:.12e}; relative {errs[0]:.3e}, {errs[1]:.3e}")
+    check(max(errs) <= GRAD_TOL, f"lsqr_grad: directional derivatives off by {errs}")
+    out["lsqr_grad"] = dict(ms=secs * 1e3, rel_b=errs[0], rel_stripe=errs[1])
+    del d64, b64, gs, gb, leaves
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3313,10 +3554,12 @@ def main():
     perf["stream_copy"], solves["stream_ceiling_gbs"] = phase_roofline(dev, errs, card, paths)
     phase("phase 19: operator algebra, preconditioning, I/O, utilities, LSRN, refine, hybrid")
     solves["api"] = phase_api(dev, M_MAIN, card, paths)
+    phase("phase 20: multi-damp sweeps, batches, regularization paths, gradients")
+    solves["rows"] = phase_rows(dev, M_MAIN, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
     log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15, "
-        f"17, 18 and 19: {launches}")
+        f"17-20: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

@@ -18,7 +18,11 @@ column scaling, the host and Matrix Market I/O (``host_coo``, ``to_scipy``,
 ``from_matrix_market``, ``from_torch_sparse``, ``lsqr_scipy``,
 ``lsmr_scipy``), the reports, ``debug_log``, checkpointed solves,
 profiling, LSRN (``lsrn``), mixed-precision refinement (``lsqr_refined``)
-and hybrid regularization (``hybrid_lsqr``). The DIA products on CUDA
+and hybrid regularization (``hybrid_lsqr``); many right-hand sides
+(``lsqr_batch``, ``lsmr_batch``, ``cgls_batch``), multi-damp sweeps
+(``lsqr_multidamp``, ``lsmr_multidamp``), regularization paths
+(``reg_sweep``, ``discrepancy_damp``, ``lcurve_corner``, ``gcv_damp``) and
+gradients through the solver (``lsqr_grad``, ``normal_cg``). The DIA products on CUDA
 run through nine kernels written by hand for Hopper (``csrc/dia_shared.cu``,
 ``csrc/dia_packed.cu``), the complex DIA pair through one more
 (``csrc/zdia.cu``), the megakernels through three persistent cooperative
@@ -36,15 +40,18 @@ Importing this package imports ``torch`` and never ``jax``.
 """
 
 from .api import LSQRSolver
+from .batch import cgls_batch, lsmr_batch, lsqr_batch
 from .cgls import CGLS_ISTOP_MESSAGES, CGLSResult, cgls
 from .config import LSQROptions, default_dtype, eps_for, real_dtype, resolve_device
 from .craig import CRAIG_ISTOP_MESSAGES, CRAIGResult, craig
 from .diagnostics import ACheckResult, XCheckResult, acheck, xcheck
 from .lsmr import LSMR_ISTOP_MESSAGES, LSMRResult, lsmr
+from .multidamp import lsmr_multidamp, lsqr_multidamp
 from .models.paige_saunders import PaigeSaundersOperator, lstp, suite_configs
 from .models.synthetic import (banded_dia, banded_problem, block_banded_coo,
                                jittered_band_coo, random_block_coo, random_coo_problem,
                                zdia_stripes, zipf_column_coo, zipf_coo)
+from .implicit import lsqr_grad, normal_cg
 from .hybrid import (GKBasis, HybridResult, gcv_lambda, golub_kahan, hybrid_lsqr,
                      projected_tikhonov)
 from .ops.compose import (DiagonalOperator, HStackOperator, ScaledOperator, SumOperator,
@@ -75,6 +82,7 @@ from .ops.zdia import (ZDIAOperator, ZJDIAOperator, zdia_operator, zdia_operator
                        zjdia_operator)
 from .randomized import LSRNResult, lsrn, lsrn_preconditioner, sketch_left, sketch_right
 from .refine import RefineResult, lsqr_refined
+from .regpath import RegPath, discrepancy_damp, gcv_damp, lcurve_corner, reg_sweep
 from .solver import ISTOP_MESSAGES, TRACE_COLUMNS, LSQRResult, lsqr
 from .utils.checkpoint import load_state, lsqr_checkpointed, save_state
 from .utils.printing import format_exit_block, format_iteration_log, format_report
@@ -159,6 +167,18 @@ __all__ = [
     "sketch_right",
     "RefineResult",
     "lsqr_refined",
+    "lsqr_batch",
+    "lsmr_batch",
+    "cgls_batch",
+    "lsqr_multidamp",
+    "lsmr_multidamp",
+    "RegPath",
+    "reg_sweep",
+    "discrepancy_damp",
+    "lcurve_corner",
+    "gcv_damp",
+    "lsqr_grad",
+    "normal_cg",
     "host_coo",
     "host_products",
     "to_scipy",

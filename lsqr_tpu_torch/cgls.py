@@ -20,10 +20,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from .config import real_dtype
-from .lsmr import check_complex_pair, solve_dtype
+from .lsmr import check_complex_pair, sibling_tolerances, solve_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
-from .solver import _run_segments, damped_warm_start
+from .solver import _run_segments, damped_warm_start, resolve_pair
 
 __all__ = ["CGLSResult", "cgls", "CGLS_ISTOP_MESSAGES"]
 
@@ -219,9 +219,7 @@ def cgls(
     b = as_tensor(b, device=A.device)
     dtype = solve_dtype(b, A)
     b = b.to(dtype)
-    eps = float(torch.finfo(dtype).eps)
-    atol = eps if atol == 0 else atol
-    btol = eps if btol == 0 else btol
+    atol, btol = sibling_tolerances(dtype, atol, btol)
 
     if x0 is not None:
         x0 = as_tensor(x0, dtype=dtype, device=b.device)
@@ -238,9 +236,7 @@ def cgls(
     itnlim = int(itnlim) if itnlim is not None else 4 * A.n
     # pair is opt-in for CGLS: the A'r recurrence adds one more level of f32
     # drift to CGLS's weaker stability
-    pair = bool(pair)
-    if pair and not hasattr(A, "fused_pair"):
-        raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
+    pair = resolve_pair(A, pair, False)
 
     def scalar(v):  # damp and the tolerances are real, also for complex problems
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)

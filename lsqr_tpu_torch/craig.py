@@ -22,7 +22,7 @@ from .config import real_dtype
 from .lsmr import check_complex_pair, solve_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
-from .solver import _run_segments
+from .solver import _run_segments, resolve_pair
 
 __all__ = ["CRAIGResult", "craig", "CRAIG_ISTOP_MESSAGES"]
 
@@ -216,10 +216,7 @@ def craig(
         return res._replace(x=xw, xnorm=nrm2(xw, safe=safe_norms))
 
     itnlim = int(itnlim) if itnlim is not None else min(A.m, A.n)
-    if pair is None:
-        pair = bool(getattr(A, "prefers_pair", False))
-    if pair and not hasattr(A, "fused_pair"):
-        raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
+    pair = resolve_pair(A, pair, bool(getattr(A, "prefers_pair", False)))
     rdtype = real_dtype(dtype)  # the tolerances are real, also for complex problems
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, as_tensor(atol, dtype=rdtype, device=b.device),

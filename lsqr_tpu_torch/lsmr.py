@@ -23,7 +23,7 @@ import torch
 from .config import default_dtype, real_dtype
 from .ops.blas import nrm2
 from .ops.linop import LinearOperator, as_operator, as_tensor
-from .solver import _run_segments, damped_warm_start
+from .solver import _run_segments, damped_warm_start, resolve_pair
 
 __all__ = ["LSMRResult", "lsmr", "LSMR_ISTOP_MESSAGES", "LSMR_TRACE_COLUMNS"]
 
@@ -327,6 +327,12 @@ def solve_dtype(b: torch.Tensor, A: LinearOperator) -> torch.dtype:
     return b.dtype if b.dtype.is_floating_point or b.dtype.is_complex else default_dtype()
 
 
+def sibling_tolerances(dtype: torch.dtype, atol: float, btol: float):
+    """The tolerances of LSMR and CGLS: zero means machine precision."""
+    eps = float(torch.finfo(dtype).eps)
+    return (eps if atol == 0 else atol), (eps if btol == 0 else btol)
+
+
 def check_complex_pair(A: LinearOperator, dtype: torch.dtype, pair: bool) -> None:
     """The siblings' guard: with complex vectors the pair path needs an
     operator whose pair kernel takes them (``supports_complex_pair``)."""
@@ -371,9 +377,7 @@ def lsmr(
     b = as_tensor(b, device=A.device)
     dtype = solve_dtype(b, A)
     b = b.to(dtype)
-    eps = float(torch.finfo(dtype).eps)
-    atol = eps if atol == 0 else atol
-    btol = eps if btol == 0 else btol
+    atol, btol = sibling_tolerances(dtype, atol, btol)
 
     if megakernel:
         from .ops.megakernel_lsmr import lsmr_megakernel, lsmr_megakernel_supported
@@ -402,10 +406,7 @@ def lsmr(
         return res._replace(x=xw, normx=nrm2(xw, safe=safe_norms))
 
     itnlim = int(itnlim) if itnlim is not None else min(A.m, A.n)
-    if pair is None:
-        pair = bool(getattr(A, "prefers_pair", False))
-    if pair and not hasattr(A, "fused_pair"):
-        raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
+    pair = resolve_pair(A, pair, bool(getattr(A, "prefers_pair", False)))
 
     def scalar(v):  # damp and the tolerances are real, also for complex problems
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)

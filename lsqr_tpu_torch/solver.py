@@ -418,14 +418,17 @@ def _debug_line(itn, x0, rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, al
 
 
 def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int, log=None,
-                  stop_at: Optional[int] = None):
+                  stop_at: Optional[int] = None, step=_masked_step, head=None):
     """Host-stepped solve in segments of masked iterations: one host read of
     (istop, itn) per segment; at most ``seg_len - 1`` masked iterations.
 
     ``log`` is the ``log_rows`` list of :func:`_build`: the segment's rows
     come to the host in the same read, and the flagged ones are printed.
     ``stop_at`` runs one segment whose iterations past that itn are masked
-    (the checkpointed solves' segment) and returns."""
+    (the checkpointed solves' segment) and returns. The solves over rows
+    (:mod:`..multidamp`, :mod:`..batch`) pass their own masked ``step`` and
+    a ``head(carry)``, the int tensor (nonzero once every row has stopped,
+    iterations run) that the segment's read takes in place of (istop, itn)."""
     seg = min(seg_len, itnlim) if itnlim > 0 else seg_len
     if stop_at is not None:
         def cond(c):
@@ -435,20 +438,44 @@ def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int, log=N
     prev_itn = 0
     while True:
         for _ in range(seg):
-            carry = _masked_step(carry, cond, body_fun)
-        head = torch.stack([carry.istop, carry.itn])
+            carry = step(carry, cond, body_fun)
+        read = torch.stack([carry.istop, carry.itn]) if head is None else head(carry)
         if log:
-            read = torch.cat([head.double(), torch.stack(log).double().reshape(-1)]).tolist()
+            read = torch.cat([read.double(), torch.stack(log).double().reshape(-1)]).tolist()
             log.clear()
             istop, itn = int(read[0]), int(read[1])
             for i in range(2, len(read), 12):
                 if read[i]:
                     _debug_line(*read[i + 1:i + 12])
         else:
-            istop, itn = head.tolist()
+            istop, itn = read.tolist()
         if stop_at is not None or istop != 0 or itn >= itnlim or itn == prev_itn:
             return carry
         prev_itn = itn
+
+
+def resolve_pair(A: LinearOperator, pair: Optional[bool], default: bool) -> bool:
+    """The pair route of a solve: ``pair``, or ``default`` when it is None.
+    An operator without a pair kernel raises ValueError."""
+    pair = bool(default if pair is None else pair)
+    if pair and not hasattr(A, "fused_pair"):
+        raise ValueError(f"{type(A).__name__} does not implement fused_pair; set pair=False")
+    return pair
+
+
+def lsqr_routes(A: LinearOperator, opts: LSQROptions):
+    """(fused, pair) of an LSQR solve with these options: the operator's
+    preferences unless set (the pair unless ``fused=False``); the pair
+    needs the unnormalized carry, so it implies fused."""
+    fused = opts.fused
+    if fused is None:
+        fused = bool(getattr(A, "prefers_fused", False))
+    if fused and not hasattr(A, "fused_halfstep"):
+        raise ValueError(
+            f"{type(A).__name__} does not implement fused_halfstep; set fused=False")
+    pair = resolve_pair(A, opts.pair, opts.fused is not False
+                        and bool(getattr(A, "prefers_pair", False)))
+    return fused or pair, pair
 
 
 def damped_warm_start(A: LinearOperator, b: torch.Tensor, x0: torch.Tensor, damp):
@@ -534,20 +561,7 @@ def lsqr(
         return res._replace(x=xw, xnorm=nrm2(xw, safe=opts.safe_norms))
 
     itnlim = opts.resolve_itnlim(A.n)
-    fused = opts.fused
-    if fused is None:
-        fused = bool(getattr(A, "prefers_fused", False))
-    if fused and not hasattr(A, "fused_halfstep"):
-        raise ValueError(
-            f"{type(A).__name__} does not implement fused_halfstep; set fused=False")
-    pair = opts.pair
-    if pair is None:
-        pair = opts.fused is not False and bool(getattr(A, "prefers_pair", False))
-    if pair and not hasattr(A, "fused_pair"):
-        raise ValueError(
-            f"{type(A).__name__} does not implement fused_pair; set pair=False")
-    if pair:
-        fused = True  # the pair needs the unnormalized carry
+    fused, pair = lsqr_routes(A, opts)
 
     def scalar(v):  # damp and the tolerances are real, also for complex problems
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)

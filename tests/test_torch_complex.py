@@ -5,9 +5,8 @@ which take complex the same way, and closed forms).
 Over C the Paige–Saunders bidiagonalization holds with A' read as the
 conjugate transpose: alpha, beta and every rotation scalar and norm estimate
 are real, the vectors complex. Both packages run in complex128 on the CPU
-(x64 for JAX), complex64 where a case says so. Cases that need modules the
-port does not have yet (multidamp, lsqr_grad, regpath, the sharded
-solvers) wait for those modules.
+(x64 for JAX), complex64 where a case says so. The sharded solvers' cases
+wait for the port's distribution layer.
 """
 
 import numpy as np
@@ -410,3 +409,90 @@ def test_lsrn_complex_underdetermined_and_damped(rng):
     b = rng.standard_normal(m) + 1j * rng.standard_normal(m)
     resd = lt.lsrn(_dense(A), b, damp=0.1, atol=1e-12, btol=1e-12)
     np.testing.assert_allclose(to_np(resd.x), _damped_solution(A, b, 0.1), atol=1e-9)
+
+
+def _crel(got, ref):
+    """max |got - ref| / max |ref| over complex values."""
+    got, ref = to_np(got).astype(np.complex128), np.asarray(ref, np.complex128)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def test_multidamp_complex_bitwise_matches_standalone(rng):
+    """tests/test_complex.py:227-241: each damp's x bit for bit the port's
+    standalone solve; against JAX's sweep istop equal, itn within 1 and x
+    within 1e-9 (the standalone solves' band, ROADMAP Queue 3)."""
+    A, b, _ = _cproblem(rng)
+    damps = [0.0, 0.05, 0.5]
+    At = _dense(A)
+    for solver in ("lsqr", "lsmr"):
+        res = getattr(lt, solver + "_multidamp")(At, b, damps, atol=1e-12, btol=1e-12)
+        res_j = getattr(lj, solver + "_multidamp")(A, b, damps, atol=1e-12, btol=1e-12)
+        np.testing.assert_array_equal(to_np(res.istop), np.asarray(res_j.istop))
+        assert np.abs(to_np(res.itn) - np.asarray(res_j.itn)).max() <= 1
+        for i, d in enumerate(damps):
+            ref = getattr(lt, solver)(At, b, d, atol=1e-12, btol=1e-12)
+            assert int(res.itn[i]) == int(ref.itn) and int(res.istop[i]) == int(ref.istop)
+            assert torch.equal(res.x[i], ref.x)
+            assert _crel(res.x[i], res_j.x[i]) <= 1e-9
+
+
+def test_batch_complex_matches_sequential(rng):
+    """tests/test_complex.py:244-268: every column bit for bit the port's
+    standalone solve (where JAX's test allows 1e-12 to 1e-8); against JAX's
+    batches istop equal, itn within 1 and x within 1e-9 (LSMR 1e-5: it stops
+    at its limit of n iterations, at Krylov exhaustion, where x parts by
+    4e-6 in the standalone solves)."""
+    from lsqr_tpu.batch import cgls_batch, lsmr_batch, lsqr_batch
+
+    m, n, nnz, k = 50, 30, 300, 3
+    r = rng.integers(0, m, nnz)
+    c = rng.integers(0, n, nnz)
+    v = rng.standard_normal(nnz) + 1j * rng.standard_normal(nnz)
+    A = lt.coo_operator(m, n, v, r, c, device=DEV)
+    A_j = lj.coo_operator(m, n, v, r, c)
+    B = rng.standard_normal((k, m)) + 1j * rng.standard_normal((k, m))
+    for solver, fn_j, tol, x_rel in (("lsqr", lsqr_batch, 1e-12, 1e-9),
+                                     ("lsmr", lsmr_batch, 1e-10, 1e-5),
+                                     ("cgls", cgls_batch, 1e-10, 1e-9)):
+        res = getattr(lt, solver + "_batch")(A, B, 0.05, atol=tol, btol=tol)
+        res_j = fn_j(A_j, B, 0.05, atol=tol, btol=tol)
+        np.testing.assert_array_equal(to_np(res.istop), np.asarray(res_j.istop))
+        assert np.abs(to_np(res.itn) - np.asarray(res_j.itn)).max() <= 1
+        for i in range(k):
+            ref = getattr(lt, solver)(A, B[i], 0.05, atol=tol, btol=tol)
+            assert int(res.itn[i]) == int(ref.itn) and torch.equal(res.x[i], ref.x)
+            assert _crel(res.x[i], res_j.x[i]) <= x_rel
+
+
+def test_real_only_modules_raise_clear_errors(rng):
+    """tests/test_complex.py:271-279: lsqr_grad refuses complex input."""
+    A, b, _ = _cproblem(rng, m=30, n=20)
+    with pytest.raises(TypeError, match="real-only"):
+        lt.lsqr_grad(_dense(A), b)
+    with pytest.raises(TypeError, match="real-only"):
+        lt.lsqr_grad(_dense(A), b.real)
+
+
+def test_regpath_complex(rng):
+    """tests/test_complex.py:478-502: real residual and solution norms over
+    C (the exit-estimate identity and the computed residual), Morozov and
+    the L-curve; the discrepancy choice is JAX's."""
+    m, n = 60, 30
+    A = rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+    xt = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    b = A @ xt + 0.01 * (rng.standard_normal(m) + 1j * rng.standard_normal(m))
+    At = _dense(A)
+    for exact in (False, True):
+        path = lt.reg_sweep(At, b, num=8, exact_residual=exact)
+        assert not path.residual_norm.is_complex() and not path.solution_norm.is_complex()
+        for j in (0, 4, 7):
+            rn = np.linalg.norm(b - A @ to_np(path.x[j]))
+            np.testing.assert_allclose(float(path.residual_norm[j]), rn, rtol=1e-8)
+    noise = 0.01 * np.sqrt(2 * m)
+    d, xd, path = lt.discrepancy_damp(At, b, noise_norm=noise)
+    d_j, _, _ = lj.discrepancy_damp(A, b, noise_norm=noise)
+    np.testing.assert_allclose(float(d), float(d_j), rtol=1e-12)
+    j = int(np.argmin(np.abs(to_np(path.damps) - float(d))))
+    assert float(path.residual_norm[j]) <= 0.011 * np.sqrt(2 * m) * 1.5
+    lam, xl, curv = lt.lcurve_corner(path)
+    assert np.isfinite(float(lam))

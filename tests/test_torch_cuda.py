@@ -1633,3 +1633,106 @@ def test_cuda_damped_warm_start_and_checkpoint_are_bit_stable(rng, cuda_device, 
     for res in (runs[1], whole, plain):
         assert int(res.itn) == int(runs[0].itn) and int(res.istop) == int(runs[0].istop)
         assert torch.equal(res.x, runs[0].x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [100_000, 100_003], ids=["aligned", "ragged"])
+def test_cuda_multidamp_and_batch_are_their_standalone_solves(rng, cuda_device, m):
+    """lsqr_multidamp / lsmr_multidamp (one pair launch an iteration for all
+    damps) and lsqr_batch / lsmr_batch / cgls_batch (the kernels once a row)
+    on a shared f32 band, and lsqr_batch on its f64 copy: each damp and
+    each column bit for bit its standalone solve on the same route, rows on
+    and off the 64-byte grid."""
+    ks = tuple(range(-5, 6))
+    data, _ = banded(rng, m, m, ks, np.float32, boost=12.0, dense=False)
+    A = lt.dia_shared_operator(m, m, ks, data, device=cuda_device)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda_device)
+    damps = [0.0, 0.01, 1.0]
+    tol = dict(atol=1e-6, btol=1e-6)
+    for solver, routes in (("lsqr", ({}, dict(pair=False, fused=False))),
+                           ("lsmr", ({}, dict(pair=False)))):
+        for kw in routes:
+            spmv.reset_launch_counts()
+            res = getattr(lt, solver + "_multidamp")(A, b, damps, **tol, **kw)
+            counts = spmv.launch_counts()
+            for j, damp in enumerate(damps):
+                ref = getattr(lt, solver)(A, b, damp, **tol, **kw)
+                assert int(res.istop[j]) == int(ref.istop) and int(res.itn[j]) == int(ref.itn)
+                assert torch.equal(res.x[j], ref.x), (solver, kw, damp)
+            if kw:  # the plain products
+                assert counts["dia_pair_shared"] == 0 and counts["dia_product_shared"] > 0
+            else:  # one pair launch an iteration for every damp
+                assert 0 < counts["dia_pair_shared"] <= int(res.itn.max()) + 64, counts
+    B = torch.stack([b, -2 * b, b.flip(0)])
+    for solver, kw in (("lsqr", {}), ("lsqr", dict(pair=False)), ("lsmr", {}),
+                       ("cgls", dict(pair=True))):
+        spmv.reset_launch_counts()
+        res = getattr(lt, solver + "_batch")(A, B, damps, **tol, **kw)
+        counts = spmv.launch_counts()
+        for j, damp in enumerate(damps):
+            ref = getattr(lt, solver)(A, B[j], damp, **tol, **kw)
+            assert int(res.istop[j]) == int(ref.istop) and int(res.itn[j]) == int(ref.itn)
+            assert torch.equal(res.x[j], ref.x), (solver, kw, j)
+        kernel = "dia_product_shared_axpy" if kw == dict(pair=False) else "dia_pair_shared"
+        assert counts[kernel] > 0, counts
+    # f64 rows (the plain f64 products), whose reduction wants 32-byte rows
+    A64 = lt.dia_shared_operator(m, m, ks, data.astype(np.float64), device=cuda_device)
+    B64 = B.double()
+    res = lt.lsqr_batch(A64, B64, damps, **tol)
+    for j, damp in enumerate(damps):
+        ref = lt.lsqr(A64, B64[j], damp, **tol)
+        assert int(res.itn[j]) == int(ref.itn) and torch.equal(res.x[j], ref.x), ("f64", j)
+
+
+@pytest.mark.cuda
+def test_cuda_regpath_and_gradient(rng, cuda_device):
+    """reg_sweep with the computed residual (dia_product_shared a damp) and
+    lsqr_grad on an f64 shared band (normal_cg's two products an
+    iteration) against the same on the CPU twins: the f32 residual norms
+    within 1e-6 of ||b|| (the undamped one is below 1e-5 of ||b||, so its f32
+    solves part in its leading digits), the f64 gradients within 1e-7."""
+    m = 20_000
+    ks = (-3, 0, 1, 5)
+    data, _ = banded(rng, m, m, ks, np.float64, boost=6.0, dense=False)
+    b = rng.standard_normal(m)
+    runs = []
+    for dev in (DEV, cuda_device):
+        A32 = lt.dia_shared_operator(m, m, ks, data.astype(np.float32), device=dev)
+        path = lt.reg_sweep(A32, b.astype(np.float32), [0.0, 0.01, 0.1], exact_residual=True,
+                            atol=1e-6, btol=1e-6)
+        stripes = torch.tensor(data, device=dev, requires_grad=True)
+        vec = torch.tensor(b, device=dev, requires_grad=True)
+        spmv.reset_launch_counts()
+        x = lt.lsqr_grad(lt.dia_shared_operator(m, m, ks, stripes), vec, 0.05)
+        torch.sum(x * x).backward()
+        runs.append((path.residual_norm.cpu(), stripes.grad.cpu(), vec.grad.cpu()))
+        if dev == cuda_device:
+            assert spmv.launch_counts(by_variant=True)["dia_product_shared[f64]"] > 0
+    (res_cpu, *grads_cpu), (res_card, *grads_card) = runs
+    assert float((res_card - res_cpu).abs().max()) <= 1e-6 * np.linalg.norm(b)
+    for got, want in zip(grads_card, grads_cpu):
+        assert rel_err(got, want) < 1e-7
+
+
+@pytest.mark.cuda
+def test_cuda_complex_sweep_and_batch_are_their_standalone_solves(rng, cuda_device):
+    """Complex rows on the card (ZDIA, complex64, the complex pair kernel
+    once an iteration for the sweep and once a row for the batch): each
+    damp and each column bit for bit its standalone solve, rows off the
+    64-byte grid (m odd)."""
+    m = 100_003
+    Z = lt.dia_operator_device(m, m, range(-2, 3),
+                               lt.zdia_stripes(m, m, diag=12.0, device=cuda_device))
+    B = torch.from_numpy((rng.standard_normal((3, m)) + 1j * rng.standard_normal((3, m)))
+                         .astype(np.complex64)).to(cuda_device)
+    damps = [0.0, 0.01, 1.0]
+    tol = dict(atol=1e-6, btol=1e-6)
+    spmv.reset_launch_counts()
+    sweep = lt.lsqr_multidamp(Z, B[0], damps, **tol)
+    batch = lt.lsqr_batch(Z, B, damps, **tol)
+    assert spmv.launch_counts()["zdia_pair"] > 0
+    for j, damp in enumerate(damps):
+        for res, b in ((sweep, B[0]), (batch, B[j])):
+            ref = lt.lsqr(Z, b, damp, **tol)
+            assert int(res.istop[j]) == int(ref.istop) and int(res.itn[j]) == int(ref.itn)
+            assert torch.equal(res.x[j], ref.x), j
