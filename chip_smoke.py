@@ -6,7 +6,7 @@
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
 from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
-from lsqr_tpu_torch/native with g++), then runs twenty phases; each
+from lsqr_tpu_torch/native with g++), then runs twenty-one phases; each
 raises on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
@@ -156,8 +156,7 @@ raises on failure:
    reorthogonalized) against ``lsqr`` at its GCV lambda; a 2^20 x 11 f64
    band through ``scipy.io.mmwrite`` and ``from_matrix_market`` (the packed
    DIA operator) and ``lsqr_scipy`` against ``scipy.sparse.linalg.lsqr``;
-   ``product_rate``; the launch profiles of the stacked and column-scaled
-   solves;
+   ``product_rate``; the launch profile of the stacked solve;
 20. the solves over rows on phase 2's operator: ``lsqr_multidamp`` over 8
    damps (0 to 1.0; one pair launch an iteration for all of them) and
    ``lsmr_multidamp`` over 4, each damp's istop, itn and x bit for bit its
@@ -169,9 +168,21 @@ raises on failure:
    computed residual (against f64 products), ``discrepancy_damp``,
    ``lcurve_corner`` and ``gcv_damp``, and ``lsqr_grad`` on an f64 band
    (directional derivatives in b and in one stripe against central
-   differences).
+   differences);
+21. the sharded solvers (``lsqr_tpu_torch.parallel``): (a) one rank on
+   NCCL, ``lsqr_sharded_dia`` on phase 2's band (2^23, 11 diagonals, pair
+   mode) for a fixed 64 iterations against the unsharded solve; (b) four
+   ranks on gloo, spawned processes that share this card:
+   ``lsqr_sharded_dia`` on the same band, ``lsqr_sharded_wcoo`` on phase
+   14's Zipf pattern (2^21 x 2048) to 1e-6, ``lsqr_sharded_2d`` on a (2, 2)
+   mesh (the band's triplets at 2^20) and ``lsqr_sharded_zdia`` on phase
+   16's complex band (2^21, 5 diagonals), each against its unsharded solve
+   on the card (the WCOO one by its damped objective), all ranks' x bit for
+   bit equal, ``wcoo_pair`` launched on every rank; wall ms and collectives
+   an iteration. Gloo stages each all-reduce through the host, so (b)'s
+   times say nothing of NCCL across cards.
 
-Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17, 19 and 20 runs with the launch
+Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17, 19, 20 and 21 runs with the launch
 counts reset just before it and read just after, and so does a direct call
 of the kernels no solver calls (the two variants of the fused half-step,
 phase 1) and the ceiling's chain (phase 18); each path must launch the
@@ -186,6 +197,7 @@ last line is {"ok": true, "device": {...}}.
 
 import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3208,11 +3220,10 @@ def phase_api(dev, m, card, paths):
     check(delta["dia_product_shared"] == 4 * 50, f"product_rate launches: {delta}")
     out["product_rate"] = rate
 
-    # the launch profiles of the stacked and column-scaled solves (section 5)
+    # the launch profile of the stacked solve (section 5); the column-scaled
+    # solve's is cut to make room for phase 21
     log("  launch profile of the damped warm-start LSQR solve (stacked):")
     out["warm_start_profile"] = phase_launches(A, b, x0=x8_lsqr)
-    log("  launch profile of the column-scaled LSQR solve:")
-    out["column_scaled_profile"] = phase_launches(S, b)
     del A, S, fwd, adj
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3447,6 +3458,269 @@ def phase_rows(dev, m, card, paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the sharded solvers over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4  # phase 21 (b): gloo ranks on this one card
+SHARD_ITN = 16  # (b)'s fixed iterations: 64 on one rank, cut to 16 on four
+SHARD_SHORT = 8  # (b)'s timing run: the solve cut to 8 iterations
+M_SHARD_2D = 2 ** 20  # (b)'s 2-D COO band
+SHARD_TIMEOUT = 600  # seconds (b) waits for its ranks
+SHARD_TOL = 1e-3  # sharded against unsharded x, relative (PERF.md section 2's band)
+
+
+def shard_band(dev, m):
+    """Phase 2's band (seed 100, +12 on the diagonal) as a shared operator
+    on ``dev``, and its b."""
+    import lsqr_tpu_torch as lt
+
+    data, b, _ = random_stripes(m, m, OFFSETS, dev, seed=100, boost=12.0)
+    return lt.dia_shared_operator(m, m, OFFSETS, data), b
+
+
+def shard_problems(dev):
+    """Phase 21 (b)'s problems, made from seeds on ``dev`` (the same on every
+    rank): {label: (operator, b, solve options, entry, its extra keywords)}."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.models.synthetic import ZDIA_OFFSETS, zipf_column_coo
+
+    fixed = dict(itnlim=SHARD_ITN, atol=0.0, btol=0.0, conlim=0.0, nconv=SHARD_ITN + 1)
+    A, b = shard_band(dev, M_MAIN)
+    band = (A, b, dict(fixed, pair=True), "lsqr_sharded_dia", {})
+    trip = zipf_column_coo(ZIPF_M, ZIPF_N, ZIPF_NNZ, seed=0)
+    Aw = lt.coo_operator(ZIPF_M, ZIPF_N, *trip, device="cpu")
+    bw = torch.randn(ZIPF_M, generator=torch.Generator(device=dev).manual_seed(15), device=dev)
+    wcoo = (Aw, bw, dict(atol=1e-6, btol=1e-6), "lsqr_sharded_wcoo", {})
+    data, b2, _ = random_stripes(M_SHARD_2D, M_SHARD_2D, OFFSETS, dev, seed=21, boost=12.0)
+    rows, cols, vals = (t.cpu().numpy() for t in stripe_triplets(data, OFFSETS, M_SHARD_2D,
+                                                                 M_SHARD_2D))
+    A2 = lt.coo_operator(M_SHARD_2D, M_SHARD_2D, vals, rows, cols, device="cpu")
+    blocks = (A2, b2, fixed, "lsqr_sharded_2d", dict(mesh_shape=(2, 2)))
+    stripes = lt.zdia_stripes(M_ZDIA, M_ZDIA, ZDIA_OFFSETS, seed=17, diag=12.0, device=dev,
+                              generator="torch")
+    Az = lt.zdia_operator_device(M_ZDIA, M_ZDIA, ZDIA_OFFSETS, stripes)
+    bz = torch.randn(M_ZDIA, generator=torch.Generator(device=dev).manual_seed(16), device=dev,
+                     dtype=torch.complex64)
+    zdia = (Az, bz, dict(fixed, pair=True), "lsqr_sharded_zdia", {})
+    return {"dia": band, "wcoo": wcoo, "2d": blocks, "zdia": zdia}
+
+
+def sharded_run(entry, A, b, dev, opts, extra):
+    """One sharded solve on this rank: (result, wall s, collectives, launches
+    by variant), the counts set to 0 just before it."""
+    import torch
+    import torch.distributed as dist
+
+    from lsqr_tpu_torch import parallel
+    from lsqr_tpu_torch.ops import spmv
+
+    real, calls = dist.all_reduce, []
+
+    def counting(tensor, *a, **kw):
+        calls.append(tensor.numel())
+        return real(tensor, *a, **kw)
+
+    dist.all_reduce = counting
+    try:
+        torch.cuda.synchronize()
+        spmv.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = getattr(parallel, entry)(A, b, DAMP, device=dev, **extra, **opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = real
+    return res, secs, len(calls), spmv.launch_counts(by_variant=True)
+
+
+def shard_rank(rank, store, device, results):
+    """Phase 21 (b)'s rank ``rank`` of SHARD_RANKS, a spawned process on
+    ``device`` (the card): its sharded solves of every problem, sent to
+    ``results``."""
+    import hashlib
+
+    import torch
+
+    from lsqr_tpu_torch.parallel import initialize_distributed
+
+    try:
+        initialize_distributed(f"file://{store}", SHARD_RANKS, rank, backend="gloo")
+        dev = torch.device(device)
+        out = {}
+        short = dict(itnlim=SHARD_SHORT, atol=0.0, btol=0.0, conlim=0.0, nconv=SHARD_SHORT + 1)
+        for label, (A, b, opts, entry, extra) in shard_problems(dev).items():
+            res, secs, collectives, launches = sharded_run(entry, A, b, dev, opts, extra)
+            x = res.x.detach()
+            # the same solve cut to SHARD_SHORT iterations: the difference is
+            # the iterations' wall and collectives, the set-up (partition,
+            # packing) left out
+            _, secs_short, coll_short, _ = sharded_run(entry, A, b, dev,
+                                                       dict(opts, **short), extra)
+            ran = iterations_run(int(res.itn), min(int(opts.get("itnlim", 64)), 64))
+            out[label] = dict(istop=int(res.istop), itn=int(res.itn), secs=secs,
+                              iteration_ms=(secs - secs_short) * 1e3 / (ran - SHARD_SHORT),
+                              iteration_collectives=(collectives - coll_short)
+                              / (ran - SHARD_SHORT), launches=launches,
+                              x_sha=hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
+                              x=x.cpu().numpy() if rank == 0 else None)
+            del A, b, res, x
+            torch.cuda.empty_cache()
+        results.put((rank, out))
+        torch.distributed.destroy_process_group()
+    except BaseException as e:  # noqa: BLE001 - the parent fails the run with it
+        import traceback
+
+        results.put((rank, f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
+
+
+def sharded_one_rank(dev, card, paths, backend="nccl"):
+    """Phase 21 (a): a world of one rank in this process (NCCL takes one
+    card a rank), lsqr_sharded_dia on phase 2's band against the unsharded
+    solve, 64 fixed iterations in pair mode."""
+    import socket
+
+    import torch.distributed as dist
+
+    from lsqr_tpu_torch.parallel import initialize_distributed
+
+    fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, backend=backend)
+    A, b = shard_band(dev, M_MAIN)
+    for _ in range(2):  # a warm-up run, then the timed one
+        (res, secs, collectives, _), delta = counted(
+            lambda: sharded_run("lsqr_sharded_dia", A, b, dev, dict(fixed, pair=True), {}))
+    paths.append(delta)
+    ref, _, _ = timed_solve(A, b, "unsharded fixed 64 iterations (pair)", card, **fixed)
+    err = rel(res.x, ref.x)
+    itn = int(res.itn)
+    log(f"  (a) lsqr_sharded_dia, 1 rank on {backend}, {M_MAIN} x {len(OFFSETS)} diagonals, pair: "
+        f"istop={int(res.istop)} itn={itn}, x against the unsharded solve {err:.3e}; "
+        f"{secs * 1e3 / itn:.4f} ms an iteration (setup included), {collectives / itn:.2f} "
+        f"all-reduces an iteration; launches {({k: v for k, v in delta.items() if v})}  [{card}]")
+    check(int(res.istop) == int(ref.istop) and abs(itn - int(ref.itn)) <= 1,
+          "(a) istop/itn differ from the unsharded solve")
+    check(err <= SHARD_TOL, f"(a) x differs from the unsharded solve's by {err:.3e}")
+    check(delta["dia_pair_shared"] >= itn, f"(a) the sharded solve ran no pair kernel: {delta}")
+    dist.destroy_process_group()
+    return dict(istop=int(res.istop), itn=itn, x_rel=err, ms_per_iteration=secs * 1e3 / itn,
+                collectives_per_iteration=collectives / itn,
+                launches={k: v for k, v in delta.items() if v})
+
+
+def sharded_ranks(dev, card, paths):
+    """Phase 21 (b): SHARD_RANKS gloo ranks, spawned processes that share
+    ``dev`` (the kernel library built before is loaded, not built, by
+    each), every solve held to the unsharded one in this process."""
+    import queue
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch import native
+    from lsqr_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    _cuda.library()  # built before the spawn: the ranks load them
+    native._lib()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=shard_rank,
+                             args=(r, os.path.join(tmp, "store"), str(dev), results))
+                 for r in range(SHARD_RANKS)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            deadline = time.perf_counter() + SHARD_TIMEOUT
+            while len(got) < SHARD_RANKS:
+                try:
+                    rank, value = results.get(timeout=max(1.0, deadline - time.perf_counter()))
+                except queue.Empty:
+                    raise AssertionError(f"(b) ranks {sorted(set(range(SHARD_RANKS)) - set(got))}"
+                                         f" did not answer in {SHARD_TIMEOUT} s") from None
+                check(not isinstance(value, str), f"(b) rank {rank} failed: {value}")
+                got[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        check(all(p.exitcode == 0 for p in procs),
+              f"(b) rank exit codes {[p.exitcode for p in procs]}")
+    log(f"  (b) {SHARD_RANKS} gloo ranks answered in {time.perf_counter() - t_phase:.1f} s")
+
+    refs = shard_problems(dev)
+    out = {}
+    for label, (A, b, opts, entry, extra) in refs.items():
+        ranks = [got[r][label] for r in range(SHARD_RANKS)]
+        first = ranks[0]
+        check(len({r["x_sha"] for r in ranks}) == 1, f"(b) {label}: ranks' x differ")
+        check(len({(r["istop"], r["itn"]) for r in ranks}) == 1,
+              f"(b) {label}: ranks stopped apart")
+        for r in ranks:
+            paths.append(r["launches"])
+        if label == "wcoo":
+            check(all(r["launches"]["wcoo_pair"] > 0 for r in ranks),
+                  "(b) wcoo: a rank launched no wcoo_pair")
+            Aw = lt.wcoo_operator(A.m, A.n, *(t.numpy() for t in (A.vals, A.rows, A.cols)),
+                                  device=dev)
+            ref = lt.lsqr(Aw, b, DAMP, **opts)
+            coo_t = tuple(t.to(dev) for t in (A.rows, A.cols, A.vals))
+            phis = [objective(coo_t, A.m, A.n, b, torch.from_numpy(x).to(dev), DAMP)
+                    for x in (first["x"], ref.x.cpu().numpy())]
+            err = abs(phis[0] - phis[1]) / phis[1]
+            check(first["istop"] in (1, 2, 3) and err <= OBJ_TOL["wcoo"],
+                  f"(b) wcoo: istop {first['istop']}, objective differs by {err:.3e}")
+            del Aw, coo_t
+        else:
+            if label == "2d":
+                A = lt.coo_operator(A.m, A.n, *(t.numpy() for t in (A.vals, A.rows, A.cols)),
+                                    device=dev)
+            ref = lt.lsqr(A, b, DAMP, **opts)
+            err = rel(torch.from_numpy(first["x"]).to(dev), ref.x)
+            check(first["istop"] == int(ref.istop) and abs(first["itn"] - int(ref.itn)) <= 1
+                  and err <= SHARD_TOL,
+                  f"(b) {label}: istop {first['istop']} itn {first['itn']} against "
+                  f"{int(ref.istop)} {int(ref.itn)}, x differs by {err:.3e}")
+        entry_out = dict(istop=first["istop"], itn=first["itn"], ref_itn=int(ref.itn),
+                         x_rel=err, solve_ms=[r["secs"] * 1e3 for r in ranks],
+                         ms_per_iteration=[r["iteration_ms"] for r in ranks],
+                         collectives_per_iteration=first["iteration_collectives"],
+                         launches={k: v for k, v in first["launches"].items() if v})
+        out[label] = entry_out
+        log(f"  (b) {entry} [{label}]: istop={first['istop']} itn={first['itn']} "
+            f"(unsharded {int(ref.itn)}), {'objective' if label == 'wcoo' else 'x'} against "
+            f"the unsharded solve {err:.3e}; solve ms by rank (set-up included) "
+            f"{np.round(entry_out['solve_ms'], 1).tolist()}, ms an iteration by rank "
+            f"{np.round(entry_out['ms_per_iteration'], 3).tolist()}, "
+            f"{entry_out['collectives_per_iteration']:.2f} all-reduces an iteration; rank 0's "
+            f"launches {entry_out['launches']}  [{card}]")
+        del A, b, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(dev, card, paths):
+    """Phase 21: (a) one rank on NCCL in this process, (b) SHARD_RANKS gloo
+    ranks spawned on this card, each solve against the unsharded one."""
+    t_phase = time.perf_counter()
+    out = dict(nccl_1rank=sharded_one_rank(dev, card, paths),
+               gloo_ranks=sharded_ranks(dev, card, paths))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3556,10 +3830,12 @@ def main():
     solves["api"] = phase_api(dev, M_MAIN, card, paths)
     phase("phase 20: multi-damp sweeps, batches, regularization paths, gradients")
     solves["rows"] = phase_rows(dev, M_MAIN, card, paths)
+    phase("phase 21: sharded solves (1 rank on NCCL, 4 gloo ranks on this card)")
+    solves["sharded"] = phase_sharded(dev, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
     log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15, "
-        f"17-20: {launches}")
+        f"17-21: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

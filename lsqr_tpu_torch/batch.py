@@ -25,7 +25,7 @@ import torch
 from .cgls import CGLSResult
 from .config import LSQROptions, as_dtype, default_dtype, real_dtype
 from .lsmr import LSMRResult, check_complex_pair, sibling_tolerances
-from .multidamp import (_Rows, _row_nrm2, build_lsmr_rows, build_lsqr_rows, reject_options,
+from .multidamp import (_Rows, build_lsmr_rows, build_lsqr_rows, reject_options,
                         solve_rows)
 from .ops.linop import as_operator, as_tensor
 from .solver import LSQRResult, lsqr_routes, resolve_pair
@@ -140,14 +140,14 @@ def _build_cgls_rows(A, B, damps, atol, btol, *, itnlim: int, safe_norms: bool, 
     one = torch.tensor(1.0, dtype=rdtype, device=dev)
     izero = torch.zeros(k, dtype=torch.int32, device=dev)
 
-    def norm(vec):
-        return ops.norm(vec, safe_norms)
+    def norm(vec, side):
+        return ops.norm(vec, safe_norms, side)
 
     # --- setup: r_0 = b, s_0 = A'r_0, p_0 = s_0 ----------------------------
-    bnorm = norm(B)
+    bnorm = norm(B, "m")
     s0 = torch.where(col(bnorm > zero), ops.rmatvec(B),
                      torch.zeros((k, n), dtype=dtype, device=dev))
-    gnorm0 = norm(s0)
+    gnorm0 = norm(s0, "n")
     gamma0 = gnorm0 * gnorm0
     active0 = (bnorm > zero) & (gnorm0 > zero)
 
@@ -168,8 +168,8 @@ def _build_cgls_rows(A, B, damps, atol, btol, *, itnlim: int, safe_norms: bool, 
             q, t_adj = ops.fused_pair(c.r, c.p, one, zero)
         else:
             q = ops.matvec(c.p)
-        qn = norm(q)
-        pn = norm(c.p)
+        qn = norm(q, "m")
+        pn = norm(c.p, "n")
         delta = qn * qn + damps * damps * pn * pn
         safe_delta = torch.where(delta > zero, delta, one)
         alpha = torch.where(delta > zero, c.gamma / safe_delta, zero)
@@ -185,14 +185,14 @@ def _build_cgls_rows(A, B, damps, atol, btol, *, itnlim: int, safe_norms: bool, 
         else:
             ar = c.ar
             s = ops.rmatvec(r) - col(damps * damps) * x
-        gnorm = norm(s)
+        gnorm = norm(s, "n")
         gamma = gnorm * gnorm
         safe_gamma = torch.where(c.gamma > zero, c.gamma, one)
         beta = torch.where(c.gamma > zero, gamma / safe_gamma, zero)
         p = s + col(beta) * c.p
 
-        xnorm = norm(x)
-        rn = norm(r)
+        xnorm = norm(x, "n")
+        rn = norm(r, "m")
         rnorm = torch.sqrt(rn * rn + damps * damps * xnorm * xnorm)
 
         safe_bnorm = torch.where(bnorm > zero, bnorm, one)
@@ -229,7 +229,7 @@ def _build_cgls_rows(A, B, damps, atol, btol, *, itnlim: int, safe_norms: bool, 
             x=x, istop=final.istop, itn=final.itn,
             rnorm=torch.where(diverged, final.rbest, final.rnorm),
             arnorm=torch.sqrt(torch.where(diverged, final.gmin, final.gamma)),
-            anorm=final.anorm, xnorm=_row_nrm2(x, safe=safe_norms),
+            anorm=final.anorm, xnorm=ops.norm(x, safe_norms, "n"),
         )
 
     return carry0, cond_fun, body_fun, finalize, ()

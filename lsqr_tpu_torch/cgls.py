@@ -21,7 +21,7 @@ import torch
 
 from .config import real_dtype
 from .lsmr import check_complex_pair, sibling_tolerances, solve_dtype
-from .ops.blas import nrm2
+from .ops.blas import nrm2, side_norms
 from .ops.linop import LinearOperator, as_operator, as_tensor
 from .solver import _run_segments, damped_warm_start, resolve_pair
 
@@ -92,13 +92,12 @@ def _build(
     one = torch.tensor(1.0, dtype=rdtype, device=dev)
     izero = torch.tensor(0, dtype=torch.int32, device=dev)
 
-    def norm(vec):
-        return nrm2(vec, safe=safe_norms)
+    norm_m, norm_n = side_norms(A, safe_norms)  # completed over a shard's groups
 
     # --- setup: r_0 = b, s_0 = A'r_0, p_0 = s_0 ----------------------------
-    bnorm = norm(b)
+    bnorm = norm_m(b)
     s0 = torch.where(bnorm > zero, A.rmatvec(b), torch.zeros(n, dtype=dtype, device=dev))
-    gnorm0 = norm(s0)
+    gnorm0 = norm_n(s0)
     gamma0 = gnorm0 * gnorm0
     # A'b == 0 -> x = 0 is the least-squares solution (istop 0)
     active0 = (bnorm > zero) & (gnorm0 > zero)
@@ -121,8 +120,8 @@ def _build(
             q, t_adj = A.fused_pair(y=c.r, win=c.p, c1=one, c2=zero)
         else:
             q = A.matvec(c.p)
-        qn = norm(q)
-        pn = norm(c.p)
+        qn = norm_m(q)
+        pn = norm_n(c.p)
         delta = qn * qn + damp * damp * pn * pn
         safe_delta = torch.where(delta > zero, delta, one)
         alpha = torch.where(delta > zero, c.gamma / safe_delta, zero)
@@ -139,7 +138,7 @@ def _build(
         else:
             ar = c.ar
             s = A.rmatvec(r) - damp * damp * x
-        gnorm = norm(s)
+        gnorm = norm_n(s)
         gamma = gnorm * gnorm
         safe_gamma = torch.where(c.gamma > zero, c.gamma, one)
         beta = torch.where(c.gamma > zero, gamma / safe_gamma, zero)
@@ -147,8 +146,8 @@ def _build(
 
         # the damped residual norm, from the maintained r (the recurrence
         # rnorm² -= alpha*gamma collapses under f32 cancellation)
-        xnorm = norm(x)
-        rn = norm(r)
+        xnorm = norm_n(x)
+        rn = norm_m(r)
         rnorm = torch.sqrt(rn * rn + damp * damp * xnorm * xnorm)
 
         # stopping, LSQR's test shapes (lsqr.f90:781-810)
@@ -187,7 +186,7 @@ def _build(
             x=x, istop=final.istop, itn=final.itn,
             rnorm=torch.where(diverged, final.rbest, final.rnorm),
             arnorm=torch.sqrt(torch.where(diverged, final.gmin, final.gamma)),
-            anorm=final.anorm, xnorm=nrm2(x, safe=safe_norms),
+            anorm=final.anorm, xnorm=norm_n(x),
         )
 
     return carry0, cond_fun, body_fun, finalize

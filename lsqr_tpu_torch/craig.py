@@ -20,7 +20,7 @@ import torch
 
 from .config import real_dtype
 from .lsmr import check_complex_pair, solve_dtype
-from .ops.blas import nrm2
+from .ops.blas import nrm2, side_norms
 from .ops.linop import LinearOperator, as_operator, as_tensor
 from .solver import _run_segments, resolve_pair
 
@@ -86,16 +86,15 @@ def _build(
     one = torch.tensor(1.0, dtype=rdtype, device=dev)
     izero = torch.tensor(0, dtype=torch.int32, device=dev)
 
-    def norm(vec):
-        return nrm2(vec, safe=safe_norms)
+    norm_m, norm_n = side_norms(A, safe_norms)  # completed over a shard's groups
 
     # --- setup: beta_1 u_1 = b, alpha_1 v_1 = A'u_1 ------------------------
-    bnorm = norm(b)
+    bnorm = norm_m(b)
     beta0 = bnorm
     safe_beta0 = torch.where(beta0 > zero, beta0, one)
     u0 = torch.where(beta0 > zero, b / safe_beta0, b)
     v0u = torch.where(beta0 > zero, A.rmatvec(u0), torch.zeros(n, dtype=dtype, device=dev))
-    alpha0 = torch.where(beta0 > zero, norm(v0u), zero)
+    alpha0 = torch.where(beta0 > zero, norm_n(v0u), zero)
     safe_alpha0 = torch.where(alpha0 > zero, alpha0, one)
     v0 = torch.where(alpha0 > zero, v0u / safe_alpha0, v0u)
 
@@ -126,7 +125,7 @@ def _build(
             u, z_adj = A.fused_pair(y=c.u, win=c.v, c1=one, c2=c.alpha)
         else:
             u = A.matvec(c.v) - c.alpha * c.u
-        beta = norm(u)
+        beta = norm_m(u)
         beta_pos = beta > zero
         safe_beta = torch.where(beta_pos, beta, one)
         u = torch.where(beta_pos, u / safe_beta, u)
@@ -138,7 +137,7 @@ def _build(
             v_cand = torch.where(beta_pos, z_adj / safe_beta, z_adj) - beta * c.v
         else:
             v_cand = A.rmatvec(u) - beta * c.v
-        alpha_cand = norm(v_cand)
+        alpha_cand = norm_n(v_cand)
         alpha_pos = alpha_cand > zero
         safe_alpha = torch.where(alpha_pos, alpha_cand, one)
         v = torch.where(beta_pos & alpha_pos, v_cand / safe_alpha, c.v)

@@ -21,9 +21,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .config import default_dtype, real_dtype
-from .ops.blas import nrm2
+from .ops.blas import nrm2, side_norms
 from .ops.linop import LinearOperator, as_operator, as_tensor
-from .solver import _run_segments, damped_warm_start, resolve_pair
+from .solver import _run_segments, damped_warm_start, first_entry, resolve_pair
 
 __all__ = ["LSMRResult", "lsmr", "LSMR_ISTOP_MESSAGES", "LSMR_TRACE_COLUMNS"]
 
@@ -155,18 +155,17 @@ def _build(
     zero = const(0.0)
     one = const(1.0)
 
-    def norm(vec):
-        return nrm2(vec, safe=safe_norms)
+    norm_m, norm_n = side_norms(A, safe_norms)  # completed over a shard's groups
 
     ctol = torch.where(conlim > zero, one / torch.where(conlim > zero, conlim, one), zero)
 
     # --- setup: beta u = b, alpha v = A'u ---------------------------------
-    normb = norm(b)
+    normb = norm_m(b)
     beta0 = normb
     safe_beta0 = torch.where(beta0 > zero, beta0, one)
     u0 = torch.where(beta0 > zero, b / safe_beta0, b)
     v0u = torch.where(beta0 > zero, A.rmatvec(u0), torch.zeros(n, dtype=dtype, device=dev))
-    alpha0 = torch.where(beta0 > zero, norm(v0u), zero)
+    alpha0 = torch.where(beta0 > zero, norm_n(v0u), zero)
     safe_alpha0 = torch.where(alpha0 > zero, alpha0, one)
     v0 = torch.where(alpha0 > zero, v0u / safe_alpha0, v0u)
     normar0 = alpha0 * beta0
@@ -205,7 +204,7 @@ def _build(
             u, z_adj = A.fused_pair(y=c.u, win=c.v, c1=one, c2=c.alpha)
         else:
             u = A.matvec(c.v) - c.alpha * c.u
-        beta = norm(u)
+        beta = norm_m(u)
         beta_pos = beta > zero
         safe_beta = torch.where(beta_pos, beta, one)
         u = torch.where(beta_pos, u / safe_beta, u)
@@ -213,7 +212,7 @@ def _build(
             v_cand = torch.where(beta_pos, z_adj / safe_beta, z_adj) - beta * c.v
         else:
             v_cand = A.rmatvec(u) - beta * c.v
-        alpha_cand = norm(v_cand)
+        alpha_cand = norm_n(v_cand)
         alpha_pos = alpha_cand > zero
         safe_alpha = torch.where(alpha_pos, alpha_cand, one)
         v_cand = torch.where(alpha_pos, v_cand / safe_alpha, v_cand)
@@ -268,7 +267,7 @@ def _build(
 
         # --- convergence tests -------------------------------------------
         normar = torch.abs(zetabar)
-        normx = norm(x)
+        normx = norm_n(x)
         safe_normb = torch.where(normb > zero, normb, one)
         test1 = normr / safe_normb
         denom2 = norma * normr
@@ -290,8 +289,9 @@ def _build(
         istop = torch.where(test1 <= rtol, 1, istop)
 
         if record_trace:
+            x0_val = first_entry(x, getattr(A, "axis_name_n", None))
             row = torch.stack([
-                itn.to(rdtype), x[0].real if dtype.is_complex else x[0], normr, normar, test1,
+                itn.to(rdtype), x0_val.real if dtype.is_complex else x0_val, normr, normar, test1,
                 torch.where(torch.isinf(test2), zero, test2), norma, conda])
             idx = torch.clamp(itn, max=trace_rows - 1).long().view(1)
             old = c.trace.index_select(0, idx)
@@ -320,8 +320,9 @@ def _build(
 
 def solve_dtype(b: torch.Tensor, A: LinearOperator) -> torch.dtype:
     """The working dtype of a sibling solve: b's, ints -> the default float
-    (the JAX siblings' rule)."""
-    if b.ndim != 1 or b.shape[0] != A.m:
+    (the JAX siblings' rule). A shard (``axis_name_m`` set) takes its own
+    slice of b, whatever its length."""
+    if b.ndim != 1 or (getattr(A, "axis_name_m", None) is None and b.shape[0] != A.m):
         raise ValueError(f"b must be a vector of length m = {A.m}; got shape "
                          f"{tuple(b.shape)}")
     return b.dtype if b.dtype.is_floating_point or b.dtype.is_complex else default_dtype()

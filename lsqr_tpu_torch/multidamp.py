@@ -40,7 +40,7 @@ import torch
 
 from .config import LSQROptions, as_dtype, default_dtype, real_dtype
 from .lsmr import LSMRResult, _sym_ortho, check_complex_pair, sibling_tolerances, solve_dtype
-from .ops.blas import abs2, d2norm, nrm2
+from .ops.blas import abs2, all_max, all_sum, d2norm, nrm2
 from .ops.linop import as_operator, as_tensor
 from .solver import LSQRResult, _run_segments, lsqr_routes, resolve_pair
 
@@ -75,21 +75,23 @@ def row_ssq(mat: torch.Tensor):
     return torch.stack(sqs), torch.stack([sq.sum() for sq in sqs])
 
 
-def _row_nrm2(mat: torch.Tensor, *, safe: bool) -> torch.Tensor:
+def _row_nrm2(mat: torch.Tensor, *, safe: bool, group=None) -> torch.Tensor:
     """Row-wise Euclidean norms of a (k, ·) tensor: :func:`~.ops.blas.nrm2`
     of each row, with the same overflow-safe scaling (complex rows give
     real norms; their moduli one row at a time, as in :func:`row_ssq`) and
-    the sums of squares taken by :func:`row_ssq`."""
+    the sums of squares taken by :func:`row_ssq`; with ``group``, of rows
+    split over its ranks, as ``nrm2``'s."""
     if safe:
         if mat.is_complex():
             amax = torch.stack([row.abs().amax() for row in mat])
         else:
             amax = mat.abs().amax(dim=-1)
+        amax = all_max(amax, group)
         one = torch.ones((), dtype=amax.dtype, device=mat.device)
         scale = torch.where(amax > 0, amax, one)
-        ssq = row_ssq(mat / scale[:, None])[1]
+        ssq = all_sum(row_ssq(mat / scale[:, None])[1], group)
         return torch.where(amax > 0, scale * ssq.sqrt(), torch.zeros_like(amax))
-    return row_ssq(mat)[1].sqrt()
+    return all_sum(row_ssq(mat)[1], group).sqrt()
 
 
 class _Rows:
@@ -100,17 +102,26 @@ class _Rows:
 
     def __init__(self, A, batched: bool):
         self.A, self.batched = A, batched
+        # the distribution hooks (ops/linop.py), by the vectors' side
+        self.groups = dict(m=getattr(A, "axis_name_m", None),
+                           n=getattr(A, "axis_name_n", None))
 
     def col(self, s):
         """A scalar of the bidiagonalization against its vector(s)."""
         return s[:, None] if self.batched else s
 
-    def norm(self, vec, safe: bool):
-        return _row_nrm2(vec, safe=safe) if self.batched else nrm2(vec, safe=safe)
+    def norm(self, vec, safe: bool, side: str):
+        """The norm of an m-vector (``side`` "m") or n-vector ("n"), or of
+        each row."""
+        group = self.groups[side]
+        if self.batched:
+            return _row_nrm2(vec, safe=safe, group=group)
+        return nrm2(vec, safe=safe, group=group)
 
-    def ssq(self, vec):
+    def ssq(self, vec, side: str):
         """The sum of squares (of moduli) of the vector or of each row."""
-        return row_ssq(vec)[1] if self.batched else torch.sum(abs2(vec))
+        return all_sum(row_ssq(vec)[1] if self.batched else torch.sum(abs2(vec)),
+                       self.groups[side])
 
     def _each(self, fn, *args):
         """fn on each row's slice of args (scalars broadcast to the rows),
@@ -254,20 +265,20 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
     one = const(1.0)
     damps, atol, btol, conlim = sc(damps), sc(atol), sc(btol), sc(conlim)
 
-    def norm(vec):
-        return sc(ops.norm(vec, safe_norms))
+    def norm(vec, side):
+        return sc(ops.norm(vec, safe_norms, side))
 
     damped = damps > zero
     ctol = torch.where(conlim > zero, one / torch.where(conlim > zero, conlim, one), zero)
 
     # --- setup: beta*u = b, alpha*v = A'u (lsqr.f90:619-646) -------------
     u0 = b
-    beta0 = norm(u0)
+    beta0 = norm(u0, "m")
     safe_beta0 = torch.where(beta0 > zero, beta0, one)
     u0_norm = torch.where(col(beta0 > zero), u0 / col(vc(safe_beta0)), u0)
     v0u = torch.where(col(beta0 > zero), ops.rmatvec(u0_norm),
                       torch.zeros(b.shape[:-1] + (n,), dtype=dtype, device=dev))
-    alpha0 = torch.where(beta0 > zero, norm(v0u), zero)
+    alpha0 = torch.where(beta0 > zero, norm(v0u, "n"), zero)
     safe_alpha0 = torch.where(alpha0 > zero, alpha0, one)
     v0_norm = torch.where(col(alpha0 > zero), v0u / col(vc(safe_alpha0)), v0u)
     u0c, v0c = (u0, v0u) if fused else (u0_norm, v0_norm)
@@ -303,7 +314,7 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
             if pair:
                 u, z_adj = ops.fused_pair(c.u, c.v, inv_alpha_prev,
                                           c.alpha * inv_beta_prev)
-                ssq_u = ops.ssq(u)
+                ssq_u = ops.ssq(u, "m")
             else:
                 u, ssq_u = ops.fused_halfstep(True, c.u, c.v, inv_alpha_prev,
                                               c.alpha * inv_beta_prev)
@@ -315,7 +326,7 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
             inv_beta = torch.where(beta_pos, one / torch.where(beta_pos, beta, one), zero)
             if pair:
                 v_cand = z_adj * col(vc(inv_beta)) - col(vc(beta * inv_alpha_prev)) * c.v
-                ssq_v = ops.ssq(v_cand)
+                ssq_v = ops.ssq(v_cand, "n")
             else:
                 v_cand, ssq_v = ops.fused_halfstep(False, c.v, u, inv_beta,
                                                    beta * inv_alpha_prev)
@@ -327,7 +338,7 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
             v_for_w = v * col(inv_alpha_new)
         else:
             u = ops.matvec(c.v) - col(vc(c.alpha)) * c.u
-            beta = norm(u)
+            beta = norm(u, "m")
             temp = d2norm(c.alpha, beta)
             temp = d2norm(temp, damps)
             anorm = d2norm(c.anorm, temp)
@@ -335,7 +346,7 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
             safe_beta = torch.where(beta_pos, beta, one)
             u = torch.where(col(beta_pos), u / col(vc(safe_beta)), u)
             v_cand = ops.rmatvec(u) - col(vc(beta)) * c.v
-            alpha_cand = norm(v_cand)
+            alpha_cand = norm(v_cand, "n")
             alpha_pos = alpha_cand > zero
             safe_alpha = torch.where(alpha_pos, alpha_cand, one)
             v_cand = torch.where(col(alpha_pos), v_cand / col(vc(safe_alpha)), v_cand)
@@ -370,7 +381,7 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
         x = vc(t1)[:, None] * t + c.x
         w = vc(t2)[:, None] * t + v_for_w
         dk2, dk2_sums = row_ssq(vc(t3)[:, None] * t)
-        dknorm = torch.sqrt(sc(dk2_sums))
+        dknorm = torch.sqrt(sc(all_sum(dk2_sums, ops.groups["n"])))
         se = c.se + dk2 if wantse else c.se
 
         # --- cancellation monitor (lsqr.f90:747-757) ---------------------
@@ -435,9 +446,11 @@ def build_lsqr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
     def finalize(final) -> LSQRResult:
         # --- standard errors (lsqr.f90:857-865) --------------------------
         se_out = None
-        if wantse:
-            t_static = float(m - n) if m > n else 1.0
-            t = torch.where(damped, const(float(m)), const(t_static))
+        if wantse:  # of the whole problem: a shard's m and n are its own
+            gm = int(getattr(A, "global_m", m))
+            gn = int(getattr(A, "global_n", n))
+            t_static = float(gm - gn) if gm > gn else 1.0
+            t = torch.where(damped, const(float(gm)), const(t_static))
             t = final.rnorm / torch.sqrt(t)
             se_out = vc(t)[:, None] * torch.sqrt(final.se)
         # damped istop 2 -> 3 (lsqr.f90:871)
@@ -497,7 +510,7 @@ def lsqr_multidamp(A, b, damps, *, options: Optional[LSQROptions] = None,
         dtype = default_dtype()
     b = b.to(dtype)
     damps = _damps(damps, dtype, b.device)
-    if b.ndim != 1 or b.shape[0] != A.m:
+    if b.ndim != 1 or (getattr(A, "axis_name_m", None) is None and b.shape[0] != A.m):
         raise ValueError(f"b must be a vector of length m = {A.m}; got shape {tuple(b.shape)}")
     itnlim = opts.resolve_itnlim(A.n)
     _, pair = lsqr_routes(A, opts)  # no half-step route here, as in the JAX package
@@ -586,19 +599,19 @@ def build_lsmr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
     ones = torch.ones(k, dtype=rdtype, device=dev)
     zeros = torch.zeros(k, dtype=rdtype, device=dev)
 
-    def norm(vec):
-        return ops.norm(vec, safe_norms)
+    def norm(vec, side):
+        return ops.norm(vec, safe_norms, side)
 
     ctol = torch.where(conlim > zero, one / torch.where(conlim > zero, conlim, one), zero)
 
     # --- setup: beta u = b, alpha v = A'u ---------------------------------
-    normb = norm(b)
+    normb = norm(b, "m")
     beta0 = normb
     safe_beta0 = torch.where(beta0 > zero, beta0, one)
     u0 = torch.where(col(beta0 > zero), b / col(safe_beta0), b)
     v0u = torch.where(col(beta0 > zero), ops.rmatvec(u0),
                       torch.zeros(b.shape[:-1] + (n,), dtype=dtype, device=dev))
-    alpha0 = torch.where(beta0 > zero, norm(v0u), zero)
+    alpha0 = torch.where(beta0 > zero, norm(v0u, "n"), zero)
     safe_alpha0 = torch.where(alpha0 > zero, alpha0, one)
     v0 = torch.where(col(alpha0 > zero), v0u / col(safe_alpha0), v0u)
     normar0 = alpha0 * beta0
@@ -630,7 +643,7 @@ def build_lsmr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
             u, z_adj = ops.fused_pair(c.u, c.v, one, c.alpha)
         else:
             u = ops.matvec(c.v) - col(c.alpha) * c.u
-        beta = norm(u)
+        beta = norm(u, "m")
         beta_pos = beta > zero
         safe_beta = torch.where(beta_pos, beta, one)
         u = torch.where(col(beta_pos), u / col(safe_beta), u)
@@ -639,7 +652,7 @@ def build_lsmr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
                       - col(beta) * c.v)
         else:
             v_cand = ops.rmatvec(u) - col(beta) * c.v
-        alpha_cand = norm(v_cand)
+        alpha_cand = norm(v_cand, "n")
         alpha_pos = alpha_cand > zero
         safe_alpha = torch.where(alpha_pos, alpha_cand, one)
         v_cand = torch.where(col(alpha_pos), v_cand / col(safe_alpha), v_cand)
@@ -692,7 +705,7 @@ def build_lsmr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
 
         # --- convergence tests -------------------------------------------
         normar = torch.abs(zetabar)
-        normx = _row_nrm2(x, safe=safe_norms)
+        normx = _row_nrm2(x, safe=safe_norms, group=ops.groups["n"])
         safe_normb = torch.where(normb > zero, normb, one)
         test1 = normr / safe_normb
         denom2 = norma * normr

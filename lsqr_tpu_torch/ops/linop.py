@@ -6,6 +6,13 @@ products on tensors,
 
 PyTorch counterpart of :mod:`lsqr_tpu.ops.linop`. Operators are plain
 objects holding tensors; the device is the device of those tensors.
+
+``axis_name_m`` and ``axis_name_n`` are the distribution hooks, as in JAX:
+an operator that is one rank's shard of a larger one names there the
+``torch.distributed`` process group over which its m-vectors (u, b) and
+n-vectors (v, x, w) are split. The solvers complete every norm and sum
+over those groups (:func:`~lsqr_tpu_torch.ops.blas.all_sum`); None, the
+default, runs no collective.
 """
 
 from __future__ import annotations
@@ -58,6 +65,10 @@ class LinearOperator:
 
     m: int
     n: int
+    #: process group over which the m-vectors are split (None: not split)
+    axis_name_m = None
+    #: process group over which the n-vectors are split (None: not split)
+    axis_name_n = None
 
     @property
     def shape(self):

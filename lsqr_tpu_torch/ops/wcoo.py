@@ -33,7 +33,7 @@ from .linop import LinearOperator, placement, to_numpy
 from .spmv_wcoo import CR, wcoo_adjoint, wcoo_forward, wcoo_pair
 
 __all__ = ["WCOOOperator", "WCOOPacked", "WCOOPackError", "wcoo_operator", "wcoo_pack",
-           "wcoo_pack_arrays", "ChunkedCOOOperator"]
+           "wcoo_pack_arrays", "wcoo_plan", "ChunkedCOOOperator"]
 
 #: max boundary windows (JAX's S-gather bound)
 _KB_MAX = 7
@@ -264,6 +264,42 @@ def wcoo_pack(m, n, vals, rows, cols, *, force_emax=None, force_kb=None, force_k
     arrays, meta = wcoo_pack_arrays(m, n, vals, rows, cols, force_emax=force_emax,
                                     force_kb=force_kb, force_ku=force_ku)
     return packed_from_arrays(arrays, meta, device)
+
+
+def wcoo_plan(m, n, rows, cols) -> dict:
+    """The statics :func:`wcoo_pack_arrays` gives these (unsorted) triplets
+    without forcing, found without building the packing: ``emax``, ``kb``
+    and ``ku``. Their maxima over the shards of a sharded solve are the
+    ``force_*`` values under which every shard packs once to one shape.
+    Raises the packer's window refusals (``_KU_MAX``, ``_KB_MAX``)."""
+    rows = to_numpy(rows).astype(np.int64, copy=False)
+    order = np.argsort(rows, kind="stable")  # only the rows' order matters here
+    rows = rows[order]
+    nc = max(1, -(-m // CR))
+    chunk_of = rows // CR
+    cstart = np.searchsorted(chunk_of, np.arange(nc))
+    cend = np.searchsorted(chunk_of, np.arange(nc), side="right")
+    emax = int(-(-max(1, int((cend - cstart).max())) // 1024) * 1024)
+    eb = emax // 1024
+    kb_req = ku_req = 1
+    for t in range(nc):
+        st, e = int(cstart[t]), int(cend[t])
+        k = e - st
+        rowl = np.zeros(emax, np.int64)
+        rowl[:k] = rows[st:e] - t * CR
+        if k and k < emax:  # the packing's padding: the last row
+            rowl[k:] = rowl[k - 1]
+        R2 = rowl.reshape(eb, 1024)
+        base_u = R2[:, 0] & ~127
+        need_u = -(-(R2[:, -1] - base_u + 1) // 128)
+        if need_u.max() > _KU_MAX:
+            i = int(need_u.argmax())
+            raise WCOOPackError(
+                f"row span {int(R2[i, -1] - R2[i, 0])} in one entry subtile exceeds "
+                f"{_KU_MAX} 128-row u-window slices (chunk {t}, subtile {i})")
+        ku_req = max(ku_req, int(need_u.max()))
+        kb_req = max(kb_req, row_ends(rowl, k, emax, t, WCOOPackError)[2])
+    return dict(emax=emax, kb=min(kb_req, eb), ku=ku_req)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

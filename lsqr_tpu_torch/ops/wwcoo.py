@@ -40,7 +40,7 @@ from .spmv_wcoo import CR, SHIFT, wwcoo_adjoint, wwcoo_forward, wwcoo_pair
 from .wcoo import ChunkedCOOOperator, ChunkedPacked, row_ends
 
 __all__ = ["WWCOOOperator", "WWCOOPacked", "WWCOOPackError", "wwcoo_operator",
-           "wwcoo_pack", "wwcoo_pack_arrays", "column_index", "column_lists"]
+           "wwcoo_pack", "wwcoo_pack_arrays", "wwcoo_plan", "column_index", "column_lists"]
 
 #: widest n (JAX's VMEM-resident x and z blocks)
 _N_MAX = 262_144
@@ -140,11 +140,18 @@ def _value_windows(lo, hi):
     return base0, k
 
 
-def wwcoo_pack_arrays(m, n, vals, rows, cols):
+def wwcoo_pack_arrays(m, n, vals, rows, cols, *, force_emax=None, force_kb=None,
+                      force_js=None, force_w=None):
     """JAX's WWCOO packing of (unsorted) COO triplets (its numpy loop), byte
     for byte: (arrays, statics), the arrays numpy and named as the fields of
     JAX's ``WWCOOPacked`` (the TPU tables and work lists included). Raises
-    :class:`WWCOOPackError` when n > 262,144 or a window constraint fails."""
+    :class:`WWCOOPackError` when n > 262,144 or a window constraint fails.
+
+    The ``force_*`` knobs are JAX's: they pin the padded entry capacity
+    (``force_emax``), the S-window count (``force_kb``), the column-map rows
+    (``force_js``) and all five work-list lengths (``force_w``), so that the
+    shards of a sharded solve share one shape; packing fails if the data
+    needs more (:func:`wwcoo_plan` gives what it needs)."""
     if n > _N_MAX:
         raise WWCOOPackError(f"WWCOO requires n <= {_N_MAX}, got {n}")
     vals = to_numpy(vals).astype(np.float32, copy=False)
@@ -164,6 +171,10 @@ def wwcoo_pack_arrays(m, n, vals, rows, cols):
     cend = np.searchsorted(chunk_of, np.arange(nc), side="right")
     counts = cend - cstart
     emax = int(-(-max(1, counts.max()) // 1024) * 1024)
+    if force_emax is not None:
+        if emax > force_emax:
+            raise WWCOOPackError(f"chunk needs {emax} entry slots > forced {force_emax}")
+        emax = int(force_emax)
     eb = emax // 1024
 
     vals_r_p = np.zeros((nc, emax), np.float32)
@@ -275,6 +286,10 @@ def wwcoo_pack_arrays(m, n, vals, rows, cols):
 
     # pad the ragged structures to common statics
     d_pad = max(1024, -(-max(len(c) for c in colmaps) // 1024) * 1024)
+    if force_js is not None:
+        if d_pad // 128 > force_js:
+            raise WWCOOPackError(f"chunk needs {d_pad // 128} colmap rows > forced {force_js}")
+        d_pad = int(force_js) * 128
     js = d_pad // 128
     wc = max(1, max(len(a) for a in cwk))
     wf = max(1, max(len(a) for a in fwk))
@@ -286,6 +301,11 @@ def wwcoo_pack_arrays(m, n, vals, rows, cols):
             f"chunk needs {max(wc, wf, wu, wm, wz)} work items > "
             f"{_W_MAX} — row/column spread too wide for the WWCOO "
             f"window budget")
+    if force_w is not None:
+        if max(wc, wf, wu, wm, wz) > force_w:
+            raise WWCOOPackError(
+                f"chunk needs {max(wc, wf, wu, wm, wz)} work items > forced {force_w}")
+        wc = wf = wu = wm = wz = int(force_w)
 
     # JAX's VMEM-demand guard (kept for routing parity)
     demand = eb * 36_864 + (wm + wz) * 8_192 + (xs + js) * 2_048
@@ -331,17 +351,72 @@ def wwcoo_pack_arrays(m, n, vals, rows, cols):
 
     arrays = dict(vals=vals_c_p, rowl=rowl_c_p, vals_r=vals_r_p, col_r=col_r_p,
                   colmap=colmap_p, ep=ep, zexp=zexp, gpe=gpe, bnb=bnb, **lists)
-    meta = dict(m=m, n=n, m_pad=m_pad, nc=nc, eb=eb, xs=xs, js=js, kb=min(kb_req, eb),
+    meta = dict(m=m, n=n, m_pad=m_pad, nc=nc, eb=eb, xs=xs, js=js,
+                kb=min(max(kb_req, force_kb or 1), eb),
                 wc=wc, wf=wf, wu=wu, wm=wm, wz=wz)
     return arrays, meta
 
 
-def wwcoo_pack(m, n, vals, rows, cols, *, device=None) -> WWCOOPacked:
+def wwcoo_pack(m, n, vals, rows, cols, *, force_emax=None, force_kb=None, force_js=None,
+               force_w=None, device=None) -> WWCOOPacked:
     """The WWCOO layout of (unsorted) COO triplets (:func:`wwcoo_pack_arrays`,
-    with its refusals), the kernels' arrays on ``device`` (when None: the
-    device of a tensor ``vals``, else the card)."""
+    with its knobs and refusals), the kernels' arrays on ``device`` (when
+    None: the device of a tensor ``vals``, else the card)."""
     device = placement(vals, device)
-    return packed_from_arrays(*wwcoo_pack_arrays(m, n, vals, rows, cols), device)
+    return packed_from_arrays(*wwcoo_pack_arrays(
+        m, n, vals, rows, cols, force_emax=force_emax, force_kb=force_kb,
+        force_js=force_js, force_w=force_w), device)
+
+
+def wwcoo_plan(m, n, rows, cols) -> dict:
+    """The statics :func:`wwcoo_pack_arrays` gives these (unsorted) triplets
+    without forcing, found without building the packing: ``emax``, ``kb``,
+    ``js`` and ``w``, the longest of the five work lists. Their maxima over
+    the shards of a sharded solve are the ``force_*`` values under which
+    every shard packs once to one shape. Raises the packer's window
+    refusal (``_KB_MAX``); the work-list cap and the VMEM guard are the
+    packing's to raise."""
+    rows = to_numpy(rows).astype(np.int64, copy=False)
+    cols = to_numpy(cols).astype(np.int64, copy=False)
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    nc = max(1, -(-m // CR))
+    chunk_of = rows // CR
+    cstart = np.searchsorted(chunk_of, np.arange(nc))
+    cend = np.searchsorted(chunk_of, np.arange(nc), side="right")
+    emax = int(-(-max(1, int((cend - cstart).max())) // 1024) * 1024)
+    eb = emax // 1024
+    kb_req, d_max, w = 1, 1, 1
+    for t in range(nc):
+        st, e = int(cstart[t]), int(cend[t])
+        k = e - st
+        cmap = np.unique(cols[st:e]) if k else np.zeros(1, np.int64)
+        d_max = max(d_max, len(cmap))
+        rowl = np.zeros(emax, np.int64)
+        colp = np.zeros(emax, np.int64)
+        rowl[:k] = rows[st:e] - t * CR
+        colp[:k] = np.searchsorted(cmap, cols[st:e])
+        if k and k < emax:  # the packing's padding: the last (row, col)
+            rowl[k:], colp[k:] = rowl[k - 1], colp[k - 1]
+        R2, C2 = rowl.reshape(eb, 1024), colp.reshape(eb, 1024)
+        base_u = R2[:, 0] & ~127
+        wu = int((-(-(R2[:, -1] - base_u + 1) // 128)).sum())
+        jb = np.arange(0, len(cmap), 1024)
+        wc = int(_value_windows(cmap[jb], cmap[np.minimum(jb + 1023, len(cmap) - 1)])[1].sum())
+        cmin, cmax = C2.min(axis=1), C2.max(axis=1)
+        wf = int(_value_windows(cmin, cmax)[1].sum())
+        zbase = (cmin >> 10) << 10
+        wm = int((-(-(cmax - zbase + 1) // 1024)).sum())
+        wz = 0
+        if k:
+            zb = np.unique(cmap >> 10) << 10
+            jlo = np.searchsorted(cmap, zb)
+            jhi = np.maximum(np.searchsorted(cmap, zb + 1024) - 1, jlo)
+            wz = int(((jhi >> 10) - (jlo >> 10) + 1).sum())
+        w = max(w, wc, wf, wu, wm, wz)
+        kb_req = max(kb_req, row_ends(rowl, k, emax, t, WWCOOPackError)[2])
+    return dict(emax=emax, kb=min(kb_req, eb), js=max(1024, -(-d_max // 1024) * 1024) // 128,
+                w=w)
 
 
 class WWCOOOperator(ChunkedCOOOperator):

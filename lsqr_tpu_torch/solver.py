@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .config import LSQROptions, as_dtype, default_dtype, real_dtype
-from .ops.blas import abs2, d2norm, nrm2
+from .ops.blas import abs2, all_sum, d2norm, nrm2, side_norms
 from .ops.linop import LinearOperator, as_operator, as_tensor
 
 __all__ = ["LSQRResult", "lsqr", "ISTOP_MESSAGES", "TRACE_COLUMNS"]
@@ -162,20 +162,29 @@ def _build(
     one = const(1.0)
     damp, atol, btol, conlim = sc(damp), sc(atol), sc(btol), sc(conlim)
 
-    def norm(vec):
-        return sc(nrm2(vec, safe=safe_norms))
+    # the distribution hooks (ops/linop.py): a shard's norms and sums are
+    # completed over the ranks its m- and n-vectors are split across
+    group_m = getattr(A, "axis_name_m", None)
+    group_n = getattr(A, "axis_name_n", None)
+    nrm_m, nrm_n = side_norms(A, safe_norms)
+
+    def norm_m(vec):
+        return sc(nrm_m(vec))
+
+    def norm_n(vec):
+        return sc(nrm_n(vec))
 
     damped = damp > zero
     ctol = torch.where(conlim > zero, one / torch.where(conlim > zero, conlim, one), zero)
 
     # --- setup: beta*u = b, alpha*v = A'u (lsqr.f90:619-646) -------------
     u0 = b
-    beta0 = norm(u0)
+    beta0 = norm_m(u0)
     safe_beta0 = torch.where(beta0 > zero, beta0, one)
     u0_norm = torch.where(beta0 > zero, u0 / vc(safe_beta0), u0)
     v0u = torch.where(beta0 > zero, A.rmatvec(u0_norm),
                       torch.zeros(n, dtype=dtype, device=dev))
-    alpha0 = torch.where(beta0 > zero, norm(v0u), zero)
+    alpha0 = torch.where(beta0 > zero, norm_n(v0u), zero)
     safe_alpha0 = torch.where(alpha0 > zero, alpha0, one)
     v0_norm = torch.where(alpha0 > zero, v0u / vc(safe_alpha0), v0u)
     if fused:
@@ -228,7 +237,7 @@ def _build(
                 # raw adjoint z = A' u_new (1/beta is applied below)
                 u, z_adj = A.fused_pair(
                     y=c.u, win=c.v, c1=inv_alpha_prev, c2=c.alpha * inv_beta_prev)
-                ssq_u = torch.sum(abs2(u))
+                ssq_u = all_sum(torch.sum(abs2(u)), group_m)
             else:
                 u, ssq_u = A.fused_halfstep(
                     forward=True, y=c.u, win=c.v,
@@ -241,7 +250,7 @@ def _build(
             inv_beta = torch.where(beta_pos, one / torch.where(beta_pos, beta, one), zero)
             if pair:
                 v_cand = z_adj * vc(inv_beta) - vc(beta * inv_alpha_prev) * c.v
-                ssq_v = torch.sum(abs2(v_cand))
+                ssq_v = all_sum(torch.sum(abs2(v_cand)), group_n)
             else:
                 v_cand, ssq_v = A.fused_halfstep(
                     forward=False, y=c.v, win=u,
@@ -255,7 +264,7 @@ def _build(
         else:
             # u := A v - alpha u ; beta = ||u||
             u = A.matvec(c.v) - vc(c.alpha) * c.u
-            beta = norm(u)
+            beta = norm_m(u)
             temp = d2norm(c.alpha, beta)
             temp = d2norm(temp, damp)
             anorm = d2norm(c.anorm, temp)
@@ -263,7 +272,7 @@ def _build(
             safe_beta = torch.where(beta_pos, beta, one)
             u = torch.where(beta_pos, u / vc(safe_beta), u)
             v_cand = A.rmatvec(u) - vc(beta) * c.v
-            alpha_cand = norm(v_cand)
+            alpha_cand = norm_n(v_cand)
             alpha_pos = alpha_cand > zero
             safe_alpha = torch.where(alpha_pos, alpha_cand, one)
             v_cand = torch.where(alpha_pos, v_cand / vc(safe_alpha), v_cand)
@@ -299,7 +308,7 @@ def _build(
         x = vc(t1) * t + c.x
         w = vc(t2) * t + v_for_w
         dk2 = abs2(vc(t3) * t)
-        dknorm = torch.sqrt(sc(torch.sum(dk2)))
+        dknorm = torch.sqrt(sc(all_sum(torch.sum(dk2), group_n)))
         se = c.se + dk2 if wantse else c.se
 
         # --- cancellation monitor (lsqr.f90:747-757) ---------------------
@@ -357,7 +366,8 @@ def _build(
 
         # --- iteration log (lsqr.f90:813-837), written in place ----------
         if record_trace or log_rows is not None:
-            x0_val = x[0].real if is_complex else x[0]
+            x0_val = first_entry(x, group_n)
+            x0_val = x0_val.real if is_complex else x0_val
             row = torch.stack([
                 s.to(sdtype) for s in
                 (itn, x0_val, rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, alfopt)
@@ -383,11 +393,14 @@ def _build(
         )
 
     def finalize(final: _Carry) -> LSQRResult:
-        # --- standard errors (lsqr.f90:857-865) --------------------------
+        # --- standard errors (lsqr.f90:857-865), of the whole problem: a
+        # shard's m and n are its own ------------------------------------
         se_out = None
         if wantse:
-            t_static = float(m - n) if m > n else 1.0
-            t = torch.where(damped, const(float(m)), const(t_static))
+            gm = int(getattr(A, "global_m", m))
+            gn = int(getattr(A, "global_n", n))
+            t_static = float(gm - gn) if gm > gn else 1.0
+            t = torch.where(damped, const(float(gm)), const(t_static))
             t = final.rnorm / torch.sqrt(t)
             se_out = vc(t) * torch.sqrt(final.se)
         # damped istop 2 -> 3 (lsqr.f90:871)
@@ -400,6 +413,18 @@ def _build(
         )
 
     return carry0, cond_fun, body_fun, finalize
+
+
+def first_entry(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x[0] of the whole vector when ``x`` is this rank's slice of one split
+    over ``group`` (the first rank's x[0], sent as one scalar sum, not a
+    gather of x); x[0] when ``group`` is None."""
+    if group is None:
+        return x[0]
+    import torch.distributed as dist
+
+    own = dist.get_rank(group) == 0
+    return all_sum(x[0].clone() if own else torch.zeros_like(x[0]), group)
 
 
 def _masked_step(c, cond_fun, body_fun):
@@ -523,7 +548,7 @@ def lsqr(
     if not (dtype.is_floating_point or dtype.is_complex):
         dtype = default_dtype()
     b = b.to(dtype)
-    if b.ndim != 1 or b.shape[0] != A.m:
+    if b.ndim != 1 or (getattr(A, "axis_name_m", None) is None and b.shape[0] != A.m):
         raise ValueError(
             f"b must be a vector of length m = {A.m} (the number of rows of "
             f"A); got shape {tuple(b.shape)}"

@@ -1736,3 +1736,36 @@ def test_cuda_complex_sweep_and_batch_are_their_standalone_solves(rng, cuda_devi
             ref = lt.lsqr(Z, b, damp, **tol)
             assert int(res.istop[j]) == int(ref.istop) and int(res.itn[j]) == int(ref.itn)
             assert torch.equal(res.x[j], ref.x), j
+
+
+# ---------------------------------------------------------------------------
+# The sharded solvers on the card (chip_smoke.py phase 21 at a small size)
+# ---------------------------------------------------------------------------
+
+#: sharded against unsharded x on the card, relative to the max (PERF.md
+#: section 2's band for another route)
+SHARD_TOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_cuda_sharded_solves_match_unsharded(cuda_device, tmp_path, world, backend):
+    """One rank on NCCL, and two gloo ranks sharing the card: the banded,
+    WCOO, 2-D and ZDIA sharded solves run their kernels on every rank and
+    match the unsharded solves; all ranks' x are bit-equal."""
+    import _torch_ranks as ranks
+
+    pool = ranks.RankPool(world, tmp_path, backend=backend)
+    try:
+        results = pool.run(ranks.card_cases)
+    finally:
+        pool.close()
+    kernels = {"dia": "dia_pair_shared", "wcoo": "wcoo_pair", "zdia": "zdia_pair"}
+    for label, first in results[0].items():
+        istop, itn, ref_itn, err, sha, launches, ref_istop = first
+        assert itn == ref_itn == 24 and istop == ref_istop, (label, first)
+        assert err <= SHARD_TOL, (label, err)
+        for other in results[1:]:
+            assert other[label][4] == sha, label
+        if label in kernels:
+            assert all(r[label][5].get(kernels[label], 0) > 0 for r in results), label

@@ -26,3 +26,20 @@ def test_the_ported_modules_names():
     for module in (batch, multidamp, regpath, implicit):
         for name in module.__all__:
             assert name in lt.__all__ and callable(getattr(lt, name)), name
+
+
+def test_the_parallel_package_names():
+    """``lsqr_tpu_torch.parallel`` exports the names of ``lsqr_tpu.parallel``,
+    in its order, and its sharding module those of JAX's; every one is
+    defined (the package's __init__ imports none of them, as JAX's)."""
+    import lsqr_tpu.parallel as jp
+    import lsqr_tpu.parallel.sharding as js
+    import lsqr_tpu_torch.parallel as tp
+    import lsqr_tpu_torch.parallel.sharding as ts
+
+    assert tp.__all__ == jp.__all__
+    assert ts.__all__ == js.__all__
+    for name in tp.__all__:
+        assert hasattr(tp, name), name
+    assert not any(name.startswith("lsqr_sharded") or name == "make_mesh"
+                   for name in lt.__all__)
