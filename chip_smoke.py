@@ -6,7 +6,7 @@
 Needs one CUDA device (it exits non-zero, printing no result, without one),
 nvcc under $CUDA_HOME or /usr/local/cuda, and scipy. It builds the kernels
 from lsqr_tpu_torch/csrc into build/lsqr_tpu_torch/ (and the host packer
-from lsqr_tpu_torch/native with g++), then runs twenty-one phases; each
+from lsqr_tpu_torch/native with g++), then runs twenty-two phases; each
 raises on failure:
 
 1. each hand-written kernel against its plain PyTorch twin on the card, at
@@ -156,7 +156,7 @@ raises on failure:
    reorthogonalized) against ``lsqr`` at its GCV lambda; a 2^20 x 11 f64
    band through ``scipy.io.mmwrite`` and ``from_matrix_market`` (the packed
    DIA operator) and ``lsqr_scipy`` against ``scipy.sparse.linalg.lsqr``;
-   ``product_rate``; the launch profile of the stacked solve;
+   ``product_rate``;
 20. the solves over rows on phase 2's operator: ``lsqr_multidamp`` over 8
    damps (0 to 1.0; one pair launch an iteration for all of them) and
    ``lsmr_multidamp`` over 4, each damp's istop, itn and x bit for bit its
@@ -180,9 +180,24 @@ raises on failure:
    on the card (the WCOO one by its damped objective), all ranks' x bit for
    bit equal, ``wcoo_pair`` launched on every rank; wall ms and collectives
    an iteration. Gloo stages each all-reduce through the host, so (b)'s
-   times say nothing of NCCL across cards.
+   times say nothing of NCCL across cards;
+22. gradients to the operators' stored values (``lsqr_grad``) at full
+   width: phase 11's JDIA (2^22) and BlockELL (2^18, the forward through
+   the pair) operators, phase 13's HYB (Zipf(2), 2^19), phase 14's WCOO
+   (2^21 x 2048) and RWCOO (2^21 x 65,536) operators and the damped warm
+   start's [A; damp I] over a band of phase 2's shape (2^23, 11 diagonals):
+   damped at GRAD_DAMP times the largest singular value, the forward solve
+   cut at GRAD_ITNLIM iterations and the backward's conjugate gradients
+   left to stop on their own, the loss <x, w>; the directional derivative
+   in the direction v * w(i, j) of the triplet values (w a hash of the
+   coordinates, so each stored value's direction is itself times the weight
+   of its position) through the layout's leaves, against the same through
+   the COO operator of the same triplets on the card, within GRAD_BAND,
+   which the same reading with the adjoint share dropped must exceed; the
+   forward's istop and itn, CG's iterations, forward and backward ms, and
+   the kernels the backward launched (each layout's product kernels).
 
-Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17, 19, 20 and 21 runs with the launch
+Every solve of phases 2-5, 7, 8, 10, 12, 13, 15, 17 and 19-22 runs with the launch
 counts reset just before it and read just after, and so does a direct call
 of the kernels no solver calls (the two variants of the fused half-step,
 phase 1) and the ceiling's chain (phase 18); each path must launch the
@@ -2089,8 +2104,9 @@ def phase_general_solves(dev, jdia, bell, card, paths):
     return out
 
 
-def phase_routes(dev, card, paths):
-    """Phase 13: the reordering planner, HYB, and step 3 on a tall pattern."""
+def phase_routes(dev, card, paths, kept):
+    """Phase 13: the reordering planner, HYB, and step 3 on a tall pattern.
+    The HYB operator and its triplets go to ``kept["hyb"]`` (phase 22)."""
     import numpy as np
     import torch
 
@@ -2148,6 +2164,7 @@ def phase_routes(dev, card, paths):
     out["hyb"] = dict(nnz=len(trip[0]), width=A.ops[0].vals.shape[1], spilled=A.ops[1].nnz,
                       istop=int(res.istop), itn=int(res.itn), ms=secs * 1e3,
                       optimality=ratio)
+    kept["hyb"] = (A, trip)
     del A
     torch.cuda.empty_cache()
 
@@ -2988,8 +3005,6 @@ def phase_api(dev, m, card, paths):
         warm[name] = dict(stops(res), cold=stops(cold), ms=secs * 1e3, x_rel_to_cold=err,
                           optimality=ratio)
         cold_x[name] = cold.x
-        if name == "lsqr":
-            x8_lsqr = x8
     out["warm_start"] = warm
 
     # (2) column scaling and right preconditioning: x = scale * z of
@@ -3220,10 +3235,8 @@ def phase_api(dev, m, card, paths):
     check(delta["dia_product_shared"] == 4 * 50, f"product_rate launches: {delta}")
     out["product_rate"] = rate
 
-    # the launch profile of the stacked solve (section 5); the column-scaled
-    # solve's is cut to make room for phase 21
-    log("  launch profile of the damped warm-start LSQR solve (stacked):")
-    out["warm_start_profile"] = phase_launches(A, b, x0=x8_lsqr)
+    # the launch profiles of the stacked and the column-scaled solves
+    # (PERF.md section 5) are cut to make room for phases 21 and 22
     del A, S, fwd, adj
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3721,6 +3734,232 @@ def phase_sharded(dev, card, paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: gradients to the operators' stored values at full width
+# ---------------------------------------------------------------------------
+
+GRAD_ITNLIM = 64  # phase 22's forward solves (f32 cannot meet atol = 1e-10)
+GRAD_ATOL = 1e-6  # their atol = btol; the backward's CG runs to min(atol, 1e-8)
+GRAD_DAMP = 0.3  # phase 22's damp, times each operator's largest singular value
+#: |the layout's directional derivative - the COO operator's| / |the COO's|:
+#: sound readings sit far below it, a gradient without its adjoint share far
+#: above it (PERF.md section 6)
+GRAD_BAND = 1e-3
+#: the kernels each operator's backward pass (normal_cg's products) must launch
+GRAD_KERNELS = {"jdia": ("jdia_matvec",), "block_ell": ("block_ell_matvec",),
+                "hyb": (), "wcoo": ("wcoo_forward", "wcoo_adjoint"),
+                "rwcoo": ("wcoo_forward", "wcoo_adjoint", "wwcoo_forward", "wwcoo_adjoint"),
+                "warm_start": ("dia_product_shared",)}
+
+
+def coordinate_weights(rows, cols):
+    """A pseudo-random weight in [-1, 1) of each coordinate (i, j), the same
+    wherever the coordinate is stored: the direction v * w(i, j) of a
+    matrix's values packs to each stored value times the weight of its
+    position (the packers place each value at its coordinates, linearly)."""
+    import torch
+
+    h = (rows.long() * 73856093) ^ (cols.long() * 19349663)
+    return (h % (1 << 20)).to(torch.float64) / (1 << 19) - 1.0
+
+
+def packed_positions(A):
+    """[(value tensor, its rows, its cols)] of an operator's differentiable
+    tensors on their packings: each stored entry's coordinates (padding
+    holds 0, so its coordinates do not matter)."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.ops.spmv_sparse import jdia_gather
+
+    dev = A.device
+    if isinstance(A, lt.JDIAOperator):
+        out = []
+        for data, eoff, base, p_lo, m_out, n_out, t in (
+                (A.data, A.eoff, A.base, A.p_lo, A.m, A.n, False),
+                (A.tdata, A.teoff, A.tbase, A.tp_lo, A.n, A.m, True)):
+            own = torch.arange(data.shape[1], device=dev)[None, :].expand_as(data)
+            other = jdia_gather(eoff, base, torch.arange(n_out, device=dev, dtype=torch.float64),
+                                p_lo=p_lo, tm=A.tm).long()
+            out.append((data, other, own) if t else (data, own, other))
+        return out + [(A.rem_vals, A.rem_rows, A.rem_cols)]
+    if isinstance(A, lt.BlockELLOperator):
+        mb, kb, bh, bw = A.blocks.shape
+        nb, kt = A.tblocks.shape[:2]
+        a = torch.arange(bh, device=dev)
+        c = torch.arange(bw, device=dev)
+        rows = (torch.arange(mb, device=dev)[:, None, None, None] * bh + a[:, None])
+        cols = A.bcols.long()[:, :, None, None] * bw + c
+        trows = A.tbrows.long()[:, :, None, None] * bh + a
+        tcols = torch.arange(nb, device=dev)[:, None, None, None] * bw + c[:, None]
+        return [(A.blocks, rows.expand(mb, kb, bh, bw), cols.expand(mb, kb, bh, bw)),
+                (A.tblocks, trows.expand(nb, kt, bw, bh), tcols.expand(nb, kt, bw, bh))]
+    if isinstance(A, lt.SumOperator):  # HYB: the ELL part and the COO spill
+        E, C = A.ops
+        i = torch.arange(E.m, device=dev)[:, None].expand_as(E.cols)
+        j = torch.arange(E.n, device=dev)[:, None].expand_as(E.trows)
+        return [(E.vals, i, E.cols), (E.tvals, E.trows, j), (C.vals, C.rows, C.cols)]
+    if isinstance(A, lt.VStackOperator):  # the warm start's [A; damp I]
+        S = A.ops[0]
+        nd = len(S.offsets)
+        p = torch.arange(S.Lp, device=dev)[None, :].expand(nd, S.Lp) - S.H
+        k = torch.tensor(S.offsets, device=dev)[:, None]
+        return [(S.dp, p.reshape(-1), (p + k).reshape(-1))]
+    return [(A.coo.vals, A.coo.rows, A.coo.cols)]  # WCOO, RWCOO: the triplets
+
+
+def sigma_max(A, dev, iters=8):
+    """A's largest singular value by power iteration on A'A."""
+    import torch
+
+    v = torch.randn(A.n, generator=torch.Generator(device=dev).manual_seed(22), device=dev)
+    for _ in range(iters):
+        v = A.rmatvec(A.matvec(v / v.norm()))
+    return float(v.norm()) ** 0.5
+
+
+def grad_run(A, leaves, b, damp, weights, opts):
+    """lsqr_grad's forward and backward on A with the loss <x, weights>:
+    (the leaves' gradients, info, forward and backward wall seconds and
+    launches)."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+
+    info = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        (x, fwd_s), fwd = counted(lambda: timed(lambda: lt.lsqr_grad(A, b, damp, info=info,
+                                                                     **opts)))
+        loss = torch.dot(x, weights)
+        (grads, bwd_s), bwd = counted(lambda: timed(lambda: torch.autograd.grad(loss, leaves)))
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return grads, info, (fwd_s, bwd_s), (fwd, bwd)
+
+
+def dropped_adjoint_share(run):
+    """run() with the gradient's adjoint share (-r s') left out: the planted
+    fault the band must catch."""
+    from lsqr_tpu_torch import implicit
+
+    real = implicit._value_grads
+    implicit._value_grads = lambda A, fwd, adj, want, acc: real(A, fwd, [], want, acc)
+    try:
+        return run()
+    finally:
+        implicit._value_grads = real
+
+
+def grad_check(label, A, coo_of, dev, card, paths, b=None, damp=None, opts=None):
+    """One operator of phase 22: the directional derivative of <x, w> in the
+    direction v * w(i, j) of its triplet values through A's leaves, against
+    the same through the triplets' COO operator (``coo_of(vals)``: the same
+    matrix, or the same composite over it, with those COO values), with
+    b, damp and the loss unchanged; the same through A with the adjoint
+    share dropped. Returns the readings."""
+    import torch
+
+    opts = dict(atol=GRAD_ATOL, btol=GRAD_ATOL, itnlim=GRAD_ITNLIM, **(opts or {}))
+    g = torch.Generator(device=dev).manual_seed(220)
+    if b is None:
+        b = torch.randn(A.m, generator=g, device=dev)
+    if damp is None:
+        damp = GRAD_DAMP * sigma_max(A, dev)
+    weights = torch.randn(A.n, generator=g, device=dev)
+    positions = packed_positions(A)
+    leaves = [t for t, _, _ in positions]
+
+    def reading(grads):
+        return sum(float(torch.sum(gr.double() * t.double() * coordinate_weights(r, c)))
+                   for gr, (t, r, c) in zip(grads, positions))
+
+    grads, info, (fwd_s, bwd_s), (fwd, bwd) = grad_run(A, leaves, b, damp, weights, opts)
+    paths += [fwd, bwd]
+    sound = reading(grads)
+    del grads
+    fault = reading(dropped_adjoint_share(
+        lambda: grad_run(A, leaves, b, damp, weights, opts)[0]))
+    coo, vals, rows, cols = coo_of()
+    (gc,), info_c, _, _ = grad_run(coo, [vals], b, damp, weights,
+                                   {k: v for k, v in opts.items() if k != "pair"})
+    ref = float(torch.sum(gc.double() * vals.double() * coordinate_weights(rows, cols)))
+    del coo, gc
+    torch.cuda.empty_cache()
+    err, fault_err = abs(sound - ref) / abs(ref), abs(fault - ref) / abs(ref)
+    launched = {k: v for k, v in bwd.items() if v}
+    log(f"  {label}: damp {float(damp):.4g}; forward istop {info['istop']} itn {info['itn']} "
+        f"(COO {info_c['istop']} {info_c['itn']}), CG {info['cg_itn']} iterations (COO "
+        f"{info_c['cg_itn']}); forward {fwd_s * 1e3:.3f} ms, backward {bwd_s * 1e3:.3f} ms "
+        f"[{card}]; launches forward {({k: v for k, v in fwd.items() if v})}, backward "
+        f"{launched}")
+    log(f"    directional derivative {sound:.9e} against the COO's {ref:.9e}: {err:.3e}; "
+        f"without the adjoint share {fault:.9e}: {fault_err:.3e} (band {GRAD_BAND:g})")
+    check(all(torch.isfinite(torch.tensor([sound, ref, fault]))), f"{label}: not finite")
+    check(err <= GRAD_BAND, f"{label}: the gradient is off the COO's by {err:.3e}")
+    check(fault_err > GRAD_BAND, f"{label}: the band misses a dropped share ({fault_err:.3e})")
+    for name in GRAD_KERNELS[label]:
+        moved = sum(v for k, v in bwd.items() if base(k).startswith(name))
+        check(moved > 0, f"{label}: the backward pass launched no {name}: {launched}")
+    return dict(istop=info["istop"], itn=info["itn"], cg_itn=info["cg_itn"],
+                cg_itn_coo=info_c["cg_itn"], forward_ms=fwd_s * 1e3, backward_ms=bwd_s * 1e3,
+                rel=err, rel_fault=fault_err, damp=float(damp),
+                launches_backward=launched)
+
+
+def phase_grads(dev, kept, card, paths):
+    """Phase 22: lsqr_grad on phases 11-15's operators at their full sizes
+    (``kept``: label -> (operator, numpy triplets)) and on the damped warm
+    start's stack over phase 2's band, each against the COO operator of
+    the same triplets."""
+    import torch
+
+    import lsqr_tpu_torch as lt
+    from lsqr_tpu_torch.solver import damped_warm_start
+
+    t_phase = time.perf_counter()
+    out = {}
+    for label, (A, trip) in kept.items():
+        def coo_of(trip=trip):
+            r_, c_, v_ = coo_on(dev, *trip)
+            coo = lt.coo_operator(A.m, A.n, v_, r_, c_, validate=False, device=dev)
+            return coo, v_, r_, c_
+        opts = dict(pair=True) if label == "block_ell" else None
+        out[label] = grad_check(label, A, coo_of, dev, card, paths, opts=opts)
+    kept.clear()
+    torch.cuda.empty_cache()
+
+    # the warm start's [A; damp I] over phase 2's band: the shared stripes'
+    # dp and the diagonal's d (the direction moves the band's values only)
+    data, b, g = random_stripes(M_MAIN, M_MAIN, OFFSETS, dev, seed=222, boost=12.0)
+    S = lt.dia_shared_operator(M_MAIN, M_MAIN, OFFSETS, data)
+    damp = GRAD_DAMP * sigma_max(S, dev)
+    x0 = torch.randn(M_MAIN, generator=g, device=dev)
+    stacked, rhs = damped_warm_start(S, b, x0, damp)
+
+    def coo_of():
+        r_, c_, v_ = stripe_triplets(data, OFFSETS, M_MAIN, M_MAIN)
+        coo = lt.coo_operator(M_MAIN, M_MAIN, v_.clone(), r_, c_, validate=False, device=dev)
+        return damped_warm_start(coo, b, x0, damp)[0], coo.vals, r_, c_
+    out["warm_start"] = grad_check("warm_start", stacked, coo_of, dev, card, paths, b=rhs,
+                                   damp=0.0)
+    del data, b, S, stacked, rhs, x0
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3805,10 +4044,11 @@ def main():
     perf.update(general)
     phase("phase 12: general-sparsity solves")
     solves["general"] = phase_general_solves(dev, jdia, bell, card, paths)
+    kept = {"jdia": jdia, "block_ell": bell[M_BELL, M_BELL]}  # phase 22's operators
     del jdia, bell
     torch.cuda.empty_cache()
     phase("phase 13: the routes (plan_general, HYB, step 3)")
-    solves["routes"] = phase_routes(dev, card, paths)
+    solves["routes"] = phase_routes(dev, card, paths, kept)
     torch.cuda.empty_cache()
     phase("phase 14: WCOO and WWCOO kernels vs twins")
     unstructured, ops = phase_wcoo_kernels(dev, errs, card)
@@ -3817,6 +4057,7 @@ def main():
     solves["wwcoo_band_adjoint_ms"] = unstructured.pop("wwcoo_band_adjoint_ms")
     perf.update(unstructured)
     phase("phase 15: WCOO and RWCOO solves")
+    kept.update((label, ops[label][:2]) for label in ("wcoo", "rwcoo"))
     solves["unstructured"] = phase_wcoo_solves(dev, ops, card, paths)
     del ops
     torch.cuda.empty_cache()
@@ -3832,10 +4073,13 @@ def main():
     solves["rows"] = phase_rows(dev, M_MAIN, card, paths)
     phase("phase 21: sharded solves (1 rank on NCCL, 4 gloo ranks on this card)")
     solves["sharded"] = phase_sharded(dev, card, paths)
+    phase("phase 22: gradients to the operators' values (JDIA, BlockELL, HYB, WCOO, RWCOO, "
+          "the warm start's stack)")
+    solves["grads"] = phase_grads(dev, kept, card, paths)
 
     launches = {k: sum(p[k] for p in paths) for k in spmv.launch_counts(by_variant=True)}
     log(f"  launches on the direct path and the paths of phases 2-5, 7, 8, 10, 12, 13, 15, "
-        f"17-21: {launches}")
+        f"17-22: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on a path")
     log(json.dumps({"solves": solves, "card": card,

@@ -40,6 +40,7 @@ from . import spmv
 __all__ = [
     "JITTER",
     "jdia_matvec",
+    "jdia_gather",
     "jdia_matvec_plain",
     "block_ell_matvec",
     "block_ell_matvec_windowed",
@@ -75,19 +76,25 @@ PAIR_MAX_RANKS = 8
 # ---------------------------------------------------------------------------
 
 
-def jdia_matvec_plain(data, eoff, base, x, *, m, p_lo, tm):
-    """Plain twin of :func:`jdia_matvec`, written from the JAX package's
-    ``_jdia_matvec_xla``: the gather of slot values against the padded x
-    (zero outside ``[p_lo, p_lo + n)``), summed over the slots."""
-    ns, m_pad = data.shape
+def jdia_gather(eoff, base, x, *, p_lo, tm):
+    """The x entry each slot position of a JDIA packing multiplies, (ns,
+    m_pad): x[i + base[s, i // tm] + JITTER - p_lo + eoff[s, i]], zero
+    where that lies outside x (the JAX package's zero-padded x)."""
+    ns, m_pad = eoff.shape
     n = x.shape[0]
-    rows = torch.arange(m_pad, device=data.device)
+    rows = torch.arange(m_pad, device=eoff.device)
     d = base[:ns, rows // tm].long() + JITTER            # P_lo + d, per slot and row
     col = rows[None, :] + d + eoff.long() - p_lo          # the column in x
     valid = (col >= 0) & (col < n)
-    xv = torch.where(valid, x[col.clamp(0, max(n - 1, 0))], torch.zeros((), dtype=x.dtype,
-                                                                         device=x.device))
-    return torch.sum(data * xv, dim=0)[:m]
+    return torch.where(valid, x[col.clamp(0, max(n - 1, 0))],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def jdia_matvec_plain(data, eoff, base, x, *, m, p_lo, tm):
+    """Plain twin of :func:`jdia_matvec`, written from the JAX package's
+    ``_jdia_matvec_xla``: the gather of slot values against the padded x
+    (:func:`jdia_gather`), summed over the slots."""
+    return torch.sum(data * jdia_gather(eoff, base, x, p_lo=p_lo, tm=tm), dim=0)[:m]
 
 
 def block_ell_matvec_plain(blocks, bcols, x):

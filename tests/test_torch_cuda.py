@@ -1769,3 +1769,80 @@ def test_cuda_sharded_solves_match_unsharded(cuda_device, tmp_path, world, backe
             assert other[label][4] == sha, label
         if label in kernels:
             assert all(r[label][5].get(kernels[label], 0) > 0 for r in results), label
+
+
+# ---------------------------------------------------------------------------
+# Gradients to the operators' values on the card (chip_smoke.py phase 22 at
+# a small size), and the port's examples
+# ---------------------------------------------------------------------------
+
+#: a leaf's gradient on the card against the CPU's, relative to its max:
+#: f32 solves whose products sum in other orders, stopped on their own
+GRAD_TOL = 1e-3
+
+
+def _grad_layouts():
+    from lsqr_tpu_torch.models.synthetic import jittered_band_coo, random_block_coo
+    from lsqr_tpu_torch.models.synthetic import zipf_column_coo as zipf
+
+    return {
+        "jdia": (lambda d, t: lt.jdia_operator(8192, 8192, *t, device=d),
+                 jittered_band_coo(8192, 8192, diag=12.0, seed=3), ("data", "tdata"),
+                 "jdia_matvec", 2.0),
+        "block_ell": (lambda d, t: lt.block_ell_operator(2048, 2048, *t, device=d),
+                      random_block_coo(2048, 2048, diag=2.0, seed=3), ("blocks", "tblocks"),
+                      "block_ell_matvec", 2.0),
+        "wcoo": (lambda d, t: lt.wcoo_operator(32768, 1024, *t, device=d),
+                 zipf(32768, 1024, 100_000, seed=3), ("coo.vals",), "wcoo_adjoint", 30.0),
+        "rwcoo": (lambda d, t: lt.rwcoo_operator(32768, 16384, *t, device=d),
+                  zipf(32768, 16384, 100_000, seed=3), ("coo.vals",), "wwcoo_adjoint",
+                  30.0),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["jdia", "block_ell", "wcoo", "rwcoo"])
+def test_cuda_value_gradients_match_the_cpu(cuda_device, layout):
+    """lsqr_grad's gradient to each stored value tensor of the layout on the
+    card (the backward's CG through the product kernels) against the same
+    on the CPU (the twins), damped so that both solves stop on their own."""
+    build, trip, paths, kernel, damp = _grad_layouts()[layout]
+    grads = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        A = build(dev, trip)
+        leaves = [functools.reduce(getattr, p.split("."), A) for p in paths]
+        for t in leaves:
+            t.requires_grad_(True)
+        g = torch.Generator().manual_seed(5)
+        b = torch.randn(A.m, generator=g).to(dev)
+        w = torch.randn(A.n, generator=g).to(dev)
+        info = {}
+        x = lt.lsqr_grad(A, b, damp, atol=1e-6, btol=1e-6, itnlim=64, info=info)
+        spmv.reset_launch_counts()
+        got = torch.autograd.grad(torch.dot(x, w), leaves)
+        if dev.type == "cuda":  # block_ell_matvec: either entry point's counter
+            assert sum(v for k, v in spmv.launch_counts().items() if k.startswith(kernel)) > 0
+        grads[dev.type] = [t.cpu() for t in got]
+        assert info["istop"] in (1, 2, 3) and info["cg_itn"] < 100, info
+    for path, cpu, card in zip(paths, grads["cpu"], grads["cuda"]):
+        assert rel_err(card, cpu) < GRAD_TOL, path
+
+
+EXAMPLES = sorted((__import__("pathlib").Path(__file__).resolve().parents[1]
+                   / "examples_torch").glob("[0-9]*.py"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_cuda_examples_run(cuda_device, path):
+    """Every example of examples_torch/ on the card (its default device)."""
+    import os
+    import subprocess
+    import sys
+
+    root = str(path.parents[1])
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    done = subprocess.run([sys.executable, str(path)], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stdout.strip(), path.name
