@@ -112,7 +112,12 @@ raises on failure:
    WWCOO packing whose 98,304 column positions a chunk exceed one block's
    shared memory (a band at 2^15 x 262,144: the adjoint's windows); every
    adjoint and pair (WCOO, RWCOO's hot panel and cold stream, WWCOO) called
-   twice on the same inputs must give the same bits;
+   twice on the same inputs must give the same bits; on every WWCOO packing
+   (the cold stream, again at a D_pad of 16,384 whose u does not fit beside
+   the compaction's zc, the ragged cold stream, the band) the pair's u and
+   z must be the bits of the forward followed by the adjoint, whichever
+   route its plan gives it, and the CUDA kernels one pair call launches are
+   read from the profiler; the pair's design bytes beside its bound;
 15. solves on the two benchmark operators: damped (DAMP) to 1e-6 through
    the pair kernels, checked in f64 and against the COO operator's solve
    (the damped objective, within a limit that solves on planted faults
@@ -122,6 +127,8 @@ raises on failure:
    operator's products against the f64 triplets at three vectors, a check
    that sees bf16-rounded values; a second solve of each must stop at the
    same itn with bit-equal x (no kernel of either path adds with atomics);
+   16 fixed iterations on phase 14's WWCOO band, whose pair takes the
+   sequence route (``wwcoo_pair[sequence]``);
 16. the complex pair ``zdia_pair`` against its twin at the JAX package's
    complex benchmark shape (``bench.py``'s zdia stage: m = n = 2^21, 5
    diagonals, N(0, 1) planes), a ragged rectangular shape (the staged
@@ -2268,16 +2275,91 @@ def bit_stable(label, p, wide, x, y, c1):
 
 
 def wwcoo_design_bytes(p):
-    """(the WWCOO adjoint's plan, the bytes its design moves): the column-
+    """(the WWCOO adjoint's plan, the bytes its design moves, the pair's
+    route, the bytes the pair's design moves). The adjoint: the column-
     sorted copy (8 per slot), u, the partials written and the listed ones
-    read back (one float per split a list entry), the inverse lists, z."""
+    read back (one float per split a list entry), the inverse lists, z. The
+    pair adds the forward: the row-sorted copy (8 per slot), gpe and colmap
+    (4 per row and position), x and y, u written (m_pad); on the one-pass
+    route u is not read back from memory."""
     from lsqr_tpu_torch.ops import spmv_wcoo as sw
 
     plan = sw.wwcoo_adjoint_plan(p.vals.device.index, p.js * 128, p.eb, p.nc)
     splits, pairs = plan[3], p.zsrc.numel()
-    moved = (8 * p.nc * p.eb * 1024 + 4 * p.m + 4 * p.nc * splits * p.js * 128
+    slots = p.nc * p.eb * 1024
+    moved = (8 * slots + 4 * p.m + 4 * p.nc * splits * p.js * 128
              + 4 * pairs * splits + 4 * (pairs + p.n + 1) + 4 * p.n)
-    return plan, moved
+    route = sw.wwcoo_pair_route(p.vals.device.index, plan)
+    forward = 8 * slots + 4 * p.nc * (16384 + p.js * 128) + 4 * (p.n + p.m) + 4 * p.m_pad
+    return plan, moved, route, forward + moved - (0 if route == "sequence" else 4 * p.m)
+
+
+def pair_matches_products(label, p, x, y, c1):
+    """The WWCOO pair's u and z against ``wwcoo_forward`` and then
+    ``wwcoo_adjoint`` of that u on the same inputs (c2 = 0.3, and RWCOO's
+    -1): the same bits on every route. Returns the route."""
+    import torch
+
+    from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+    plan = sw.wwcoo_adjoint_plan(p.vals.device.index, p.js * 128, p.eb, p.nc)
+    route = sw.wwcoo_pair_route(p.vals.device.index, plan)
+    same = []
+    for c2 in (0.3, -1.0):
+        c2 = torch.tensor(c2, device=x.device)
+        u, z = sw.wwcoo_pair(p, y, x, c1, c2)
+        u_f = sw.wwcoo_forward(p, x, c1, c2, y)
+        z_f = sw.wwcoo_adjoint(p, u_f)
+        torch.cuda.synchronize()
+        same += [torch.equal(u, u_f), torch.equal(z, z_f)]
+    log(f"  {label}: wwcoo_pair route {route} (plan {plan}): u, z bit-equal to wwcoo_forward "
+        f"then wwcoo_adjoint at c2 = 0.3 and -1: {same}")
+    check(all(same), f"{label}: the wwcoo_pair ({route}) differs from the forward then the "
+                     f"adjoint: {same}")
+    return route
+
+
+def pair_kernels(label, p, x, y, c1, route, calls=10):
+    """The CUDA kernels a ``wwcoo_pair`` call launches, by name, from the
+    profiler over ``calls`` calls (as phase 6 reads them): the one-pass
+    kernel and the expansion on the chunk route; the forward, compaction
+    and expansion on the sequence route. A profile that lost every device
+    event is taken again, up to PROFILE_ATTEMPTS times; if all lose them,
+    the check fails (the launch counters follow the library's route query,
+    not what it launched)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lsqr_tpu_torch.ops import spmv_wcoo as sw
+
+    c2 = torch.tensor(0.3, device=x.device)  # a device scalar: no copy in the profile
+    sw.wwcoo_pair(p, y, x, c1, c2)
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                sw.wwcoo_pair(p, y, x, c1, c2)
+            torch.cuda.synchronize()
+        names = [e.name.split("(")[0].replace("void ", "") for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if names:
+            break
+    kinds = sorted(set(names))
+    log(f"  {label}: one wwcoo_pair ({route}) launches {len(names) / calls:g} CUDA kernels "
+        f"(profiler, {calls} calls): {kinds}")
+    check(names, f"{label}: the profiler saw no device events in {PROFILE_ATTEMPTS} profiles "
+                 f"of {calls} wwcoo_pair calls")
+    if route == "sequence":
+        want = ("rows_forward", "cols_compact", "expand_columns")
+        ok = len(kinds) == 3 and all(any(w in k for k in kinds) for w in want)
+    else:
+        ok = (1 <= len(kinds) <= 2 and any("pair_chunks" in k for k in kinds)
+              and all("pair_chunks" in k or "expand_columns" in k for k in kinds))
+    check(ok and len(names) == len(kinds) * calls,
+          f"{label}: wwcoo_pair ({route}) launched {kinds} ({len(names)} in {calls} calls)")
+    return len(names) / calls
 
 
 def stored_bytes(A):
@@ -2366,14 +2448,41 @@ def phase_wcoo_kernels(dev, errs, card):
             calls = coo_calls(p, wide, x, y, c1)
             hold(calls, errs, m, p.n, range(p.eb), COO_TOL)
             bit_stable(f"{label} {k}", p, wide, x, y, c1)
+            if wide:
+                route = pair_matches_products(f"{label} {k}", p, x, y, c1)
+                pair_kernels(f"{label} {k}", p, x, y, c1, route)
             if label in ("wcoo", "rwcoo") and k != "hot":
                 perf.update(coo_perf(calls, p, wide, library, card))
             if wide and "ragged" not in label:
-                plan, moved = wwcoo_design_bytes(p)
+                plan, moved, route, pair_moved = wwcoo_design_bytes(p)
                 ms = perf["wwcoo_adjoint"]["ms"]
                 log(f"  wwcoo_adjoint plan (groups, window, windows, splits) {plan}, D_pad "
                     f"{p.js * 128}, {p.zsrc.numel()} (chunk, column) pairs: the design moves "
                     f"{moved / 1e6:.1f} MB ({moved / (ms * 1e6):.1f} GB/s)  [{card}]")
+                ms = perf["wwcoo_pair"]["ms"]
+                need = coo_bytes(p, True, "wwcoo_pair")
+                log(f"  wwcoo_pair route {route}: the design moves {pair_moved / 1e6:.1f} MB "
+                    f"({pair_moved / (ms * 1e6):.1f} GB/s), the bound's bytes "
+                    f"{need / 1e6:.1f} MB ({need / (ms * 1e6):.1f} GB/s; bound "
+                    f"{bound(need, 4 * p.nc * p.eb * 1024)[0]:.4f} ms); the two CSR calls "
+                    f"{library['forward'] + library['adjoint']:.4f} ms  [{card}]")
+                # the same stream with D_pad forced past where a chunk's u fits
+                # beside the compaction's zc: the plan takes the sequence route
+                from lsqr_tpu_torch.ops import spmv_wcoo as sw
+                from lsqr_tpu_torch.ops.wwcoo import wwcoo_pack
+
+                p2 = wwcoo_pack(m, n, *(a[cold] for a in trip), force_js=128, device=dev)
+                route2 = pair_matches_products(f"{label} {k} at D_pad {p2.js * 128}", p2, x, y,
+                                               c1)
+                check(route2 == "sequence", f"D_pad {p2.js * 128}: expected the sequence "
+                                            f"route, not {route2}")
+                pair_kernels(f"{label} {k} at D_pad {p2.js * 128}", p2, x, y, c1, route2)
+                bit_stable(f"{label} {k} at D_pad {p2.js * 128}", p2, True, x, y, c1)
+                c2 = torch.tensor(0.3, device=dev)  # a Python scalar would be copied each call
+                perf["wwcoo_pair_16k_ms"] = time_ms(lambda: sw.wwcoo_pair(p2, y, x, c1, c2))
+                log(f"  wwcoo_pair (sequence) at D_pad {p2.js * 128}: "
+                    f"{perf['wwcoo_pair_16k_ms']:.4f} ms  [{card}]")
+                del p2
             if label == "rwcoo" and k == "hot":
                 from lsqr_tpu_torch.ops import spmv_wcoo as sw
 
@@ -2399,20 +2508,31 @@ def phase_wcoo_kernels(dev, errs, card):
     A = lt.wwcoo_operator(m, n, gen.standard_normal(rows.size).astype(np.float32), rows, cols,
                           device=dev)
     p = A.packed
-    plan, _ = wwcoo_design_bytes(p)
+    plan, _, route, _ = wwcoo_design_bytes(p)
     log(f"  wwcoo band m={m} n={n}: D_pad {p.js * 128} ({p.js * 128 * 4} bytes a chunk), "
         f"adjoint plan (groups, window, windows, splits) {plan}")
     check(plan[2] > 1, f"the WWCOO band must need position windows: {plan}")
+    check(route == "sequence", f"the WWCOO band's pair must take the sequence route: {route}")
     x = torch.randn(n, generator=g, device=dev)
     y = torch.randn(m, generator=g, device=dev)
-    hold(coo_calls(p, True, x, y, c1), errs, m, n, range(p.eb), COO_TOL)
+    calls = coo_calls(p, True, x, y, c1)
+    hold(calls, errs, m, n, range(p.eb), COO_TOL)
     bit_stable("wwcoo band", p, True, x, y, c1)
+    pair_matches_products("wwcoo band", p, x, y, c1)
+    pair_kernels("wwcoo band", p, x, y, c1, route)
     from lsqr_tpu_torch.ops import spmv_wcoo as sw
 
     ms = time_ms(lambda: sw.wwcoo_adjoint(p, y))
     log(f"  wwcoo band adjoint {ms:.4f} ms  [{card}]")
     perf["wwcoo_band_adjoint_ms"] = ms
-    del A, p, x, y
+    # the pair's sequence route: its row in the kernels line (launched on
+    # phase 15's band solve)
+    perf["wwcoo_pair[sequence]"] = perf_entry(
+        time_ms(calls["wwcoo_pair"][0][0]), time_ms(calls["wwcoo_pair"][0][1], reps=3),
+        coo_bytes(p, True, "wwcoo_pair"), 4 * p.nc * p.eb * 1024)
+    report("wwcoo_pair[sequence] (wwcoo band)", perf["wwcoo_pair[sequence]"], card)
+    ops["wwcoo band"] = (A, None, None)
+    del calls, p, x, y
     torch.cuda.empty_cache()
     # the RWCOO pipeline end to end: one routed pair against the COO products
     A, trip, _ = ops["rwcoo"]
@@ -2612,6 +2732,20 @@ def phase_wcoo_solves(dev, ops, card, paths):
         del A, coo_t, b
         ops.pop(label)
         torch.cuda.empty_cache()
+    # phase 14's WWCOO band, whose plan has position windows: its pair takes
+    # the sequence route (the forward, then the adjoint's two kernels)
+    A = ops.pop("wwcoo band")[0]
+    b = torch.randn(A.m, generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+    res, delta, secs = timed_solve(A, b, f"wwcoo band {A.m} x {A.n} 16 fixed iterations (the "
+                                         f"pair's sequence route)", card,
+                                   **dict(fixed, itnlim=16, nconv=17))
+    paths.append(delta)
+    body = iterations_run(int(res.itn), min(seg, 16))  # a segment is at most itnlim long
+    check(delta["wwcoo_pair[sequence]"] == body and delta["wwcoo_pair"] == 0,
+          f"wwcoo band: expected {body} sequence-route pairs, one an iteration run: {delta}")
+    out["wwcoo_band"] = dict(m=A.m, n=A.n, itn=int(res.itn), ms=secs * 1e3)
+    del A, b, res
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4055,6 +4189,7 @@ def main():
     solves["rwcoo_fused_pair_ms"] = unstructured.pop("rwcoo_fused_pair_ms")
     solves["rwcoo_hot_adjoint_ms"] = unstructured.pop("rwcoo_hot_adjoint_ms")
     solves["wwcoo_band_adjoint_ms"] = unstructured.pop("wwcoo_band_adjoint_ms")
+    solves["wwcoo_pair_16k_ms"] = unstructured.pop("wwcoo_pair_16k_ms")
     perf.update(unstructured)
     phase("phase 15: WCOO and RWCOO solves")
     kept.update((label, ops[label][:2]) for label in ("wcoo", "rwcoo"))

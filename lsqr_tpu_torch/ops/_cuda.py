@@ -108,6 +108,8 @@ _SIGNATURES = {
     # windows, splits, z, n, slots, emax, stream
     "lsqr_wwcoo_adjoint_f32": (_P, _P, _I, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P, _I, _L, _I,
                                _P),
+    # groups, d_pad, windows, splits, one pass (1 int out)
+    "lsqr_wwcoo_pair_route": (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     # vals_r, col_r, gpe, vals, cidx, colmap, d_pad, zptr, zsrc, x, n, y,
     # y_len, c1, c2, u, partials, groups, wsize, windows, splits, z, m_pad,
     # emax, stream

@@ -25,9 +25,15 @@ compute from the same packed arrays as the kernels (the row-sorted copy
 and gpe for the forward, the column-sorted copy for the adjoint), so a
 layout mistake shows on the CPU too. f32 only, as in JAX.
 
-The pair is the forward and then the adjoint of its padded u on the card
-(csrc/wcoo.cu says why), and counts one launch per call, as does each
-product. Neither adjoint adds with float atomics. The WCOO adjoint sums
+The WCOO pair is the forward and then the adjoint of its padded u on the
+card (csrc/wcoo.cu says why). The WWCOO pair makes one pass over each
+chunk's entries for both products where the adjoint's plan has one window
+and one split and the chunk's u fits in shared memory beside the plan's
+zc (:func:`wwcoo_pair_route`), and takes the forward and the
+adjoint's two kernels in turn otherwise, counted as the variant
+``wwcoo_pair[sequence]``; every route gives the bits of the forward
+followed by the adjoint. Each pair counts one launch per call, as does
+each product. Neither adjoint adds with float atomics. The WCOO adjoint sums
 per-block partial z (scratch the wrapper allocates,
 ``ADJOINT_BLOCKS_PER_SM`` blocks per SM) in a fixed order. The WWCOO
 adjoint compacts each chunk's z into partials (scratch of nc x S x D_pad
@@ -48,6 +54,7 @@ from . import spmv
 __all__ = [
     "CR",
     "wwcoo_adjoint_plan",
+    "wwcoo_pair_route",
     "wcoo_forward",
     "wcoo_adjoint",
     "wcoo_pair",
@@ -229,6 +236,27 @@ def wwcoo_adjoint_plan(index, d_pad, eb, nc):
     return tuple(plan)
 
 
+@functools.lru_cache(maxsize=None)
+def wwcoo_pair_route(index, plan):
+    """The route :func:`wwcoo_pair` takes on card ``index`` for the
+    adjoint's ``plan`` (:func:`wwcoo_adjoint_plan`), as the kernel's library
+    chooses it (csrc/chunked_coo.cuh: pair_one_pass): "chunk" (one pass a
+    chunk) where the plan has one window and one split and the chunk's u
+    fits in shared memory beside the G zc, else "sequence" (the forward,
+    then the adjoint's compaction and expansion). The route follows the
+    plan, never a failure; both give the same bits."""
+    import ctypes
+
+    from . import _cuda
+
+    one = ctypes.c_int(-1)
+    groups, wsize, windows, splits = plan
+    with torch.cuda.device(index):
+        _cuda.check(_fn("lsqr_wwcoo_pair_route")(groups, wsize, windows, splits,
+                                                 ctypes.byref(one)), "wwcoo_pair_route")
+    return "chunk" if one.value == 1 else "sequence"
+
+
 def _scratch(packed, dev, wide):
     """The adjoint's arguments between u and z: its partial z and how they
     are laid out, a function of the shape and the card only, so z is summed
@@ -284,13 +312,16 @@ def _pair(wrapper, packed, y, win, c1, c2, wide):
     name = "lsqr_wwcoo_pair_f32" if wide else "lsqr_wcoo_pair_f32"
     index = packed.cidx if wide else packed.idx
     scratch, _keep = _scratch(packed, dev, wide)
+    variant = None
+    if wide and wwcoo_pair_route(dev.index, tuple(scratch[1:])) == "sequence":
+        variant = "sequence"  # the plan picks the route (csrc/wwcoo.cu)
     spmv._launch(wrapper, _fn(name), packed.vals_r, packed.vals_r.data_ptr(),
                  packed.col_r.data_ptr(), packed.gpe.data_ptr(), packed.vals.data_ptr(),
                  index.data_ptr(), *_wide_args(packed, wide)[:1],  # colmap
                  *_lists_args(packed, wide),
                  win.data_ptr(), packed.n, y.data_ptr(), y.shape[0], c1.data_ptr(),
                  c2.data_ptr(), u.data_ptr(),
-                 *scratch, z.data_ptr(), packed.m_pad, packed.eb * 1024)
+                 *scratch, z.data_ptr(), packed.m_pad, packed.eb * 1024, variant=variant)
     return u[:packed.m], z
 
 
@@ -338,6 +369,6 @@ def wwcoo_pair(packed, y, win, c1, c2):
     return _pair(wwcoo_pair, packed, y, win, c1, c2, True)
 
 
-for _wrapper in (wcoo_forward, wcoo_adjoint, wcoo_pair, wwcoo_forward, wwcoo_adjoint,
-                 wwcoo_pair):
+for _wrapper in (wcoo_forward, wcoo_adjoint, wcoo_pair, wwcoo_forward, wwcoo_adjoint):
     spmv.register(_wrapper, ("f32",))
+spmv.register(wwcoo_pair, ("f32", "sequence"))

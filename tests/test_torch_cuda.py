@@ -1018,6 +1018,51 @@ def test_cuda_wcoo_adjoint_and_pair_are_bit_stable(rng, cuda_device, kind, m, n,
                                             f"{pre}_forward": 2})
 
 
+#: each route of the WWCOO pair (csrc/wwcoo.cu; spmv_wcoo.wwcoo_pair_route),
+#: steered on small ragged packings by the packer's force_* knobs: (m,
+#: entries, knobs, route)
+PAIR_ROUTE_CASES = [
+    (40_000, 9_000, {}, "chunk"),                                        # one window, one split
+    (40_000, 9_000, dict(force_emax=4096, force_js=128), "sequence"),    # u past the zc
+    (40_000, 9_000, dict(force_emax=4096, force_js=512), "sequence"),    # two windows
+    (40_000, 9_000, dict(force_emax=16384), "sequence"),                 # splits
+    (6 * 2 ** 20, 200_000, {}, "chunk"),  # 384 chunks: past the co-resident blocks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nnz,knobs,route", PAIR_ROUTE_CASES)
+def test_cuda_wwcoo_pair_routes_are_the_forward_then_the_adjoint(rng, cuda_device, m, nnz,
+                                                                  knobs, route):
+    """On each route the WWCOO pair's u and z are the bits of wwcoo_forward
+    followed by wwcoo_adjoint of that u on the same inputs (y shorter than
+    m_pad and as long, RWCOO's c2 = -1), two calls give the same bits, and
+    the sequence route counts as its own variant."""
+    from lsqr_tpu_torch.ops.wwcoo import wwcoo_pack
+
+    n = 30_001
+    vals, rows, cols = _ragged_triplets(rng, m, n, nnz)
+    p = wwcoo_pack(m, n, vals, rows, cols, device=cuda_device, **knobs)
+    plan = spmv_wcoo.wwcoo_adjoint_plan(p.vals.device.index, p.js * 128, p.eb, p.nc)
+    assert spmv_wcoo.wwcoo_pair_route(p.vals.device.index, plan) == route, plan
+    x = torch.randn(n, device=cuda_device)
+    c1 = torch.tensor(0.7, device=cuda_device)
+    for y, c2 in ((torch.randn(m, device=cuda_device), 0.3),
+                  (torch.randn(p.m_pad, device=cuda_device), -1.0)):
+        spmv.reset_launch_counts()
+        (u1, z1), (u2, z2) = (spmv_wcoo.wwcoo_pair(p, y, x, c1, c2) for _ in range(2))
+        counts = spmv.launch_counts(by_variant=True)
+        u = spmv_wcoo.wwcoo_forward(p, x, c1, c2, y)
+        z = spmv_wcoo.wwcoo_adjoint(p, u)
+        torch.cuda.synchronize()
+        assert torch.equal(u1, u) and torch.equal(z1, z)
+        assert torch.equal(u1, u2) and torch.equal(z1, z2)
+        u_ref, z_ref = spmv_wcoo.wwcoo_pair_plain(p, y, x, c1, c2)
+        assert rel_err(u1, u_ref) < TOL and rel_err(z1, z_ref) < 1e-4
+        seq = 2 if route == "sequence" else 0
+        assert counts["wwcoo_pair[sequence]"] == seq and counts["wwcoo_pair"] == 2 - seq
+
+
 #: the products whose sums by destination ran through index_add_ (float
 #: atomics on the card) and now run in a fixed order; and BlockELL's two
 #: products on a tall pattern, whose transpose rows are split across CTAs

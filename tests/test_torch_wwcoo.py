@@ -393,3 +393,23 @@ def test_wwcoo_twins_on_a_wide_band_match_jax_and_scipy(rng, c1, c2):
     assert_close(u2, uj)
     assert_close(z2, zj)
     assert_close(z2, S.T @ (c1 * (S @ x) - c2 * y))
+
+
+def test_wwcoo_pair_on_the_cpu_runs_its_twin_and_launches_nothing(rng):
+    """On CPU tensors the pair is its twin (the forward, then the adjoint of
+    its padded u), and neither its count nor its sequence route's moves."""
+    from lsqr_tpu_torch.ops import spmv
+
+    m, n = 40_000, 30_001
+    vals, rows, cols = _zipf(rng, m, n, 9_000, 1.3)
+    p = wwcoo_pack(m, n, vals, rows, cols, force_emax=4096, force_js=512, device=DEV)
+    x = _t(rng.standard_normal(n).astype(np.float32))
+    y = _t(rng.standard_normal(m).astype(np.float32))
+    spmv.reset_launch_counts()
+    u, z = spmv_wcoo.wwcoo_pair(p, y, x, 0.7, -1.0)
+    u_f = spmv_wcoo.wwcoo_forward(p, x, 0.7, -1.0, y)
+    assert torch.equal(u, u_f)
+    assert torch.equal(z, spmv_wcoo.wwcoo_adjoint(p, u_f))
+    counts = spmv.launch_counts(by_variant=True)
+    assert counts["wwcoo_pair"] == counts["wwcoo_pair[sequence]"] == 0
+    assert_close(z, _scipy(m, n, vals, rows, cols).T @ to_np(u))

@@ -2,7 +2,7 @@
 """Device times of the WCOO/WWCOO and DIA pair kernels of one or more
 checkouts.
 
-    python3 tools/coo_kernel_times.py [ROOT ...] [--no-coo] [--out FILE]
+    python3 tools/coo_kernel_times.py [ROOT ...] [--no-coo | --only-coo] [--out FILE]
 
 Each ROOT (default: this checkout) is a checkout of the repository whose
 ``lsqr_tpu_torch`` is imported and whose kernels are built, in a process of
@@ -18,7 +18,14 @@ the WCOO forward, adjoint and pair; RWCOO's hot forward and adjoint and
 its cold forward, adjoint and pair; each forward again on its packing with
 every row emptied (gpe = -1: the per-row work alone, gpe, y and u); and
 ``torch.sparse_csr_tensor`` products of the same matrices (A, A', the cold
-stream's A and A'; ``--no-coo`` skips all of these). Then ``spmv.dia_pair``
+stream's A and A'). On RWCOO also: the cold stream's pair (u, z) saved
+with the dumps below; the operator's ``fused_pair`` (hot forward, cold
+pair, hot adjoint); and ``chip_smoke.py`` phase 15's RWCOO solves (b from
+seed 15, damp ``DAMP``): the fixed 64-iteration one's wall ms an iteration
+(host clock, setup included) and kernel ms an iteration from the profiler
+((128-iteration run - 64-iteration run) / 64), and the solve to atol =
+btol = 1e-6 (istop, itn, wall ms; x saved). ``--no-coo`` skips all of
+these. Then (unless ``--only-coo``) ``spmv.dia_pair``
 and ``spmv.dia_pair_shared`` on ``bench.py``'s banded shape (m = n = 2^23,
 11 diagonals, ``chip_smoke.random_stripes``) and at 2^19, f32 and bf16
 stripes, beside the two-call CSR time of the same matrix (``A @ x``, then
@@ -27,8 +34,9 @@ the CSR of A' ``@ u``); and the shared layout's f32 pair solve of
 istop and itn. The pairs' u and z at 2^23 and the solve's x go to
 ``build/coo_kernel_times/<run>.pt``, and this process prints the largest
 |difference| of each run's from the first run's (the same inputs on the
-same card). Last, ``stream_copy`` and ``x.mul_`` on ``bench.py``'s roofline
-shape (1024 x 2^18 f32), timed in turns five times each. Every checkout is
+same card). Last (unless ``--only-coo``), ``stream_copy`` and ``x.mul_``
+on ``bench.py``'s roofline shape (1024 x 2^18 f32), timed in turns five
+times each. Every checkout is
 timed by this checkout's ``chip_smoke.time_ms`` (the mean device time of
 ``--reps`` calls, the card spinning while the host queues them) and its
 CSR built by ``chip_smoke.csr_of``. Prints one JSON line per checkout (the
@@ -60,17 +68,17 @@ def yardstick():
     return mod
 
 
-def pair_times(smoke, dev, reps, dump):
+def pair_times(smoke, dev, reps, saved):
     """dia_pair's and dia_pair_shared's times at 2^23 and 2^19 x 11
     diagonals, f32 and bf16 stripes, and the two-call CSR time of each
-    shape; the 2^23 results, and the shared pair solve's, saved to
-    ``dump``."""
+    shape; the 2^23 results, and the shared pair solve's, put in
+    ``saved``."""
     import torch
 
     import lsqr_tpu_torch as lt
     from lsqr_tpu_torch.ops import spmv
 
-    out, saved = {}, {}
+    out = {}
     ks = smoke.OFFSETS
     for m in (2 ** 23, 2 ** 19):
         data, y, g = smoke.random_stripes(m, m, ks, dev, seed=100, boost=12.0)
@@ -103,8 +111,34 @@ def pair_times(smoke, dev, reps, dump):
     saved["shared_solve_x"] = [res.x.cpu()]
     del data, b, res
     torch.cuda.empty_cache()
-    Path(dump).parent.mkdir(parents=True, exist_ok=True)
-    torch.save(saved, dump)
+    return out
+
+
+def rwcoo_solves(smoke, A, dev, saved):
+    """Phase 15's RWCOO solves on ``A``: the fixed 64-iteration one (wall
+    and kernel ms an iteration) and the one to 1e-6 (istop, itn, wall; x
+    put in ``saved``)."""
+    import time
+
+    import torch
+
+    import lsqr_tpu_torch as lt
+
+    b = torch.randn(A.m, generator=torch.Generator(device=dev).manual_seed(15), device=dev)
+    fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
+    out = {}
+    for key, kw in (("rwcoo_fixed64", fixed), ("rwcoo_solve", dict(atol=1e-6, btol=1e-6))):
+        lt.lsqr(A, b, smoke.DAMP, **kw)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lt.lsqr(A, b, smoke.DAMP, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[key] = dict(istop=int(res.istop), itn=int(res.itn), wall_ms=ms,
+                        wall_ms_per_iteration=ms / max(1, int(res.itn)))
+    saved["rwcoo_solve_x"] = [res.x.cpu()]
+    busy = [smoke.profile_run(A, b, itn)[2] for itn in (64, 128)]
+    out["rwcoo_fixed64"]["kernel_ms_per_iteration"] = (busy[1] - busy[0]) / 64
     return out
 
 
@@ -124,9 +158,10 @@ def stream_turns(smoke, dev, reps):
     return {"stream_copy_turns": copy, "mul_turns": mul}
 
 
-def one(root, reps, dump, coo=True):
+def one(root, reps, dump, coo=True, dia=True):
     """Times of the kernels of the checkout at ``root`` (this process); the
-    WCOO/WWCOO ones only with ``coo``."""
+    WCOO/WWCOO ones only with ``coo``, the DIA pairs and stream_copy only
+    with ``dia``; the results compared across runs saved to ``dump``."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -141,7 +176,7 @@ def one(root, reps, dump, coo=True):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     c1, c2 = torch.tensor(0.8, device=dev), torch.tensor(0.3, device=dev)
-    out = {}
+    out, saved = {}, {}
 
     def t(fn):
         return smoke.time_ms(fn, reps)
@@ -173,10 +208,18 @@ def one(root, reps, dump, coo=True):
             out[f"{key}_adjoint"] = t(lambda: adj(p, y))
             if key != "hot":
                 out[f"{key}_pair"] = t(lambda: pair(p, y, xp, c1, c2))
+            if key == "cold":
+                saved["cold_pair"] = [r.cpu() for r in pair(p, y, xp, c1, c2)]
+        if label == "rwcoo":
+            out["rwcoo_fused_pair"] = t(lambda: A.fused_pair(y=y, win=x, c1=c1, c2=c2))
+            out.update(rwcoo_solves(smoke, A, dev, saved))
         del A, tri
         torch.cuda.empty_cache()
-    out.update(pair_times(smoke, dev, reps, dump))
-    out.update(stream_turns(smoke, dev, reps))
+    if dia:
+        out.update(pair_times(smoke, dev, reps, saved))
+        out.update(stream_turns(smoke, dev, reps))
+    Path(dump).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(saved, dump)
     return out
 
 
@@ -186,12 +229,15 @@ def main():
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--no-coo", action="store_true",
                     help="skip the WCOO/WWCOO kernels and their CSR products")
+    ap.add_argument("--only-coo", action="store_true",
+                    help="skip the DIA pairs, their solve and stream_copy")
     ap.add_argument("--out", help="write the runs to this JSON file too")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(one(args.one, args.reps, args.dump, not args.no_coo)), flush=True)
+        print(json.dumps(one(args.one, args.reps, args.dump, not args.no_coo,
+                             not args.only_coo)), flush=True)
         return 0
     import torch
 
@@ -207,7 +253,8 @@ def main():
         root = str(Path(root).resolve())
         proc = subprocess.run([sys.executable, __file__, "--one", root, "--reps",
                                str(args.reps), "--dump", str(dumps / f"{i}.pt"),
-                               *(["--no-coo"] if args.no_coo else [])],
+                               *(["--no-coo"] if args.no_coo else []),
+                               *(["--only-coo"] if args.only_coo else [])],
                               capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": root})
         if proc.returncode != 0:
