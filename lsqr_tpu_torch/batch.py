@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .cgls import CGLSResult
 from .config import LSQROptions, as_dtype, default_dtype, real_dtype
 from .lsmr import LSMRResult, check_complex_pair, sibling_tolerances
@@ -54,6 +55,7 @@ def _setup(A, B, damp, m, n, *, dtype=None, promote=False):
     return A, B, damps.expand(B.shape[0]).clone()
 
 
+@tracing.entry("lsqr_batch", rows="B")
 def lsqr_batch(A, B, damp=0.0, *, options: Optional[LSQROptions] = None,
                m: Optional[int] = None, n: Optional[int] = None,
                **option_overrides) -> LSQRResult:
@@ -81,14 +83,16 @@ def lsqr_batch(A, B, damp=0.0, *, options: Optional[LSQROptions] = None,
     def scalar(v):  # the tolerances are real, also for complex problems
         return as_tensor(v, dtype=real_dtype(B.dtype), device=B.device)
 
-    pieces = build_lsqr_rows(
-        A, B, damps, scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
-        batched=True, itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
-        safe_norms=opts.safe_norms, fused=fused, pair=pair,
-        scalar_dtype=as_dtype(opts.scalar_dtype))
+    with tracing.span("prepare"):
+        pieces = build_lsqr_rows(
+            A, B, damps, scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
+            batched=True, itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
+            safe_norms=opts.safe_norms, fused=fused, pair=pair,
+            scalar_dtype=as_dtype(opts.scalar_dtype))
     return solve_rows(pieces, itnlim=itnlim, seg_len=opts.loop_segment)
 
 
+@tracing.entry("lsmr_batch", rows="B")
 def lsmr_batch(A, B, damp=0.0, *, atol: float = 1e-6, btol: float = 1e-6,
                conlim: float = 1e8, itnlim: Optional[int] = None, safe_norms: bool = True,
                loop: Optional[str] = None, loop_segment: int = 64,
@@ -105,8 +109,10 @@ def lsmr_batch(A, B, damp=0.0, *, atol: float = 1e-6, btol: float = 1e-6,
     def scalar(v):
         return as_tensor(v, dtype=real_dtype(B.dtype), device=B.device)
 
-    pieces = build_lsmr_rows(A, B, damps, scalar(atol), scalar(btol), scalar(conlim),
-                             batched=True, itnlim=itnlim, safe_norms=safe_norms, pair=pair)
+    with tracing.span("prepare"):
+        pieces = build_lsmr_rows(A, B, damps, scalar(atol), scalar(btol), scalar(conlim),
+                                 batched=True, itnlim=itnlim, safe_norms=safe_norms,
+                                 pair=pair)
     return solve_rows(pieces, itnlim=itnlim, seg_len=loop_segment)
 
 
@@ -235,6 +241,7 @@ def _build_cgls_rows(A, B, damps, atol, btol, *, itnlim: int, safe_norms: bool, 
     return carry0, cond_fun, body_fun, finalize, ()
 
 
+@tracing.entry("cgls_batch", rows="B")
 def cgls_batch(A, B, damp=0.0, *, atol: float = 1e-6, btol: float = 1e-6,
                itnlim: Optional[int] = None, safe_norms: bool = True,
                loop: Optional[str] = None, loop_segment: int = 64,
@@ -251,6 +258,7 @@ def cgls_batch(A, B, damp=0.0, *, atol: float = 1e-6, btol: float = 1e-6,
     def scalar(v):
         return as_tensor(v, dtype=real_dtype(B.dtype), device=B.device)
 
-    pieces = _build_cgls_rows(A, B, damps, scalar(atol), scalar(btol), itnlim=itnlim,
-                              safe_norms=safe_norms, pair=pair)
+    with tracing.span("prepare"):
+        pieces = _build_cgls_rows(A, B, damps, scalar(atol), scalar(btol), itnlim=itnlim,
+                                  safe_norms=safe_norms, pair=pair)
     return solve_rows(pieces, itnlim=itnlim, seg_len=loop_segment)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .config import real_dtype
 from .lsmr import check_complex_pair, sibling_tolerances, solve_dtype
 from .ops.blas import nrm2, side_norms
@@ -192,6 +193,7 @@ def _build(
     return carry0, cond_fun, body_fun, finalize
 
 
+@tracing.entry("cgls")
 def cgls(
     A,
     b,

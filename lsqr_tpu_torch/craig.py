@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .config import real_dtype
 from .lsmr import check_complex_pair, solve_dtype
 from .ops.blas import nrm2, side_norms
@@ -171,6 +172,7 @@ def _build(
     return carry0, cond_fun, body_fun, finalize
 
 
+@tracing.entry("craig")
 def craig(
     A,
     b,

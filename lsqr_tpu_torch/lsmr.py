@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .config import default_dtype, real_dtype
 from .ops.blas import nrm2, side_norms
 from .ops.linop import LinearOperator, as_operator, as_tensor
@@ -342,6 +343,7 @@ def check_complex_pair(A: LinearOperator, dtype: torch.dtype, pair: bool) -> Non
                          "complex operators")
 
 
+@tracing.entry("lsmr")
 def lsmr(
     A,
     b,

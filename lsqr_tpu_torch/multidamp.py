@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .config import LSQROptions, as_dtype, default_dtype, real_dtype
 from .lsmr import LSMRResult, _sym_ortho, check_complex_pair, sibling_tolerances, solve_dtype
 from .ops.blas import abs2, all_max, all_sum, d2norm, nrm2
@@ -182,7 +183,8 @@ def solve_rows(pieces, *, itnlim: int, seg_len: int):
 
     final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim, seg_len=seg_len,
                           step=partial(_rows_step, shared=shared), head=head)
-    return finalize(final)
+    with tracing.span("finalize"):
+        return finalize(final)
 
 
 def _per_row(s, k):
@@ -474,6 +476,7 @@ def reject_options(opts: LSQROptions, name: str) -> None:
         raise ValueError(f"{name} takes no megakernel route; set megakernel=False")
 
 
+@tracing.entry("lsqr_multidamp", rows="damps", rows_by_length=True)
 def lsqr_multidamp(A, b, damps, *, options: Optional[LSQROptions] = None,
                    m: Optional[int] = None, n: Optional[int] = None,
                    **option_overrides) -> LSQRResult:
@@ -518,11 +521,12 @@ def lsqr_multidamp(A, b, damps, *, options: Optional[LSQROptions] = None,
     def scalar(v):  # damp and the tolerances are real, also for complex problems
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
-    pieces = build_lsqr_rows(
-        A, b, damps, scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
-        batched=False, itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
-        safe_norms=opts.safe_norms, fused=pair, pair=pair,
-        scalar_dtype=as_dtype(opts.scalar_dtype))
+    with tracing.span("prepare"):
+        pieces = build_lsqr_rows(
+            A, b, damps, scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
+            batched=False, itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
+            safe_norms=opts.safe_norms, fused=pair, pair=pair,
+            scalar_dtype=as_dtype(opts.scalar_dtype))
     return solve_rows(pieces, itnlim=itnlim, seg_len=opts.loop_segment)
 
 
@@ -745,6 +749,7 @@ def build_lsmr_rows(A, b, damps, atol, btol, conlim, *, batched: bool, itnlim: i
     return carry0, cond_fun, body_fun, finalize, () if batched else SHARED
 
 
+@tracing.entry("lsmr_multidamp", rows="damps", rows_by_length=True)
 def lsmr_multidamp(A, b, damps, *, atol: float = 1e-6, btol: float = 1e-6,
                    conlim: float = 1e8, itnlim: Optional[int] = None,
                    safe_norms: bool = True, loop: Optional[str] = None,
@@ -773,6 +778,8 @@ def lsmr_multidamp(A, b, damps, *, atol: float = 1e-6, btol: float = 1e-6,
     def scalar(v):
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
-    pieces = build_lsmr_rows(A, b, damps, scalar(atol), scalar(btol), scalar(conlim),
-                             batched=False, itnlim=itnlim, safe_norms=safe_norms, pair=pair)
+    with tracing.span("prepare"):
+        pieces = build_lsmr_rows(A, b, damps, scalar(atol), scalar(btol), scalar(conlim),
+                                 batched=False, itnlim=itnlim, safe_norms=safe_norms,
+                                 pair=pair)
     return solve_rows(pieces, itnlim=itnlim, seg_len=loop_segment)

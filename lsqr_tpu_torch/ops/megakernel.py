@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from . import spmv
 from .blas import d2norm, nrm2
 from .linop import as_tensor
@@ -190,7 +191,7 @@ def launch_call(wrapper, solver, data, tdata, u, v, x, w, hbar, state, offsets, 
     spmv._launch(wrapper, fn, data, data.data_ptr(), tdata.data_ptr(),
                  offsets_t.data_ptr(), toffsets_t.data_ptr(), len(offsets), m, n,
                  ptr(u), ptr(v), ptr(x), ptr(w), ptr(hbar), state.data_ptr(),
-                 partial.data_ptr(), blocks, int(K), lo, hi, tile)
+                 partial.data_ptr(), blocks, int(K), lo, hi, tile, iterations=int(K))
 
 
 def host_loop(call, state, itnlim, K, istop_i, itn_i):
@@ -213,16 +214,22 @@ def host_loop(call, state, itnlim, K, istop_i, itn_i):
 
     prev = None
     for _ in range(-(-itnlim // K) + 1):
-        call()
-        snap = snapshot()
+        with tracing.span("mk.launch", K=K):
+            call()
+            snap = snapshot()
+        tracing.count("iterations_launched", K)
         if prev is not None:
             host, event = prev
-            if event is not None:
-                event.synchronize()
+            with tracing.span("mk.wait"):
+                if event is not None:
+                    event.synchronize()
             if host[istop_i] != 0 or host[itn_i] >= itnlim:
                 break
         prev = snap
-    return state.cpu().numpy()
+    with tracing.span("mk.wait"):
+        st = state.cpu().numpy()
+    tracing.count("iterations_needed", int(st[itn_i]))
+    return st
 
 
 def setup(A, b):
@@ -413,7 +420,8 @@ def lsqr_megakernel_call(data, tdata, u, v, x, w, state, *, offsets, m, n, K,
                 offsets, m, n, K, offsets_t, toffsets_t, _route)
 
 
-spmv.register(lsqr_megakernel_call, ("f32", "bf16"), name="lsqr_megakernel")
+spmv.register(lsqr_megakernel_call, ("f32", "bf16"), name="lsqr_megakernel",
+              work="iterations")
 
 
 def megakernel_supported(A, *, wantse=False, record_trace=False) -> bool:
@@ -450,14 +458,13 @@ def lsqr_megakernel_prepare(A, b, damp=0.0, *, atol=0.0, btol=0.0, conlim=0.0,
             w), state
 
 
+@tracing.entry("lsqr_megakernel")
 def lsqr_megakernel(A, b, damp: float = 0.0, *, atol: float = 0.0, btol: float = 0.0,
                     conlim: float = 0.0, itnlim=None, nconv: int = 1,
                     iters_per_call: int = 32, x0=None):
     """Solve min ||Ax - b|| (optionally damped) with K iterations per kernel
     launch. Semantics of :func:`lsqr_tpu_torch.lsqr` in f32, without se or
     trace; returns an LSQRResult."""
-    from ..solver import LSQRResult
-
     b = f32_b(A, b)
     if x0 is not None:
         return warm_start(lsqr_megakernel, A, b, damp, x0, "xnorm", atol=atol, btol=btol,
@@ -470,8 +477,9 @@ def lsqr_megakernel(A, b, damp: float = 0.0, *, atol: float = 0.0, btol: float =
     dev = A.device
     itnlim_r = int(itnlim) if itnlim is not None else 4 * n
     K = min(iters_per_call, max(1, itnlim_r))
-    (u, v, x, w), state = lsqr_megakernel_prepare(
-        A, b, damp, atol=atol, btol=btol, conlim=conlim, itnlim=itnlim_r, nconv=nconv)
+    with tracing.span("prepare"):
+        (u, v, x, w), state = lsqr_megakernel_prepare(
+            A, b, damp, atol=atol, btol=btol, conlim=conlim, itnlim=itnlim_r, nconv=nconv)
 
     def call():
         lsqr_megakernel_call(A.data, A.tdata, u, v, x, w, state, offsets=A.offsets,
@@ -479,7 +487,14 @@ def lsqr_megakernel(A, b, damp: float = 0.0, *, atol: float = 0.0, btol: float =
                              toffsets_t=A.toffsets_t)
 
     st = host_loop(call, state, itnlim_r, K, ISTOP, ITN)
+    with tracing.span("finalize"):
+        return _result(st, x, damp, dev)
 
+
+def _result(st, x, damp, dev):
+    """The LSQRResult of a finished solve from its final state ``st`` (a
+    numpy array) and its x on the device."""
+    from ..solver import LSQRResult
 
     # the last iteration's tests may still be pending (they run at the next
     # p0 boundary): replicate them on the host, exactly as the JAX package

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from . import spmv
 from .linop import as_tensor
 from .megakernel import (
@@ -119,7 +120,8 @@ def craig_megakernel_call(data, tdata, u, v, x, state, *, offsets, m, n, K,
                 offsets, m, n, K, offsets_t, toffsets_t, _route)
 
 
-spmv.register(craig_megakernel_call, ("f32", "bf16"), name="craig_megakernel")
+spmv.register(craig_megakernel_call, ("f32", "bf16"), name="craig_megakernel",
+              work="iterations")
 
 
 def craig_megakernel_supported(A) -> bool:
@@ -143,6 +145,7 @@ def craig_megakernel_prepare(A, b, *, atol=1e-6, btol=1e-6, itnlim: int):
             torch.zeros(A.n, dtype=torch.float32, device=A.device)), state
 
 
+@tracing.entry("craig_megakernel")
 def craig_megakernel(A, b, *, atol: float = 1e-6, btol: float = 1e-6, itnlim=None,
                      iters_per_call: int = 32, x0=None):
     """Minimum-norm solve of a consistent system with Craig's method, K

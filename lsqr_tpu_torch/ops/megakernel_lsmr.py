@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..lsmr import _sym_ortho
 from . import spmv
 from .megakernel import (
@@ -172,7 +173,8 @@ def lsmr_megakernel_call(data, tdata, u, v, x, h, hbar, state, *, offsets, m, n,
                 offsets, m, n, K, offsets_t, toffsets_t, _route)
 
 
-spmv.register(lsmr_megakernel_call, ("f32", "bf16"), name="lsmr_megakernel")
+spmv.register(lsmr_megakernel_call, ("f32", "bf16"), name="lsmr_megakernel",
+              work="iterations")
 
 
 def lsmr_megakernel_supported(A, *, record_trace=False) -> bool:
@@ -206,6 +208,7 @@ def lsmr_megakernel_prepare(A, b, damp=0.0, *, atol=1e-6, btol=1e-6, conlim=1e8,
     return (b.clone(), v0u.contiguous(), zeros, h, zeros.clone()), state
 
 
+@tracing.entry("lsmr_megakernel")
 def lsmr_megakernel(A, b, damp: float = 0.0, *, atol: float = 1e-6, btol: float = 1e-6,
                     conlim: float = 1e8, itnlim=None, iters_per_call: int = 32, x0=None):
     """Solve min ||Ax - b|| (optionally damped) with LSMR, K iterations per

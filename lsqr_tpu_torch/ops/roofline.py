@@ -68,7 +68,7 @@ def stream_copy(x):
     return x
 
 
-spmv.register(stream_copy, ("f32",))
+spmv.register(stream_copy, ("f32",), work="copy")
 
 
 def stream_ceiling(device=None, rows=ROWS, cols=COLS, k=K):

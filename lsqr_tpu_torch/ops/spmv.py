@@ -58,6 +58,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import tracing
+
 __all__ = [
     "dia_shared_geometry",
     "dia_product_shared",
@@ -402,15 +404,25 @@ def _kernel(name, stripes, dtypes, offsets, tail=""):
     return getattr(_cuda.library(), f"lsqr_{name}_{_SUFFIX[stripes.dtype]}{tail}")
 
 
-def _launch(wrapper, fn, stripes, *args, variant=None):
+def _launch(wrapper, fn, stripes, *args, variant=None, **work):
     """Run a launcher, raise on its CUDA error, count the launch (under
-    ``variant``, by default the stripes' dtype)."""
+    ``variant``, by default the stripes' dtype). While spans are on, one
+    launch in ``tracing.SAMPLE`` of the wrapper is a ``kernel`` span
+    (:class:`tracing.kernel`); ``work`` overrides the wrapper's declared
+    unit (``work=``, ``rows=``) or gives a megakernel launch's
+    ``iterations``."""
     from . import _cuda
 
-    _cuda.check(fn(*args, torch.cuda.current_stream(stripes.device).cuda_stream),
-                wrapper.kernel_name)
+    variant = variant or _SUFFIX[stripes.dtype]
+    stream = torch.cuda.current_stream(stripes.device)
+    if tracing.enabled() and wrapper.launches % tracing.SAMPLE == 0:
+        with tracing.kernel(wrapper, variant, stream, **work):
+            status = fn(*args, stream.cuda_stream)
+    else:
+        status = fn(*args, stream.cuda_stream)
+    _cuda.check(status, wrapper.kernel_name)
     wrapper.launches += 1
-    wrapper.variants[variant or _SUFFIX[stripes.dtype]] += 1
+    wrapper.variants[variant] += 1
 
 
 def _device_scalar(c, device):
@@ -1119,8 +1131,8 @@ def _zdia_pair_launch(dr, di, y, win, c1, c2, *, offsets: Sequence[int], m: int,
     if tile:
         _launch(zdia_pair, fn, dr, *args, ZPAIR_FUSED, tile)
     else:
-        _launch(zdia_pair, fn, dr, *args, ZPAIR_FORWARD, 0)
-        _launch(zdia_pair, fn, dr, *args, ZPAIR_ADJOINT, 0)
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_FORWARD, 0, work="product")
+        _launch(zdia_pair, fn, dr, *args, ZPAIR_ADJOINT, 0, work="product")
     return u, z
 
 
@@ -1139,16 +1151,24 @@ KERNELS = {
 }
 
 
+#: the unit of work of a launch (:class:`tracing.kernel`), per wrapper:
+#: "pair" (one right-hand side's A x and A' u), "product" (one of them),
+#: "iterations" (K solver iterations, given at each launch) or "copy"
+WORK = {dia_pair_shared: "pair", dia_pair: "pair", zdia_pair: "pair"}
+
+
 def reset_launch_counts() -> None:
     for fn, suffixes in KERNELS.items():
         fn.launches = 0
         fn.variants = dict.fromkeys(suffixes, 0)
 
 
-def register(wrapper, suffixes, name=None) -> None:
+def register(wrapper, suffixes, name=None, work="product") -> None:
     """Count a kernel wrapper of another module here too, under ``name``
-    (its own ``__name__`` by default); it launches through :func:`_launch`."""
+    (its own ``__name__`` by default), its launches each one ``work``
+    (:data:`WORK`); it launches through :func:`_launch`."""
     wrapper.kernel_name = name or wrapper.__name__
+    wrapper.work = work
     KERNELS[wrapper] = tuple(suffixes)
     wrapper.launches = 0
     wrapper.variants = dict.fromkeys(suffixes, 0)
@@ -1156,6 +1176,7 @@ def register(wrapper, suffixes, name=None) -> None:
 
 for _fn in KERNELS:
     _fn.kernel_name = _fn.__name__
+    _fn.work = WORK.get(_fn, "product")
 reset_launch_counts()
 
 

@@ -313,6 +313,6 @@ def block_ell_pair_plan(kb: int, bh: int, bw: int, smem: int = PAIR_SMEM_BYTES) 
     return PairPlan(ranks, bounds, 4 * (most * bh * bw + most * bw + 2 * bh) <= smem)
 
 
-for _wrapper in (jdia_matvec, block_ell_matvec, block_ell_matvec_windowed,
-                 block_ell_pair_windowed):
+for _wrapper in (jdia_matvec, block_ell_matvec, block_ell_matvec_windowed):
     spmv.register(_wrapper, ("f32",))
+spmv.register(block_ell_pair_windowed, ("f32",), work="pair")

@@ -370,5 +370,5 @@ def wwcoo_pair(packed, y, win, c1, c2):
 
 
 for _wrapper in (wcoo_forward, wcoo_adjoint, wcoo_pair, wwcoo_forward, wwcoo_adjoint):
-    spmv.register(_wrapper, ("f32",))
-spmv.register(wwcoo_pair, ("f32", "sequence"))
+    spmv.register(_wrapper, ("f32",), work="pair" if _wrapper is wcoo_pair else "product")
+spmv.register(wwcoo_pair, ("f32", "sequence"), work="pair")

@@ -43,6 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import as_dtype
 from .coo import destination_order, segment_sum
 from .linop import LinearOperator, as_tensor, placement, to_numpy
@@ -227,6 +228,7 @@ class DIAOperator(LinearOperator):
         return _todense(self.data, self.offsets, self.m, self.n, self.dtype)
 
 
+@tracing.builder("dia_operator_device")
 def dia_operator_device(m, n, offsets: Sequence[int], data: torch.Tensor, *,
                         storage_dtype=None) -> DIAOperator:
     """Build a :class:`DIAOperator` from stripes ``data`` (len(offsets), m)
@@ -245,13 +247,14 @@ def dia_operator_device(m, n, offsets: Sequence[int], data: torch.Tensor, *,
         return zdia_operator_device(m, n, offsets, data)
     if tuple(data.shape) != (nd, m):
         raise ValueError(f"data must have shape ({nd}, {m}), got {tuple(data.shape)}")
-    data = _masked(data, offsets, m, n)
-    tdata = _transpose_stripes(data, offsets, m, n)
-    storage_dtype = as_dtype(storage_dtype)
-    if storage_dtype is not None:
-        data, tdata = data.to(storage_dtype), tdata.to(storage_dtype)
-    return DIAOperator(data=data.contiguous(), tdata=tdata, m=int(m), n=int(n),
-                       offsets=offsets)
+    with tracing.span("build.pack"):
+        data = _masked(data, offsets, m, n)
+        tdata = _transpose_stripes(data, offsets, m, n)
+        storage_dtype = as_dtype(storage_dtype)
+        if storage_dtype is not None:
+            data, tdata = data.to(storage_dtype), tdata.to(storage_dtype)
+        return DIAOperator(data=data.contiguous(), tdata=tdata, m=int(m), n=int(n),
+                           offsets=offsets)
 
 
 def dia_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
@@ -381,6 +384,7 @@ class DIASharedOperator(LinearOperator):
         return _todense(self.data, self.offsets, self.m, self.n, self.dtype)
 
 
+@tracing.builder("dia_shared_operator")
 def dia_shared_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
                         storage_dtype=None, device=None) -> DIASharedOperator:
     """Build a :class:`DIASharedOperator` from row-aligned stripes ``data``
@@ -391,18 +395,20 @@ def dia_shared_operator(m, n, offsets: Sequence[int], data, *, dtype=None,
     products)."""
     offsets = tuple(int(k) for k in offsets)
     nd = len(offsets)
-    data = as_tensor(data, dtype=dtype, device=device)
+    with tracing.span("build.upload"):
+        data = as_tensor(data, dtype=dtype, device=device)
     if tuple(data.shape) != (nd, m):
         raise ValueError(f"data must have shape ({nd}, {m}), got {tuple(data.shape)}")
     storage_dtype = as_dtype(storage_dtype)
-    data = _masked(data, offsets, m, n)
-    if storage_dtype is not None:
-        data = data.to(storage_dtype)
-    H, Lp = _geometry(offsets, m, n)
-    dp = torch.zeros((nd, Lp), dtype=data.dtype, device=data.device)
-    dp[:, H:H + m] = data
-    return DIASharedOperator(dp=dp.reshape(-1), m=int(m), n=int(n),
-                             offsets=offsets, H=H)
+    with tracing.span("build.pack"):
+        data = _masked(data, offsets, m, n)
+        if storage_dtype is not None:
+            data = data.to(storage_dtype)
+        H, Lp = _geometry(offsets, m, n)
+        dp = torch.zeros((nd, Lp), dtype=data.dtype, device=data.device)
+        dp[:, H:H + m] = data
+        return DIASharedOperator(dp=dp.reshape(-1), m=int(m), n=int(n),
+                                 offsets=offsets, H=H)
 
 
 # ---------------------------------------------------------------------------

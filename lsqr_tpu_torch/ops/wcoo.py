@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import as_dtype
 from .coo import COOOperator, coo_operator
 from .linop import LinearOperator, placement, to_numpy
@@ -261,9 +262,11 @@ def wcoo_pack(m, n, vals, rows, cols, *, force_emax=None, force_kb=None, force_k
     with its knobs and refusals), the kernels' arrays on ``device`` (when
     None: the device of a tensor ``vals``, else the card)."""
     device = placement(vals, device)
-    arrays, meta = wcoo_pack_arrays(m, n, vals, rows, cols, force_emax=force_emax,
-                                    force_kb=force_kb, force_ku=force_ku)
-    return packed_from_arrays(arrays, meta, device)
+    with tracing.span("build.pack"):
+        arrays, meta = wcoo_pack_arrays(m, n, vals, rows, cols, force_emax=force_emax,
+                                        force_kb=force_kb, force_ku=force_ku)
+    with tracing.span("build.upload"):
+        return packed_from_arrays(arrays, meta, device)
 
 
 def wcoo_plan(m, n, rows, cols) -> dict:
@@ -362,6 +365,7 @@ class WCOOOperator(ChunkedCOOOperator):
     KERNELS = (wcoo_forward, wcoo_adjoint, wcoo_pair)
 
 
+@tracing.builder("wcoo_operator")
 def wcoo_operator(m, n, vals, rows, cols, *, dtype=None, device=None) -> WCOOOperator:
     """Build a :class:`WCOOOperator` from COO triplets (real f32,
     n <= 4096), packed on the host and moved to ``device`` once (when None:

@@ -53,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import LSQROptions, as_dtype, default_dtype, real_dtype
 from ..ops.blas import all_sum
 from ..ops.coo import COOOperator
@@ -602,6 +603,7 @@ def lsqr_sharded_zdia(A, b, damp: float = 0.0, *, mesh=None, axis_name: str = "r
 # ---------------------------------------------------------------------------
 
 
+@tracing.entry("lsqr_multidamp_sharded", rows="damps", rows_by_length=True)
 def lsqr_multidamp_sharded(A, b, damps, *, mesh=None, axis_name: str = "rows",
                            options: Optional[LSQROptions] = None, device=None,
                            **option_overrides):
@@ -632,11 +634,12 @@ def lsqr_multidamp_sharded(A, b, damps, *, mesh=None, axis_name: str = "rows",
     def scalar(v):
         return as_tensor(v, dtype=rd, device=b_local.device)
 
-    pieces = build_lsqr_rows(
-        op, b_local, _damps(damps, b_local.dtype, b_local.device), scalar(opts.atol),
-        scalar(opts.btol), scalar(opts.conlim), batched=False, itnlim=itnlim,
-        wantse=opts.wantse, nconv=opts.nconv, safe_norms=opts.safe_norms, fused=pair,
-        pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype))
+    with tracing.span("prepare"):
+        pieces = build_lsqr_rows(
+            op, b_local, _damps(damps, b_local.dtype, b_local.device), scalar(opts.atol),
+            scalar(opts.btol), scalar(opts.conlim), batched=False, itnlim=itnlim,
+            wantse=opts.wantse, nconv=opts.nconv, safe_norms=opts.safe_norms, fused=pair,
+            pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype))
     return solve_rows(pieces, itnlim=itnlim, seg_len=opts.loop_segment)
 
 

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .config import LSQROptions, as_dtype, default_dtype, real_dtype
 from .ops.blas import abs2, all_sum, d2norm, nrm2, side_norms
 from .ops.linop import LinearOperator, as_operator, as_tensor
@@ -462,19 +463,28 @@ def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int, log=N
         cond = cond_fun
     prev_itn = 0
     while True:
-        for _ in range(seg):
-            carry = step(carry, cond, body_fun)
-        read = torch.stack([carry.istop, carry.itn]) if head is None else head(carry)
-        if log:
-            read = torch.cat([read.double(), torch.stack(log).double().reshape(-1)]).tolist()
-            log.clear()
-            istop, itn = int(read[0]), int(read[1])
-            for i in range(2, len(read), 12):
-                if read[i]:
-                    _debug_line(*read[i + 1:i + 12])
-        else:
-            istop, itn = read.tolist()
-        if stop_at is not None or istop != 0 or itn >= itnlim or itn == prev_itn:
+        with tracing.span("segment.enqueue", seg=seg):
+            for _ in range(seg):
+                carry = step(carry, cond, body_fun)
+        tracing.count("iterations_launched", seg)
+        with tracing.span("segment.read") as attrs:
+            read = torch.stack([carry.istop, carry.itn]) if head is None else head(carry)
+            if log:
+                read = torch.cat([read.double(),
+                                  torch.stack(log).double().reshape(-1)]).tolist()
+                log.clear()
+                istop, itn = int(read[0]), int(read[1])
+                for i in range(2, len(read), 12):
+                    if read[i]:
+                        _debug_line(*read[i + 1:i + 12])
+            else:
+                istop, itn = read.tolist()
+            if attrs is not None:
+                attrs["itn"] = itn
+        done = istop != 0 or itn >= itnlim
+        if stop_at is not None or done or itn == prev_itn:
+            if done or itn == prev_itn:  # the solve's end, not a checkpoint's
+                tracing.count("iterations_needed", itn)
             return carry
         prev_itn = itn
 
@@ -514,6 +524,7 @@ def damped_warm_start(A: LinearOperator, b: torch.Tensor, x0: torch.Tensor, damp
     return stacked, torch.cat([b - A.matvec(x0), -d * x0])
 
 
+@tracing.entry("lsqr")
 def lsqr(
     A,
     b,
@@ -592,12 +603,14 @@ def lsqr(
         return as_tensor(v, dtype=real_dtype(dtype), device=b.device)
 
     log = [] if opts.debug_log else None
-    carry0, cond_fun, body_fun, finalize = _build(
-        A, b, scalar(damp), scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
-        itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
-        record_trace=opts.record_trace, safe_norms=opts.safe_norms,
-        fused=fused, pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype), log_rows=log,
-    )
+    with tracing.span("prepare"):
+        carry0, cond_fun, body_fun, finalize = _build(
+            A, b, scalar(damp), scalar(opts.atol), scalar(opts.btol), scalar(opts.conlim),
+            itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
+            record_trace=opts.record_trace, safe_norms=opts.safe_norms,
+            fused=fused, pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype), log_rows=log,
+        )
     final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim,
                           seg_len=opts.loop_segment, log=log)
-    return finalize(final)
+    with tracing.span("finalize"):
+        return finalize(final)

@@ -5,6 +5,15 @@ the host and CUDA activity of its block with ``torch.profiler`` and writes
 a Chrome trace (``chrome://tracing``, Perfetto) into ``log_dir``;
 ``product_rate`` times a chain of operator products with CUDA events on the
 card (with the host's clock on the CPU).
+
+Inside ``trace`` the solvers' own spans are on
+(:mod:`lsqr_tpu_torch.tracing`): the Chrome trace shows each call's
+``lsqr_tpu_torch.prepare``, ``segment.enqueue`` / ``segment.read`` or
+``mk.launch`` / ``mk.wait``, ``finalize`` and a ``kernel`` over one
+counted launch in ``tracing.SAMPLE`` on the host thread, above the device
+lanes that run what they launched; ``tracing.spans()`` gives the same
+spans with their attributes (a kernel's event-timed ``device_s``), and
+each call's ``entry`` with its counter deltas, after the block.
 """
 
 from __future__ import annotations
