@@ -485,14 +485,26 @@ def base(variant):
     return variant.split("[")[0]
 
 
+class Launches(dict):
+    """Kernel launches by variant while a path ran, and ``iterations``:
+    the solver iterations it launched (the program's counter
+    ``iterations_launched``)."""
+
+    iterations = 0
+
+
 def counted(fn):
-    """(fn's result, kernel launches by variant while it ran): one path of
-    the main program, with every count set to 0 just before it."""
+    """(fn's result, :class:`Launches` while it ran): one path of the main
+    program, with every launch count set to 0 just before it."""
+    from lsqr_tpu_torch import tracing
     from lsqr_tpu_torch.ops import spmv
 
     spmv.reset_launch_counts()
+    before = tracing.counts()["iterations_launched"]
     out = fn()
-    return out, spmv.launch_counts(by_variant=True)
+    delta = Launches(spmv.launch_counts(by_variant=True))
+    delta.iterations = tracing.counts()["iterations_launched"] - before
+    return out, delta
 
 
 # ---------------------------------------------------------------------------
@@ -922,8 +934,19 @@ def timed_solve(A, b, label, card, **kw):
 
 
 def iterations_run(itn, seg):
-    """Iterations a masked-segment solve runs: itn plus the masked rest."""
+    """Iterations a solve that runs whole segments (a sharded one) runs:
+    itn plus the masked rest."""
     return -(-itn // seg) * seg
+
+
+def iterations_launched(delta, itn):
+    """Iterations a counted solve launched (``delta.iterations``): a
+    segment ends at most ``solver.AHEAD`` masked steps past the stop."""
+    from lsqr_tpu_torch.solver import AHEAD
+
+    check(itn <= delta.iterations <= itn + AHEAD,
+          f"{delta.iterations} iterations launched for itn {itn} (at most {AHEAD} past it)")
+    return delta.iterations
 
 
 def optimality(forward, adjoint, fro, b, x, damp=DAMP):
@@ -972,7 +995,6 @@ def phase_main_solve(dev, m, card, paths):
     A = lt.dia_shared_operator(m, m, OFFSETS, data)
     del data
     check(A.prefers_pair, "the f32 operator on the card must take pair mode")
-    seg = lt.LSQROptions().loop_segment
     out = {}
 
     def solve(label, **kw):
@@ -985,8 +1007,9 @@ def phase_main_solve(dev, m, card, paths):
                           btol=0.0, conlim=0.0)
     check(int(res.istop) in (1, 2, 3, 5) and int(res.itn) <= 64, "(a) bad stop")
     check(int(res.istop) != 5 or int(res.itn) == 64, "(a) istop 5 before itnlim")
-    check(delta["dia_pair_shared"] == 64 and delta["dia_product_shared"] == 1,
-          f"(a) expected 64 pair launches (itn + masked) and one setup product: {delta}")
+    body = iterations_launched(delta, int(res.itn))
+    check(delta["dia_pair_shared"] == body and delta["dia_product_shared"] == 1,
+          f"(a) expected {body} pair launches (itn + masked) and one setup product: {delta}")
 
     # fixed length: nconv > itnlim keeps the solve going to itnlim
     kw = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
@@ -999,7 +1022,7 @@ def phase_main_solve(dev, m, card, paths):
     res_b, delta, secs = solve("(b) atol=btol=1e-6", atol=1e-6, btol=1e-6)
     itn_b = int(res_b.itn)
     check(int(res_b.istop) in (1, 2, 3), f"(b) istop {int(res_b.istop)}")
-    body = iterations_run(itn_b, seg)
+    body = iterations_launched(delta, itn_b)
     check(delta["dia_pair_shared"] == body,
           f"(b) pair launches {delta['dia_pair_shared']} != itn + masked = {body}")
     out["solve_b"] = dict(istop=int(res_b.istop), itn=itn_b, ms=secs * 1e3)
@@ -1016,7 +1039,7 @@ def phase_main_solve(dev, m, card, paths):
     res_c, delta, secs = solve("(b) pair=False", atol=1e-6, btol=1e-6, pair=False)
     check(int(res_c.istop) == int(res_b.istop), "pair=False: istop differs")
     check(abs(int(res_c.itn) - itn_b) <= 2, "pair=False: itn differs by more than 2")
-    body = iterations_run(int(res_c.itn), seg)
+    body = iterations_launched(delta, int(res_c.itn))
     check(delta["dia_product_shared_axpy"] == 2 * body and delta["dia_pair_shared"] == 0,
           f"pair=False: expected {2 * body} axpy launches: {delta}")
     check(rel(res_c.x, res_b.x) <= 1e-4, "pair=False: x differs")
@@ -1119,7 +1142,6 @@ def phase_unstaged_solves(dev, errs, card, paths):
     v = torch.randn(m, generator=g, device=dev)
     c1 = torch.tensor(0.8, device=dev)
     c2 = torch.tensor(1.1, device=dev)
-    seg = lt.LSQROptions().loop_segment
     out, perf = {}, {}
     for storage in (torch.float32, torch.bfloat16):
         A = lt.dia_shared_operator(m, m, ks, data, storage_dtype=storage)
@@ -1161,7 +1183,7 @@ def phase_unstaged_solves(dev, errs, card, paths):
         res, delta, secs = timed_solve(A, b, f"{len(ks)} diagonals {tag} (b)", card,
                                        atol=1e-6, btol=1e-6)
         paths.append(delta)
-        body = iterations_run(int(res.itn), seg)
+        body = iterations_launched(delta, int(res.itn))
         check(int(res.istop) in (1, 2, 3), f"{len(ks)} diagonals {tag}: bad stop")
         check(delta[unstaged] == body and delta["dia_pair_shared" + sfx] == 0,
               f"{len(ks)} diagonals {tag}: expected {body} unstaged pair launches: {delta}")
@@ -1356,7 +1378,6 @@ def phase_packed_solve(dev, m, x_shared, card, paths):
     del data
     check(isinstance(A, lt.DIAOperator) and A.prefers_pair and A.prefers_fused,
           "the packed f32 operator on the card must prefer pair and fused modes")
-    seg = lt.LSQROptions().loop_segment
     out = {}
 
     def solve(label, op=None, rhs=None, **kw):
@@ -1375,7 +1396,7 @@ def phase_packed_solve(dev, m, x_shared, card, paths):
     res_b, delta, secs = solve("(b) atol=btol=1e-6", atol=1e-6, btol=1e-6)
     itn_b, istop_b = int(res_b.itn), int(res_b.istop)
     check(istop_b in (1, 2, 3), f"packed (b) istop {istop_b}")
-    check(delta["dia_pair"] == iterations_run(itn_b, seg),
+    check(delta["dia_pair"] == iterations_launched(delta, itn_b),
           f"packed (b): pair launches {delta['dia_pair']} != itn + masked")
     ratio = packed_optimality(A, b, res_b.x)
     err = rel(res_b.x, x_shared)
@@ -1387,7 +1408,7 @@ def phase_packed_solve(dev, m, x_shared, card, paths):
                           x_rel_to_shared=err)
 
     res_c, delta, secs = solve("(b) pair=False", atol=1e-6, btol=1e-6, pair=False)
-    body = iterations_run(int(res_c.itn), seg)
+    body = iterations_launched(delta, int(res_c.itn))
     check(int(res_c.istop) == istop_b and abs(int(res_c.itn) - itn_b) <= 2,
           "packed pair=False: istop/itn differ")
     check(delta["dia_fused_halfstep"] == 2 * body and delta["dia_pair"] == 0,
@@ -1396,7 +1417,7 @@ def phase_packed_solve(dev, m, x_shared, card, paths):
     out["solve_pair_false"] = dict(istop=int(res_c.istop), itn=int(res_c.itn), ms=secs * 1e3)
 
     res_d, delta, secs = solve("(b) fused=False", atol=1e-6, btol=1e-6, fused=False)
-    body = iterations_run(int(res_d.itn), seg)
+    body = iterations_launched(delta, int(res_d.itn))
     check(int(res_d.istop) == istop_b and abs(int(res_d.itn) - itn_b) <= 2,
           "packed fused=False: istop/itn differ")
     check(delta["dia_matvec"] == 2 * body + 1 and delta["dia_pair"] == 0,
@@ -1416,7 +1437,7 @@ def phase_packed_solve(dev, m, x_shared, card, paths):
     del data
     res_w, delta, secs = solve(f"wide band {ks} m=n={mw} (b)", op=Aw, rhs=bw,
                                atol=1e-6, btol=1e-6)
-    body = iterations_run(int(res_w.itn), seg)
+    body = iterations_launched(delta, int(res_w.itn))
     check(int(res_w.istop) in (1, 2, 3), "wide band: bad stop")
     check(delta["dia_pair"] == 0 and delta["dia_matvec_axpy"] == body
           and delta["dia_matvec"] == body + 1,
@@ -1436,7 +1457,6 @@ def phase_bf16(dev, m, x_f32, card, paths):
     import lsqr_tpu_torch as lt
 
     data, b, _ = random_stripes(m, m, OFFSETS, dev, seed=100, boost=12.0)
-    seg = lt.LSQROptions().loop_segment
     out = {}
     for label, build, pair, axpy, optimal in (
             ("packed", lt.dia_operator_device, "dia_pair[bf16]", "dia_matvec_axpy[bf16]",
@@ -1461,7 +1481,7 @@ def phase_bf16(dev, m, x_f32, card, paths):
         res_b, delta, secs = solve("(b) atol=btol=1e-6", atol=1e-6, btol=1e-6)
         itn_b, istop_b = int(res_b.itn), int(res_b.istop)
         check(istop_b in (1, 2, 3), f"bf16 {label} (b) istop {istop_b}")
-        check(delta[pair] == iterations_run(itn_b, seg) > 0,
+        check(delta[pair] == iterations_launched(delta, itn_b) > 0,
               f"bf16 {label} (b): pair launches {delta[pair]} != itn + masked")
         ratio = optimal(A, b, res_b.x)  # against the bf16-rounded operator
         err = rel(res_b.x, x_f32)
@@ -1473,7 +1493,7 @@ def phase_bf16(dev, m, x_f32, card, paths):
         # the half-step on bf16 stripes: not preferred, so forced
         res_c, delta, _ = solve("(b) fused=True, pair=False", atol=1e-6, btol=1e-6,
                                 fused=True, pair=False)
-        body = iterations_run(int(res_c.itn), seg)
+        body = iterations_launched(delta, int(res_c.itn))
         check(int(res_c.istop) == istop_b and abs(int(res_c.itn) - itn_b) <= 2,
               f"bf16 {label} half-steps: istop/itn differ")
         check(delta[axpy] == 2 * body and delta[pair] == 0,
@@ -1961,7 +1981,6 @@ def phase_general_solves(dev, jdia, bell, card, paths):
     from lsqr_tpu_torch.ops import spmv_sparse
 
     out = {}
-    seg = lt.LSQROptions().loop_segment
     fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
 
     A, trip = jdia
@@ -1972,7 +1991,7 @@ def phase_general_solves(dev, jdia, bell, card, paths):
     res, delta, secs = timed_solve(A, b, f"JDIA m=n={A.m} (b) atol=btol=1e-6", card,
                                    atol=1e-6, btol=1e-6)
     paths.append(delta)
-    body = iterations_run(int(res.itn), seg)
+    body = iterations_launched(delta, int(res.itn))
     check(int(res.istop) in (1, 2, 3), f"JDIA solve istop {int(res.istop)}")
     check(delta["jdia_matvec"] == 2 * body + 1,
           f"JDIA solve: expected two jdia_matvec launches per iteration run: {delta}")
@@ -2047,7 +2066,7 @@ def phase_general_solves(dev, jdia, bell, card, paths):
                                        atol=1e-6, btol=1e-6, **kw)
         paths.append(delta)
         count_packings(label, key, tally, delta)
-        body = iterations_run(int(res.itn), seg)
+        body = iterations_launched(delta, int(res.itn))
         # lsqr: one adjoint before the loop, one product each way per iteration
         expect = {("block_ell_pair_windowed",): (body,),
                   ("block_ell_matvec_windowed",): (2 * body + 1,),
@@ -2633,7 +2652,6 @@ def phase_wcoo_solves(dev, ops, card, paths):
     import lsqr_tpu_torch as lt
 
     out = {}
-    seg = lt.LSQROptions().loop_segment
     fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
     tol = dict(atol=1e-6, btol=1e-6)
     for label, pair in (("wcoo", "wcoo_pair"), ("rwcoo", "wwcoo_pair")):
@@ -2646,7 +2664,7 @@ def phase_wcoo_solves(dev, ops, card, paths):
         res, delta, secs = timed_solve(A, b, f"{label} {A.m} x {A.n} (b) atol=btol=1e-6",
                                        card, **tol)
         paths.append(delta)
-        body = iterations_run(int(res.itn), seg)
+        body = iterations_launched(delta, int(res.itn))
         check(int(res.istop) in (1, 2, 3), f"{label} solve istop {int(res.istop)}")
         check(delta[pair] == body, f"{label}: expected one {pair} per iteration run: {delta}")
         ratio = coo_optimality(coo_t, A.m, A.n, b, res.x)
@@ -2740,7 +2758,7 @@ def phase_wcoo_solves(dev, ops, card, paths):
                                          f"pair's sequence route)", card,
                                    **dict(fixed, itnlim=16, nconv=17))
     paths.append(delta)
-    body = iterations_run(int(res.itn), min(seg, 16))  # a segment is at most itnlim long
+    body = iterations_launched(delta, int(res.itn))
     check(delta["wwcoo_pair[sequence]"] == body and delta["wwcoo_pair"] == 0,
           f"wwcoo band: expected {body} sequence-route pairs, one an iteration run: {delta}")
     out["wwcoo_band"] = dict(m=A.m, n=A.n, itn=int(res.itn), ms=secs * 1e3)
@@ -2851,7 +2869,6 @@ def phase_complex_solves(dev, card, paths):
     from lsqr_tpu_torch.models.synthetic import ZDIA_OFFSETS, jittered_band_coo
 
     out = {}
-    seg = lt.LSQROptions().loop_segment
     fixed = dict(itnlim=64, atol=0.0, btol=0.0, conlim=0.0, nconv=65)
     tol = dict(atol=1e-6, btol=1e-6)
     m, ks = M_ZDIA, ZDIA_OFFSETS
@@ -2871,7 +2888,7 @@ def phase_complex_solves(dev, card, paths):
                     dtype=torch.complex64)
     res, delta, secs = timed_solve(A, b, f"ZDIA m=n={m} (b) atol=btol=1e-6", card, **tol)
     paths.append(delta)
-    body = iterations_run(int(res.itn), seg)
+    body = iterations_launched(delta, int(res.itn))
     check(int(res.istop) in (1, 2, 3), f"ZDIA solve istop {int(res.istop)}")
     check(delta["zdia_pair"] == body and delta["dia_matvec"] == 4,
           f"ZDIA solve: expected one zdia_pair per iteration run and A^H b: {delta}")
@@ -2969,7 +2986,7 @@ def phase_complex_solves(dev, card, paths):
     res3, delta, secs3 = timed_solve(A3, b3, f"ZJDIA m=n={m3} (b) atol=btol=1e-6", card,
                                      **tol)
     paths.append(delta)
-    body3 = iterations_run(int(res3.itn), seg)
+    body3 = iterations_launched(delta, int(res3.itn))
     check(int(res3.istop) in (1, 2, 3), f"ZJDIA solve istop {int(res3.istop)}")
     check(delta["jdia_matvec"] == 4 * (2 * body3 + 1),
           f"ZJDIA solve: expected four jdia_matvec launches per product: {delta}")
@@ -3437,7 +3454,6 @@ def phase_rows(dev, m, card, paths):
     t_phase = time.perf_counter()
     out = {}
     tol = dict(atol=1e-6, btol=1e-6)
-    seg = lt.LSQROptions().loop_segment
 
     def run(label, fn):
         torch.cuda.synchronize()
@@ -3465,13 +3481,13 @@ def phase_rows(dev, m, card, paths):
     run("lsqr_multidamp warm-up", lambda: lt.lsqr_multidamp(A, b, MD_DAMPS, **tol))
     res, delta, secs = run(f"lsqr_multidamp k={len(MD_DAMPS)} (pair)",
                            lambda: lt.lsqr_multidamp(A, b, MD_DAMPS, **tol))
-    body = iterations_run(int(res.itn.max()), seg)
+    body = iterations_launched(delta, int(res.itn.max()))
     check(delta["dia_pair_shared"] == body and delta["dia_product_shared"] == 1,
           f"lsqr_multidamp: expected {body} pair launches (itn + masked, all damps) and one "
           f"setup product: {delta}")
     refs, walls = standalone("lsqr damp", lambda d: lt.lsqr(A, b, d, **tol),
                              [(d,) for d in MD_DAMPS])
-    pairs = sum(iterations_run(int(r.itn), seg) for r in refs)
+    pairs = sum(p["dia_pair_shared"] for p in paths[-len(refs):])
     log(f"    {body} pair launches for the sweep against {pairs} for the 8 solves; wall "
         f"{secs * 1e3:.1f} ms ({secs * 1e3 / body:.3f} ms an iteration run) against "
         f"{sum(walls):.1f} ms  [{card}]")
@@ -3485,7 +3501,7 @@ def phase_rows(dev, m, card, paths):
     # (2) lsmr_multidamp, k = 4, on the pair route
     res, delta, secs = run(f"lsmr_multidamp k={len(MD_LSMR_DAMPS)} (pair)",
                            lambda: lt.lsmr_multidamp(A, b, MD_LSMR_DAMPS, **tol))
-    body = iterations_run(int(res.itn.max()), seg)
+    body = iterations_launched(delta, int(res.itn.max()))
     check(delta["dia_pair_shared"] == body and delta["dia_product_shared"] == 1,
           f"lsmr_multidamp: expected {body} pair launches and one setup product: {delta}")
     refs, walls = standalone("lsmr damp", lambda d: lt.lsmr(A, b, d, **tol),
@@ -3497,7 +3513,7 @@ def phase_rows(dev, m, card, paths):
     B = torch.stack([b] + [torch.randn(m, generator=g, device=dev) for _ in range(3)])
     res, delta, secs = run(f"lsqr_batch k={len(BATCH_DAMPS)} (pair)",
                            lambda: lt.lsqr_batch(A, B, BATCH_DAMPS, **tol))
-    body = iterations_run(int(res.itn.max()), seg)
+    body = iterations_launched(delta, int(res.itn.max()))
     check(delta["dia_pair_shared"] == len(B) * body and delta["dia_product_shared"] == len(B),
           f"lsqr_batch: expected {len(B)} x {body} pair launches and {len(B)} setup products: "
           f"{delta}")
@@ -3515,7 +3531,7 @@ def phase_rows(dev, m, card, paths):
     damps3 = (0.0, DAMP, 1.0)
     res, delta, _ = run("lsqr_multidamp k=3, pair=False",
                         lambda: lt.lsqr_multidamp(A20, b20, damps3, pair=False, **tol))
-    body = iterations_run(int(res.itn.max()), seg)
+    body = iterations_launched(delta, int(res.itn.max()))
     check(delta["dia_pair_shared"] == 0 and delta["dia_product_shared"] == 2 * body + 1,
           f"pair=False sweep: expected {2 * body + 1} products: {delta}")
     refs, _ = standalone("lsqr pair=False, fused=False, damp",

@@ -89,7 +89,7 @@ def lsqr_batch(A, B, damp=0.0, *, options: Optional[LSQROptions] = None,
             batched=True, itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
             safe_norms=opts.safe_norms, fused=fused, pair=pair,
             scalar_dtype=as_dtype(opts.scalar_dtype))
-    return solve_rows(pieces, itnlim=itnlim, seg_len=opts.loop_segment)
+    return solve_rows(pieces, A=A, itnlim=itnlim, seg_len=opts.loop_segment)
 
 
 @tracing.entry("lsmr_batch", rows="B")
@@ -113,7 +113,7 @@ def lsmr_batch(A, B, damp=0.0, *, atol: float = 1e-6, btol: float = 1e-6,
         pieces = build_lsmr_rows(A, B, damps, scalar(atol), scalar(btol), scalar(conlim),
                                  batched=True, itnlim=itnlim, safe_norms=safe_norms,
                                  pair=pair)
-    return solve_rows(pieces, itnlim=itnlim, seg_len=loop_segment)
+    return solve_rows(pieces, A=A, itnlim=itnlim, seg_len=loop_segment)
 
 
 class _CGLSRows(NamedTuple):
@@ -261,4 +261,4 @@ def cgls_batch(A, B, damp=0.0, *, atol: float = 1e-6, btol: float = 1e-6,
     with tracing.span("prepare"):
         pieces = _build_cgls_rows(A, B, damps, scalar(atol), scalar(btol), itnlim=itnlim,
                                   safe_norms=safe_norms, pair=pair)
-    return solve_rows(pieces, itnlim=itnlim, seg_len=loop_segment)
+    return solve_rows(pieces, A=A, itnlim=itnlim, seg_len=loop_segment)

@@ -245,5 +245,6 @@ def cgls(
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, scalar(damp), scalar(atol), scalar(btol), itnlim=itnlim,
         safe_norms=safe_norms, pair=pair)
-    final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim, seg_len=loop_segment)
+    final = _run_segments(carry0, cond_fun, body_fun, A=A, itnlim=itnlim,
+                          seg_len=loop_segment)
     return finalize(final)

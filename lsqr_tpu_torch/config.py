@@ -66,8 +66,10 @@ class LSQROptions:
     Differences in meaning:
 
     * ``loop``: both forms run the same host-stepped masked segments of
-      ``loop_segment`` iterations (one host read of istop/itn per
-      segment); ``istop``/``itn`` equal those of JAX's ``while_loop``.
+      at most ``loop_segment`` iterations (one blocking host read of
+      istop/itn per segment; a segment ends early where a step's stop
+      flag, read without blocking, says the solve is done);
+      ``istop``/``itn`` equal those of JAX's ``while_loop``.
     * ``debug_log=True`` prints the reference's iteration lines under its
       throttle rule, as JAX's ``jax.debug.print`` does, but a segment at a
       time: the rows stay on the device and come to the host with the

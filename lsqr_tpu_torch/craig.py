@@ -223,5 +223,6 @@ def craig(
         A, b, as_tensor(atol, dtype=rdtype, device=b.device),
         as_tensor(btol, dtype=rdtype, device=b.device),
         itnlim=itnlim, safe_norms=safe_norms, pair=pair)
-    final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim, seg_len=loop_segment)
+    final = _run_segments(carry0, cond_fun, body_fun, A=A, itnlim=itnlim,
+                          seg_len=loop_segment)
     return finalize(final)

@@ -147,7 +147,8 @@ def normal_cg(A, damp, g, *, tol: float = 1e-10, maxiter: Optional[int] = None,
         itn = c.itn + 1
         return _CGCarry(itn=itn, istop=stop(rs, itn), s=s, r=r, p=r + beta * c.p, rs=rs)
 
-    final = _run_segments(carry0, cond_fun, body_fun, itnlim=maxiter, seg_len=loop_segment)
+    final = _run_segments(carry0, cond_fun, body_fun, A=A, itnlim=maxiter,
+                          seg_len=loop_segment)
     if info is not None:
         info["itn"] = int(final.itn)
     return final.s

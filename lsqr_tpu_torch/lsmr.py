@@ -417,5 +417,6 @@ def lsmr(
     carry0, cond_fun, body_fun, finalize = _build(
         A, b, scalar(damp), scalar(atol), scalar(btol), scalar(conlim),
         itnlim=itnlim, record_trace=record_trace, safe_norms=safe_norms, pair=pair)
-    final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim, seg_len=loop_segment)
+    final = _run_segments(carry0, cond_fun, body_fun, A=A, itnlim=itnlim,
+                          seg_len=loop_segment)
     return finalize(final)

@@ -173,15 +173,16 @@ def _rows_step(c, cond_fun, body_fun, *, shared):
     return type(c)(*out)
 
 
-def solve_rows(pieces, *, itnlim: int, seg_len: int):
-    """Run the pieces of a builder over rows in segments: one host read a
-    segment of (every row stopped, iterations run)."""
+def solve_rows(pieces, *, A, itnlim: int, seg_len: int):
+    """Run the pieces of a builder over rows on operator ``A`` in segments:
+    one blocking host read a segment of (every row stopped, iterations
+    run), and the same head of each step read without blocking."""
     carry0, cond_fun, body_fun, finalize, shared = pieces
 
     def head(c):
         return torch.stack([(~cond_fun(c)).all().to(torch.int32), c.itn.max()])
 
-    final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim, seg_len=seg_len,
+    final = _run_segments(carry0, cond_fun, body_fun, A=A, itnlim=itnlim, seg_len=seg_len,
                           step=partial(_rows_step, shared=shared), head=head)
     with tracing.span("finalize"):
         return finalize(final)
@@ -527,7 +528,7 @@ def lsqr_multidamp(A, b, damps, *, options: Optional[LSQROptions] = None,
             batched=False, itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
             safe_norms=opts.safe_norms, fused=pair, pair=pair,
             scalar_dtype=as_dtype(opts.scalar_dtype))
-    return solve_rows(pieces, itnlim=itnlim, seg_len=opts.loop_segment)
+    return solve_rows(pieces, A=A, itnlim=itnlim, seg_len=opts.loop_segment)
 
 
 def _damps(damps, dtype, device) -> torch.Tensor:
@@ -782,4 +783,4 @@ def lsmr_multidamp(A, b, damps, *, atol: float = 1e-6, btol: float = 1e-6,
         pieces = build_lsmr_rows(A, b, damps, scalar(atol), scalar(btol), scalar(conlim),
                                  batched=False, itnlim=itnlim, safe_norms=safe_norms,
                                  pair=pair)
-    return solve_rows(pieces, itnlim=itnlim, seg_len=loop_segment)
+    return solve_rows(pieces, A=A, itnlim=itnlim, seg_len=loop_segment)

@@ -333,7 +333,7 @@ def _run_lsqr(op, b, damp, opts, *, pair):
         itnlim=itnlim, wantse=opts.wantse, nconv=opts.nconv,
         record_trace=opts.record_trace, safe_norms=opts.safe_norms, fused=pair,
         pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype), log_rows=log)
-    return finalize(_run_segments(carry0, cond_fun, body_fun, itnlim=itnlim,
+    return finalize(_run_segments(carry0, cond_fun, body_fun, A=op, itnlim=itnlim,
                                   seg_len=opts.loop_segment, log=log))
 
 
@@ -359,7 +359,7 @@ def _run_sibling(name, op, b, scalars, *, itnlim, safe_norms, pair, **kw):
     carry0, cond_fun, body_fun, finalize = build(
         op, b, *(as_tensor(scalars[k], dtype=rd, device=b.device) for k in keys),
         itnlim=int(itnlim), safe_norms=safe_norms, pair=pair, **kw)
-    return finalize(_run_segments(carry0, cond_fun, body_fun, itnlim=int(itnlim),
+    return finalize(_run_segments(carry0, cond_fun, body_fun, A=op, itnlim=int(itnlim),
                                   seg_len=64))
 
 
@@ -640,7 +640,7 @@ def lsqr_multidamp_sharded(A, b, damps, *, mesh=None, axis_name: str = "rows",
             scalar(opts.btol), scalar(opts.conlim), batched=False, itnlim=itnlim,
             wantse=opts.wantse, nconv=opts.nconv, safe_norms=opts.safe_norms, fused=pair,
             pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype))
-    return solve_rows(pieces, itnlim=itnlim, seg_len=opts.loop_segment)
+    return solve_rows(pieces, A=op, itnlim=itnlim, seg_len=opts.loop_segment)
 
 
 # ---------------------------------------------------------------------------

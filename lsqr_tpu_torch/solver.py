@@ -7,12 +7,15 @@ rotation (lsqr.f90:703-710), the dxmax monitor (lsqr.f90:747-757) and the
 standard-error finalization (lsqr.f90:857-865).
 
 The loop is the JAX package's bounded form (``_masked_body`` and
-``_lsqr_bounded``): segments of ``loop_segment`` iterations in which every
-iteration runs, and an iteration after convergence leaves the carry as it
-was (``torch.where(active, new, old)``). The scalar recurrence stays in 0-d
-tensors on the device, and the host reads ``istop``/``itn`` once per
-segment, never once per iteration. The masking makes ``itn`` and ``istop``
-those of JAX's ``while_loop``.
+``_lsqr_bounded``): segments of at most ``loop_segment`` iterations, and
+an iteration after convergence leaves the carry as it was
+(``torch.where(active, new, old)``). The scalar recurrence stays in 0-d
+tensors on the device, and the host blocks on ``istop``/``itn`` once per
+segment, never once per iteration; between those reads it watches each
+iteration's stop flag without blocking and ends the segment early once a
+flag says the solve is done (:class:`_StopReads`). The masking makes
+``itn`` and ``istop`` those of JAX's ``while_loop``, and the answer the
+same bits whatever the number of masked iterations after the stop.
 
 Complex problems, as in the JAX package: the vectors u, v, w and x are
 complex, ``rmatvec`` is the conjugate-transpose product, and every scalar
@@ -443,10 +446,72 @@ def _debug_line(itn, x0, rnorm, test1, test2, anorm, acond, phi, dknorm, dxk, al
           f"{acond: .1e} {phi: .1e} {dknorm: .1e} {dxk: .1e} {alfopt: .1e}", flush=True)
 
 
-def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int, log=None,
+#: steps the host may enqueue past the newest step whose stop flag it may
+#: not have read: before enqueueing step i it waits for step i - AHEAD to
+#: end, so a solve runs at most AHEAD masked steps past its stop. 2 is the
+#: least that keeps a card-paced solve fed: while the host enqueues step i
+#: (a few ms of launches in ``lsqr_batch`` of 16 rows at 2^23 x 11) the
+#: card still runs step i - 1 (~13.7 ms). There, on an H100 at 700 W, 2
+#: ran 33 steps for the 32 needed at 484.3 ms a call, 3 and 4 ran 34 at
+#: 497.8 and 498.3 ms, and whole 64-step segments 900.1-903.3 ms.
+AHEAD = 2
+
+
+class _StopReads:
+    """The stop head of each step of a segment (nonzero once the solve has
+    stopped, itn), read without draining the stream: on the card each head
+    is copied into a ring of :data:`AHEAD` pinned host buffers behind a
+    CUDA event (the megakernel host loop's snapshot); on the CPU, with no
+    stream, it is read as it is made."""
+
+    def __init__(self, itnlim: int, prev_itn: int, cuda: bool):
+        self.itnlim, self.prev, self.cuda = itnlim, prev_itn, cuda
+        self.pushed = self.seen = 0  # heads pushed; heads older than seen are read
+        self.host = [None] * AHEAD
+        self.events = [torch.cuda.Event() for _ in range(AHEAD)] if cuda else None
+
+    def push(self, head: torch.Tensor) -> None:
+        """Take the head of the step just enqueued."""
+        slot = self.pushed % AHEAD
+        if self.cuda:
+            if self.host[slot] is None:
+                self.host[slot] = torch.empty(head.shape, dtype=head.dtype, pin_memory=True)
+            self.host[slot].copy_(head, non_blocking=True)
+            self.events[slot].record()
+        else:
+            self.host[slot] = head
+        self.pushed += 1
+
+    def done(self) -> bool:
+        """Whether the newest head that has come and was not read before
+        says the solve is done, by the segment read's rule (stopped, out of
+        iterations, or itn unchanged since the previous read); first waits
+        for the step AHEAD back to end."""
+        j = self.pushed - 1
+        if self.cuda:
+            floor = self.pushed - AHEAD
+            if floor >= 0:
+                self.events[floor % AHEAD].synchronize()
+            while j > floor and j >= self.seen and not self.events[j % AHEAD].query():
+                j -= 1
+        if j < self.seen:
+            return False
+        self.seen = j + 1
+        stopped, itn = self.host[j % AHEAD].tolist()
+        done = stopped != 0 or itn >= self.itnlim or itn == self.prev
+        self.prev = itn
+        return done
+
+
+def _run_segments(carry, cond_fun, body_fun, *, A, itnlim: int, seg_len: int, log=None,
                   stop_at: Optional[int] = None, step=_masked_step, head=None):
-    """Host-stepped solve in segments of masked iterations: one host read of
-    (istop, itn) per segment; at most ``seg_len - 1`` masked iterations.
+    """Host-stepped solve in segments of masked iterations on operator
+    ``A``: one blocking host read of (istop, itn) per segment, which
+    decides the return. A segment ends after ``seg_len`` steps, or earlier
+    where a step's stop head, read without blocking (:class:`_StopReads`),
+    says the solve is done; so the solve runs at most :data:`AHEAD` masked
+    iterations past its stop. A solve across ranks and one with ``log``
+    run whole segments.
 
     ``log`` is the ``log_rows`` list of :func:`_build`: the segment's rows
     come to the host in the same read, and the flagged ones are printed.
@@ -454,21 +519,38 @@ def _run_segments(carry, cond_fun, body_fun, *, itnlim: int, seg_len: int, log=N
     (the checkpointed solves' segment) and returns. The solves over rows
     (:mod:`..multidamp`, :mod:`..batch`) pass their own masked ``step`` and
     a ``head(carry)``, the int tensor (nonzero once every row has stopped,
-    iterations run) that the segment's read takes in place of (istop, itn)."""
+    iterations run) that the reads take in place of (istop, itn)."""
     seg = min(seg_len, itnlim) if itnlim > 0 else seg_len
     if stop_at is not None:
         def cond(c):
             return cond_fun(c) & (c.itn < stop_at)
     else:
         cond = cond_fun
+    if head is None:
+        def head(c):
+            return torch.stack([c.istop, c.itn])
+    # the ranks of a sharded solve (an operator whose distribution hooks
+    # name a process group) must leave the loop at one iteration, and a
+    # flag read without blocking lands at another step on each rank: they,
+    # and debug_log solves, whose rows ride on it, end segments only on the
+    # blocking read, which every rank takes at the same step
+    cut = (log is None and getattr(A, "axis_name_m", None) is None
+           and getattr(A, "axis_name_n", None) is None)
     prev_itn = 0
     while True:
+        steps = 0
         with tracing.span("segment.enqueue", seg=seg):
-            for _ in range(seg):
+            reads = _StopReads(itnlim, prev_itn, carry.itn.is_cuda) if cut else None
+            while steps < seg and not (reads is not None and reads.done()):
                 carry = step(carry, cond, body_fun)
-        tracing.count("iterations_launched", seg)
+                steps += 1
+                if reads is not None and steps < seg:
+                    reads.push(head(carry))
+        tracing.count("iterations_launched", steps)
+        if steps < seg:
+            tracing.count("segments_cut", 1)
         with tracing.span("segment.read") as attrs:
-            read = torch.stack([carry.istop, carry.itn]) if head is None else head(carry)
+            read = head(carry)
             if log:
                 read = torch.cat([read.double(),
                                   torch.stack(log).double().reshape(-1)]).tolist()
@@ -610,7 +692,7 @@ def lsqr(
             record_trace=opts.record_trace, safe_norms=opts.safe_norms,
             fused=fused, pair=pair, scalar_dtype=as_dtype(opts.scalar_dtype), log_rows=log,
         )
-    final = _run_segments(carry0, cond_fun, body_fun, itnlim=itnlim,
+    final = _run_segments(carry0, cond_fun, body_fun, A=A, itnlim=itnlim,
                           seg_len=opts.loop_segment, log=log)
     with tracing.span("finalize"):
         return finalize(final)

@@ -6,10 +6,13 @@ megakernel launch, never once a masked iteration, read with :func:`counts`.
 =====================  ========================================================
 counter                bumped
 =====================  ========================================================
-iterations_launched    ``seg`` a segment of ``solver._run_segments``; ``K`` a
-                       megakernel launch
+iterations_launched    the steps a segment of ``solver._run_segments``
+                       enqueued (at most its ``seg``); ``K`` a megakernel
+                       launch
 iterations_needed      the solve's final itn (the largest row itn of a solve
                        over rows), from the read that already brings it
+segments_cut           1 a segment of ``solver._run_segments`` that a stop
+                       flag read without blocking ended before ``seg`` steps
 =====================  ========================================================
 
 Spans are recorded while a ``torch.profiler`` session records, or between
@@ -40,7 +43,7 @@ entry              none                  an outermost entry call (no profiler ra
                                          ``entry``, ``rows`` and the call's deltas of the counters and of
                                          ``spmv.launch_counts()`` (``launches``)
 prepare, finalize  entry                 set-up before the loop, the result after it
-segment.enqueue    entry                 a segment's ``seg`` masked steps (``seg``)
+segment.enqueue    entry                 a segment's masked steps (``seg``: at most)
 segment.read       entry                 its host read (``itn``)
 mk.launch          entry                 a megakernel launch and its snapshot (``K``)
 mk.wait            entry                 the wait for a snapshot, the final state
@@ -88,7 +91,7 @@ MAX_SPANS = 2 ** 17
 #: a kernel span times one launch in SAMPLE of each wrapper: a prime, so
 #: the launches of a batch's rows take turns
 SAMPLE = 17
-COUNTERS = ("iterations_launched", "iterations_needed")
+COUNTERS = ("iterations_launched", "iterations_needed", "segments_cut")
 
 
 class Span(NamedTuple):

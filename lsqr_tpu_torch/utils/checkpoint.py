@@ -69,7 +69,7 @@ def load_state(path: str, dtype=None, carry_cls=_Carry, *, device=None):
     return carry_cls(**kw)
 
 
-def _run_checkpointed(carry0, cond_fun, body_fun, finalize, itnlim, *, segment_iters,
+def _run_checkpointed(carry0, cond_fun, body_fun, finalize, itnlim, *, A, segment_iters,
                       checkpoint_path, resume_from, on_segment, carry_cls, dtype,
                       device, log=None):
     carry = (load_state(resume_from, dtype=dtype, carry_cls=carry_cls, device=device)
@@ -77,7 +77,7 @@ def _run_checkpointed(carry0, cond_fun, body_fun, finalize, itnlim, *, segment_i
     seg = 0
     start = int(carry.itn)
     while True:
-        carry = _run_segments(carry, cond_fun, body_fun, itnlim=itnlim,
+        carry = _run_segments(carry, cond_fun, body_fun, A=A, itnlim=itnlim,
                               seg_len=segment_iters, log=log,
                               stop_at=min(start + segment_iters, itnlim))
         seg += 1
@@ -131,7 +131,7 @@ def lsqr_checkpointed(
                     nconv=opts.nconv, record_trace=opts.record_trace,
                     safe_norms=opts.safe_norms, scalar_dtype=as_dtype(opts.scalar_dtype),
                     log_rows=log)
-    return _run_checkpointed(*pieces, itnlim, segment_iters=segment_iters,
+    return _run_checkpointed(*pieces, itnlim, A=A, segment_iters=segment_iters,
                              checkpoint_path=checkpoint_path, resume_from=resume_from,
                              on_segment=on_segment, carry_cls=_Carry, dtype=dtype,
                              device=b.device, log=log)
@@ -146,7 +146,7 @@ def _sibling(module, A, b, m, n, itnlim_rule, build_args, segment_iters, checkpo
     itnlim = build_kw.pop("itnlim")
     itnlim = int(itnlim_rule(A) if itnlim is None else itnlim)
     pieces = mod._build(A, b, *(scalar(v) for v in build_args), itnlim=itnlim, **build_kw)
-    return _run_checkpointed(*pieces, itnlim, segment_iters=segment_iters,
+    return _run_checkpointed(*pieces, itnlim, A=A, segment_iters=segment_iters,
                              checkpoint_path=checkpoint_path, resume_from=resume_from,
                              on_segment=on_segment, carry_cls=mod._Carry, dtype=dtype,
                              device=b.device)

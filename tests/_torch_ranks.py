@@ -154,6 +154,16 @@ def solve(entry, spec, b, shape, args=(), kwargs=None):
                                            **(kwargs or {})))
 
 
+def counted_segments(entry, spec, b, shape, args=(), kwargs=None):
+    """:func:`solve`'s result with the solve's ``lsqr_tpu_torch.tracing``
+    counters, or None on a rank outside the mesh."""
+    from lsqr_tpu_torch import tracing
+
+    tracing.clear()
+    res = solve(entry, spec, b, shape, args, kwargs)
+    return None if res is None else (res, tracing.counts())
+
+
 def solve_error(entry, spec, b, shape, args=(), kwargs=None):
     """(exception class name, message) of a solve that must fail, or None
     where it does not (and on a rank outside the mesh)."""

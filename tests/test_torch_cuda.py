@@ -16,7 +16,9 @@ import pytest
 import torch
 
 import lsqr_tpu_torch as lt
+from lsqr_tpu_torch import tracing
 from lsqr_tpu_torch.ops import spmv
+from lsqr_tpu_torch.solver import AHEAD
 
 from _torch_parity import DEV, banded, cuda_device, rel_err, wide_band_triplets  # noqa: F401
 
@@ -1368,10 +1370,11 @@ def test_cuda_complex_solves_run_through_zdia_pair(rng, cuda_device):
     kw = dict(atol=1e-6, btol=1e-6)
     ref = lt.lsqr(Ah, b, 0.01, **kw)
     spmv.reset_launch_counts()
+    before = tracing.counts()["iterations_launched"]
     res = lt.lsqr(A, torch.from_numpy(b).to(cuda_device), 0.01, **kw)
-    seg = lt.LSQROptions().loop_segment
-    assert spmv.launch_counts() == _only(zdia_pair=-(-int(res.itn) // seg) * seg,
-                                         dia_matvec=4)
+    launched = tracing.counts()["iterations_launched"] - before
+    assert int(res.itn) <= launched <= int(res.itn) + AHEAD  # masked steps past the stop
+    assert spmv.launch_counts() == _only(zdia_pair=launched, dia_matvec=4)
     assert res.x.dtype == torch.complex64 and res.rnorm.dtype == torch.float32
     assert int(res.istop) == int(ref.istop) and abs(int(res.itn) - int(ref.itn)) <= 2
     assert _crel(res.x.cpu(), ref.x) < 1e-4

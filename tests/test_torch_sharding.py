@@ -384,6 +384,30 @@ def test_multidamp_sharded(pool, rng, kind, pair):
     np.testing.assert_allclose(res["x"], own.x.numpy(), rtol=1e-7, atol=1e-10)
 
 
+@pytest.mark.parametrize("entry", ["lsqr_sharded", "lsqr_multidamp_sharded"])
+def test_sharded_solves_run_whole_segments(pool, rng, entry):
+    """Ranks must leave the loop at the same iteration, and a stop flag read
+    without blocking lands at another step on each rank: a sharded solve,
+    even on a world of one, ends a segment only on the segment's blocking
+    read, where the same solve unsharded ends it at the stop."""
+    from lsqr_tpu_torch import tracing
+
+    spec = coo_spec(rng, 262, 150, 1500, boost=8.0)
+    b = rng.standard_normal(262)
+    args = (np.array([0.0, 0.1]),) if entry == "lsqr_multidamp_sharded" else (0.1,)
+    kw = dict(atol=1e-8, btol=1e-8, loop_segment=8)
+    out = pool.run(ranks.counted_segments, entry, spec, b, 1, args, kw)
+    (res, c), = [o for o in out if o is not None]
+    itn = int(res["itn"].max())
+    assert itn % 8 != 0 and c["iterations_needed"] == itn
+    assert c["iterations_launched"] == 8 * -(-itn // 8) and c["segments_cut"] == 0
+    tracing.clear()
+    solve = lt.lsqr_multidamp if entry == "lsqr_multidamp_sharded" else lt.lsqr
+    own = solve(port_op(spec), torch.from_numpy(b), *args, **kw)
+    assert int(own.itn.max()) == itn
+    assert tracing.counts()["segments_cut"] == 1
+
+
 # ---------------------------------------------------------------------------
 # 2-D blocks
 # ---------------------------------------------------------------------------

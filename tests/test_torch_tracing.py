@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 import lsqr_tpu_torch as lt
 from lsqr_tpu_torch import tracing
 from lsqr_tpu_torch.ops import spmv
+from lsqr_tpu_torch.solver import AHEAD
 
 from _torch_parity import banded, cuda_device  # noqa: F401
 
@@ -66,9 +67,9 @@ def test_nothing_is_recorded_off_the_profiler_and_the_counters_count():
     assert tracing.spans() == []
     c = tracing.counts()
     assert set(c) == {*tracing.COUNTERS, "spans_dropped"} and c["spans_dropped"] == 0
-    assert c["iterations_launched"] % SEG == 0
-    assert c["iterations_launched"] >= SEG * -(-itn // SEG)
-    assert c["iterations_needed"] == itn
+    # a segment ends at most AHEAD masked steps past the stop, or at SEG
+    assert c["iterations_needed"] == itn <= c["iterations_launched"] <= itn + AHEAD
+    assert c["iterations_launched"] <= SEG * -(-itn // SEG)
 
 
 def test_off_a_span_site_opens_no_annotation_and_no_event(monkeypatch):
@@ -98,7 +99,9 @@ def test_lsqr_records_its_span_tree_under_the_profiler():
     assert len(spans["segment.read"]) == segments
     assert all(s.attrs["seg"] == SEG for s in spans["segment.enqueue"])
     assert spans["segment.read"][-1].attrs["itn"] == int(res.itn)
-    assert entry.attrs["iterations_launched"] == SEG * segments
+    # seg is the most a segment runs: all but the last run it whole
+    assert SEG * (segments - 1) < entry.attrs["iterations_launched"] <= SEG * segments
+    assert int(res.itn) <= entry.attrs["iterations_launched"] <= int(res.itn) + AHEAD
     assert entry.attrs["iterations_needed"] == int(res.itn)
     order = [s.name for s in sorted(tracing.spans(), key=lambda s: s.start_ns)]
     assert order[:3] == ["entry", "prepare", "segment.enqueue"] and order[-1] == "finalize"
@@ -110,7 +113,9 @@ def test_lsqr_batch_records_its_rows_and_the_largest_itn():
     entry, = spans["entry"]
     assert entry.attrs["entry"] == "lsqr_batch" and entry.attrs["rows"] == 3
     assert entry.attrs["iterations_needed"] == int(res.itn.max())
-    assert entry.attrs["iterations_launched"] == 64 * len(spans["segment.enqueue"])
+    launched = entry.attrs["iterations_launched"]
+    assert launched <= 64 * len(spans["segment.enqueue"])
+    assert int(res.itn.max()) <= launched <= int(res.itn.max()) + AHEAD
     assert spans["prepare"][0].parent == spans["finalize"][0].parent == entry.id
 
 
@@ -382,7 +387,8 @@ def test_the_band_declares_its_pair_and_the_megakernel_its_k(cuda_device):
     assert {s.attrs["kernel_name"] for s in pairs} == {"dia_pair_shared"}
     assert all(s.attrs["rows"] == 1 and s.call == entry.id for s in pairs)
     launched = entry.attrs["launches"]["dia_pair_shared"]
-    assert launched == 4 * 64 * len(spans["segment.enqueue"])
+    assert launched == 4 * entry.attrs["iterations_launched"]
+    assert entry.attrs["iterations_launched"] <= 64 * len(spans["segment.enqueue"])
     assert len(pairs) == -(-launched // tracing.SAMPLE)
     assert entry.attrs["iterations_needed"] == int(res.itn.max())
     tracing.clear()

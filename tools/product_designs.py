@@ -470,21 +470,27 @@ def profiled_solve(smoke, fn, args, kw):
     """(result, {istop, itn, wall and kernel ms per iteration}) of a solve:
     a warm-up run, a timed one, then one under the profiler (every kernel's
     device time, and the products' apart). An iteration is one the solve
-    runs: the solvers run whole segments of ``loop_segment`` (64)
-    iterations, the last masked after convergence
-    (``chip_smoke.iterations_run``), setup included."""
+    runs, masked ones included (the program's ``iterations_launched``
+    counter; a checkout without it runs whole segments of
+    ``loop_segment``, ``chip_smoke.iterations_run``), setup included."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import lsqr_tpu_torch as lt
 
+    try:
+        from lsqr_tpu_torch.tracing import counts
+    except ImportError:  # a checkout from before the program's counters
+        counts = None
     fn(*args, **kw)
     torch.cuda.synchronize()
+    before = counts()["iterations_launched"] if counts else 0
     t0 = time.perf_counter()
     res = fn(*args, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launched = counts()["iterations_launched"] - before if counts else None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         again = fn(*args, **kw)
         torch.cuda.synchronize()
@@ -492,7 +498,7 @@ def profiled_solve(smoke, fn, args, kw):
     product = ("dia_product_staged_kernel", "dia_matvec_kernel", "dia_product_shared_kernel")
     itn = int(res.itn)
     smoke.check(int(again.itn) == itn, "a solve's second run stopped elsewhere")
-    runs = smoke.iterations_run(itn, lt.LSQROptions().loop_segment)
+    runs = launched or smoke.iterations_run(itn, lt.LSQROptions().loop_segment)
     return res, dict(istop=int(res.istop), itn=itn, iterations_run=runs,
                      wall_ms_per_iteration=wall * 1e3 / runs,
                      kernel_ms_per_iteration=sum(e.device_time for e in kernels) / 1e3 / runs,
